@@ -1,0 +1,143 @@
+"""Model / shape / run configuration for the PyTorch port.
+
+``ModelConfig`` and ``ShapeConfig`` are copies of the dataclasses in
+``repro/configs/base.py`` (the port imports nothing from ``repro``), with
+the same fields, so one arch is described the same way in both packages.
+``RunConfig`` keeps only the fields the ported serving path reads.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Any, Dict, List, Optional
+
+
+@dataclass
+class ModelConfig:
+    name: str
+    family: str  # dense | ssm | hybrid | moe | encdec | vlm
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0  # 0 -> d_model // num_heads
+
+    # --- attention details ---
+    qkv_bias: bool = False
+    mlp_bias: bool = False
+    gated_mlp: bool = True  # SwiGLU-style (llama family); False -> plain MLP
+    act: str = "silu"  # silu | gelu
+    rope_theta: float = 10_000.0
+    sliding_window: int = 0  # 0 = full attention
+
+    # --- MoE ---
+    num_experts: int = 0
+    num_experts_per_tok: int = 0
+    moe_capacity_factor: float = 1.25
+
+    # --- SSM (Mamba2 / SSD) ---
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    ssm_chunk: int = 128
+    ssm_conv: int = 4
+
+    # --- hybrid (zamba2-style) ---
+    attn_every: int = 0
+
+    # --- encoder-decoder (whisper) ---
+    encoder_layers: int = 0
+    encoder_frames: int = 1500
+
+    # --- VLM (llava) ---
+    num_img_patches: int = 0
+
+    # --- numerics ---
+    norm_eps: float = 1e-5
+    dtype: str = "bfloat16"
+    tie_embeddings: bool = False
+
+    # --- serving ---
+    kv_cache_dtype: str = "bfloat16"  # bfloat16 | int8
+
+    # --- provenance ---
+    source: str = ""
+
+    def __post_init__(self) -> None:
+        if self.head_dim == 0 and self.num_heads:
+            self.head_dim = self.d_model // self.num_heads
+        if self.family == "ssm":
+            self.attn_every = 0
+
+    @property
+    def q_dim(self) -> int:
+        return self.num_heads * self.head_dim
+
+    @property
+    def kv_dim(self) -> int:
+        return self.num_kv_heads * self.head_dim
+
+    def replace(self, **kw: Any) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+@dataclass
+class RunConfig:
+    """Knobs of one run of the ported path.
+
+    ``use_kernels``: None launches the hand-written kernels exactly when
+    the tensors lie on CUDA and uses the plain versions on the CPU; True on
+    a CPU tensor raises; False selects the plain versions everywhere (the
+    comparison phases of the tests and of ``chip_smoke.py``).
+    """
+
+    attn_block_k: int = 512  # KV chunk of the plain flash reference
+    logits_in_fp32: bool = True
+    use_kernels: Optional[bool] = None
+
+    def replace(self, **kw: Any) -> "RunConfig":
+        return dataclasses.replace(self, **kw)
+
+
+_REGISTRY: Dict[str, ModelConfig] = {}
+_SMOKE_REGISTRY: Dict[str, ModelConfig] = {}
+
+
+def register(cfg: ModelConfig, smoke: ModelConfig) -> ModelConfig:
+    _REGISTRY[cfg.name] = cfg
+    _SMOKE_REGISTRY[cfg.name] = smoke
+    return cfg
+
+
+def _ensure_loaded() -> None:
+    # importing the arch modules populates the registry
+    from repro_torch.configs import archs  # noqa: F401
+
+
+def get_config(name: str) -> ModelConfig:
+    _ensure_loaded()
+    if name not in _REGISTRY:
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(_REGISTRY)}")
+    return _REGISTRY[name]
+
+
+def get_smoke_config(name: str) -> ModelConfig:
+    _ensure_loaded()
+    if name not in _SMOKE_REGISTRY:
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(_REGISTRY)}")
+    return _SMOKE_REGISTRY[name]
+
+
+def list_archs() -> List[str]:
+    _ensure_loaded()
+    return sorted(_REGISTRY)

@@ -1,0 +1,99 @@
+"""Decoder-only transformer, dense family, ported from
+``repro/models/transformer.py``.
+
+Layers are stacked on a leading L axis as in the JAX tree; a Python loop
+over layers takes the place of ``lax.scan``.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.models import layers as L
+
+Params = Dict[str, Any]
+
+
+def _check_family(cfg: ModelConfig) -> None:
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet (dense only)")
+
+
+def param_defs(cfg: ModelConfig) -> Params:
+    _check_family(cfg)
+    n = cfg.num_layers
+    return {
+        "embed": L.embed_defs(cfg),
+        "blocks": {
+            "ln1": L.norm_defs(n, cfg.d_model),
+            "attn": L.attention_defs(cfg, n),
+            "ln2": L.norm_defs(n, cfg.d_model),
+            "mlp": L.mlp_defs(cfg, n),
+        },
+        "ln_f": L.norm_defs(0, cfg.d_model),
+    }
+
+
+def _layer(tree: Params, i: int) -> Params:
+    return {k: (_layer(v, i) if isinstance(v, dict) else v[i])
+            for k, v in tree.items()}
+
+
+def _block(p_l: Params, cfg: ModelConfig, run: RunConfig, x: torch.Tensor,
+           pos: int, cache_l: Optional[Params], kv_len: Optional[int]
+           ) -> torch.Tensor:
+    h = L.rmsnorm(p_l["ln1"], x, cfg, run)
+    h, _ = L.attention(p_l["attn"], cfg, run, h, pos=pos, cache=cache_l,
+                       kv_len=kv_len)
+    x = x + h
+    h = L.rmsnorm(p_l["ln2"], x, cfg, run)
+    return x + L.mlp(p_l["mlp"], cfg, run, h)
+
+
+def _run_blocks(params: Params, cfg: ModelConfig, run: RunConfig,
+                x: torch.Tensor, pos: int, cache: Optional[Params] = None,
+                kv_len: Optional[int] = None) -> torch.Tensor:
+    """Runs every block, then ``ln_f``.  A given cache is updated in place
+    (each layer's slice is a view into the stack)."""
+    for i in range(cfg.num_layers):
+        c_l = None if cache is None else _layer(cache, i)
+        x = _block(_layer(params["blocks"], i), cfg, run, x, pos, c_l,
+                   kv_len)
+    return L.rmsnorm(params["ln_f"], x, cfg, run)
+
+
+def forward(params: Params, cfg: ModelConfig, run: RunConfig,
+            batch: Dict[str, Any]) -> torch.Tensor:
+    """Forward over a (B, S) batch -> final hidden states (B, S, d)."""
+    _check_family(cfg)
+    x = L.embed(params["embed"], batch["tokens"])
+    return _run_blocks(params, cfg, run, x, 0)
+
+
+def cache_defs(cfg: ModelConfig, batch: int, max_len: int) -> Params:
+    return L.kv_cache_defs(cfg, cfg.num_layers, batch, max_len)
+
+
+def prefill(params: Params, cfg: ModelConfig, run: RunConfig,
+            batch: Dict[str, Any], cache: Params
+            ) -> Tuple[torch.Tensor, Params]:
+    """Fills the cache from a (B, S) prompt; returns last-position logits
+    (B, 1, V) and the cache (the same object, filled in place)."""
+    _check_family(cfg)
+    x = L.embed(params["embed"], batch["tokens"])
+    S = x.shape[1]
+    x = _run_blocks(params, cfg, run, x, 0, cache=cache, kv_len=S)
+    return L.logits_out(params["embed"], cfg, run, x[:, -1:]), cache
+
+
+def decode(params: Params, cfg: ModelConfig, run: RunConfig,
+           tokens: torch.Tensor, cache: Params, pos: int
+           ) -> Tuple[torch.Tensor, Params]:
+    """One decode step.  tokens: (B, 1); pos: current length (int)."""
+    _check_family(cfg)
+    x = L.embed(params["embed"], tokens)
+    x = _run_blocks(params, cfg, run, x, pos, cache=cache, kv_len=pos + 1)
+    return L.logits_out(params["embed"], cfg, run, x), cache

@@ -1,0 +1,156 @@
+"""The port's yi-6b serving slice against the JAX reference, on the CPU.
+
+JAX weights from ``repro.models.params.materialize`` are carried over with
+``from_jax_params``; the same numpy prompt and decode tokens go through
+``repro.models.registry.prefill``/``decode`` (called directly, outside
+``use_rules``) and through the port.
+
+Tolerances: 2e-3 with f32 params — the KV cache is bf16 in both, and a
+cached element can round one bf16 ulp apart when the f32 projections sum
+in another order; 3e-2 with bf16 params, as tests/test_models.py uses for
+bf16 logits (bf16 matmul outputs round at other places in the two
+frameworks).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs.base import RunConfig as JRunConfig
+from repro.configs.base import get_smoke_config as j_smoke
+from repro.models import params as JP
+from repro.models import registry as jreg
+from repro.serve import engine as jengine
+from repro_torch.configs.base import RunConfig, get_smoke_config
+from repro_torch.launch import serve as tserve
+from repro_torch.models import params as TP
+from repro_torch.models import registry as treg
+from repro_torch.serve import engine as tengine
+
+ARCH = "yi-6b"
+B, S, MAX_LEN, N_DECODE = 2, 12, 24, 4
+TOL = {"float32": 2e-3, "bfloat16": 3e-2}
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(jnp.asarray(x, jnp.float32))
+
+
+@pytest.fixture(scope="module")
+def jax_params():
+    cfg = j_smoke(ARCH)
+    return JP.materialize(jax.random.PRNGKey(0), jreg.param_defs(cfg))
+
+
+def _both_params(jax_params, dtype):
+    jp = JP.cast_tree(jax_params, getattr(jnp, dtype))
+    tp = TP.from_jax_params(jax.tree.map(np.asarray, jp), device="cpu")
+    return jp, tp
+
+
+def test_from_jax_params_keeps_keys_shapes_and_bits(jax_params):
+    tp = TP.from_jax_params(jax.tree.map(np.asarray, jax_params),
+                            device="cpu")
+    cfg = get_smoke_config(ARCH)
+    defs = treg.param_defs(cfg)
+    j_leaves = jax.tree_util.tree_leaves_with_path(jax_params)
+    assert len(j_leaves) == len(list(TP.tree_leaves(defs)))
+    for path, leaf in j_leaves:
+        t = tp
+        for k in path:
+            t = t[k.key]
+        assert tuple(t.shape) == leaf.shape and t.dtype == torch.bfloat16
+        np.testing.assert_array_equal(
+            t.view(torch.int16).numpy(),
+            np.asarray(leaf).view(np.int16))
+    assert TP.param_count(defs) == JP.param_count(jreg.param_defs(
+        j_smoke(ARCH)))
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_prefill_and_decode_match_jax(jax_params, dtype, use_pallas):
+    jcfg, tcfg = j_smoke(ARCH), get_smoke_config(ARCH)
+    jrun = JRunConfig(use_pallas=use_pallas)
+    run = RunConfig()
+    jp, tp = _both_params(jax_params, dtype)
+    rng = np.random.default_rng(3)
+    prompt = rng.integers(0, tcfg.vocab_size, (B, S), dtype=np.int32)
+    steps = rng.integers(0, tcfg.vocab_size, (N_DECODE, B, 1),
+                         dtype=np.int32)
+    tol = TOL[dtype]
+
+    jcache = jengine.init_cache(jcfg, B, MAX_LEN)
+    jlog, jcache = jreg.prefill(jp, jcfg, jrun,
+                                {"tokens": jnp.asarray(prompt)}, jcache)
+    tcache = tengine.init_cache(tcfg, B, MAX_LEN, device="cpu")
+    tlog, tcache = treg.prefill(
+        tp, tcfg, run, {"tokens": torch.from_numpy(prompt).long()}, tcache)
+    assert tlog.shape == (B, 1, tcfg.vocab_size)
+    assert tlog.dtype == torch.float32
+    np.testing.assert_allclose(_np(tlog), _np(jlog), rtol=tol, atol=tol)
+    # a cached bf16 element may sit one bf16 ulp (2^-7 relative) apart
+    cache_tol = max(tol, 2.0 ** -7)
+    for name in ("k", "v"):
+        assert tcache[name].dtype == torch.bfloat16
+        np.testing.assert_allclose(_np(tcache[name]), _np(jcache[name]),
+                                   rtol=cache_tol, atol=cache_tol)
+
+    for i in range(N_DECODE):
+        pos = S + i
+        jlog, jcache = jreg.decode(jp, jcfg, jrun, jnp.asarray(steps[i]),
+                                   jcache, jnp.asarray(pos, jnp.int32))
+        tlog, tcache = treg.decode(tp, tcfg, run,
+                                   torch.from_numpy(steps[i]).long(),
+                                   tcache, pos)
+        np.testing.assert_allclose(_np(tlog), _np(jlog), rtol=tol,
+                                   atol=tol, err_msg=f"decode step {i}")
+
+
+def test_decode_matches_longer_prefill():
+    """Decode at position S after a prefill of S tokens equals the last
+    logits of a prefill of S + 1 tokens (cache correctness)."""
+    cfg = get_smoke_config(ARCH)
+    run = RunConfig()
+    params = TP.cast_tree(tserve.init_params(cfg, 0, torch.device("cpu")),
+                          torch.float32)
+    g = torch.Generator().manual_seed(5)
+    toks = torch.randint(2, cfg.vocab_size, (B, 16), generator=g)
+    la, _ = treg.prefill(params, cfg, run, {"tokens": toks},
+                         tengine.init_cache(cfg, B, 32, device="cpu"))
+    cache = tengine.init_cache(cfg, B, 32, device="cpu")
+    _, cache = treg.prefill(params, cfg, run, {"tokens": toks[:, :15]},
+                            cache)
+    lb, _ = treg.decode(params, cfg, run, toks[:, 15:16], cache, 15)
+    torch.testing.assert_close(la[:, -1], lb[:, -1], rtol=2e-3, atol=2e-3)
+
+
+def test_run_serving_on_cpu():
+    res = tserve.run_serving(ARCH, smoke=True, prompt_len=8, gen=3, batch=2,
+                             device="cpu")
+    assert res["generated"] == (2, 3) and res["device"] == "cpu"
+    tok = res["tokens"]
+    assert bool(((tok >= 0) & (tok < 256)).all())
+    assert res["prefill_s"] > 0 and res["decode_s"] > 0
+    # the same seed gives the same tokens
+    again = tserve.run_serving(ARCH, smoke=True, prompt_len=8, gen=3,
+                               batch=2, device="cpu")
+    assert torch.equal(again["tokens"], tok)
+
+
+def test_default_device_without_cuda_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tserve.run_serving(ARCH, smoke=True, prompt_len=4, gen=2, batch=1)
+
+
+def test_unported_configs_raise():
+    cfg = get_smoke_config(ARCH)
+    with pytest.raises(NotImplementedError):
+        treg.param_defs(cfg.replace(family="moe"))
+    with pytest.raises(NotImplementedError):
+        tengine.init_cache(cfg.replace(kv_cache_dtype="int8"), 1, 4,
+                           device="cpu")
