@@ -6,12 +6,15 @@ hand-written kernel against its plain PyTorch version.
 Phases, each of which fails the run (non-zero exit, no final result line):
 
 1. device: ``nvidia-smi`` name and power limit, torch / CUDA / nvcc versions;
-2. build: every kernel in ``src/repro_torch/kernels/csrc`` compiled by nvcc
-   (one process per source, in parallel), with ptxas' register counts;
+2. build: every source in ``src/repro_torch/kernels/csrc`` compiled into
+   one extension module by ``torch.utils.cpp_extension.load``, with its
+   time and ptxas' register counts;
 3. kernel against plain: each kernel and its plain version on the same
    inputs, at the main path's shapes and the sweep of tests/test_kernels.py
    (tolerance 2e-2 in bf16, 3e-5 in f32), with the kernel's time, the plain
-   version's time and one library call's time (CUDA events, median);
+   version's time and one library call's time (CUDA graph + events,
+   median), warm (inputs in L2) and, at the main path's shapes, cold
+   (inputs rotated past L2), and the bound of the work the call needs;
 4. serving: ``run_serving("yi-6b", smoke=False, prompt_len=512, gen=32,
    batch=4)`` at full width and depth with launch counters reset just
    before and read just after;
@@ -38,6 +41,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
+from torch.utils.cpp_extension import CUDA_HOME  # noqa: E402
 
 from repro_torch.configs.base import RunConfig, get_config  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
@@ -50,6 +54,7 @@ from repro_torch.serve import engine  # noqa: E402
 
 # H100 SXM published dense peaks (NVIDIA data sheet) at the 700 W limit.
 HBM_BYTES_PER_S = 3.35e12
+L2_BYTES = 50 * 2**20
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.bfloat16: 2e-2, torch.float32: 3e-5}
 E2E_TOL = 5e-2
@@ -84,22 +89,32 @@ def smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int = 10, per_graph: int = 10) -> float:
-    """Device time of one call: ``per_graph`` calls captured in a CUDA
-    graph, the graph replayed ``reps`` times between CUDA events, the
-    median per-call time.  The graph takes the host's launch overhead out,
-    so a short kernel is timed by what it costs on the card."""
+def time_ms(fn, sets: int = 1, reps: int = 10) -> float:
+    """Device time of one call ``fn(i)``, ``i`` in ``range(sets)``: a run
+    of calls captured in a CUDA graph, the graph replayed ``reps`` times
+    between CUDA events, the median per-call time.  The graph takes the
+    host's launch overhead out, so a short kernel is timed by what it
+    costs on the card.  With ``sets`` > 1 the calls cycle through that
+    many input sets, and each call's output is kept until its set comes
+    round again, so a set is evicted from L2 before it is read again."""
+    per_graph = sets * -(-10 // sets)
+    keep = {}
+
+    def run():
+        for i in range(per_graph):
+            keep[i % sets] = fn(i % sets)
+
     cur = torch.cuda.current_stream()
     side = torch.cuda.Stream()
     side.wait_stream(cur)
     with torch.cuda.stream(side):
-        for _ in range(2):
-            fn()
+        run()
+        run()
     cur.wait_stream(side)
+    keep.clear()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        for _ in range(per_graph):
-            fn()
+        run()
     graph.replay()
     torch.cuda.synchronize()
     events = []
@@ -113,7 +128,14 @@ def time_ms(fn, reps: int = 10, per_graph: int = 10) -> float:
     torch.cuda.synchronize()
     times = [s.elapsed_time(e) / per_graph for s, e in events]
     del graph
+    keep.clear()
     return statistics.median(times)
+
+
+def cold_sets(n_bytes: float) -> int:
+    """Input sets enough that the others' bytes between two reads of one
+    set are at least twice the L2 cache."""
+    return -(-2 * L2_BYTES // int(n_bytes)) + 1
 
 
 def _close(a: torch.Tensor, b: torch.Tensor, tol: float):
@@ -129,33 +151,52 @@ def _bound(n_bytes: float, flops: float, dtype: torch.dtype):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _time_row(row: dict, fns: dict, sets: list) -> None:
+    """Adds each of ``fns`` (name -> function of one input set) to ``row``:
+    its warm time (``sets[0]`` every call, so it sits in L2) as
+    ``<name>_warm`` and, when more than one set is given, its cold time
+    (the sets rotated past L2, as HBM serves them) as ``<name>``."""
+    for key, fn in fns.items():
+        row[key + "_warm"] = time_ms(lambda i: fn(*sets[0]))
+        if len(sets) > 1:
+            row[key] = time_ms(lambda i: fn(*sets[i]), len(sets))
+        else:
+            row[key] = row[key + "_warm"]
+
+
 def phase_rmsnorm(gen: torch.Generator, failures: list) -> dict:
     main = None
     worst = 0.0
+    eps = 1e-5
     for shape in RMS_SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
             D = shape[-1]
             x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
             w = torch.randn((D,), generator=gen, device="cuda").to(dtype)
-            eps = 1e-5
             got = krms.rmsnorm_cuda(x, w, eps)
             want = ref.rmsnorm_ref(x, w, eps)
             torch.cuda.synchronize()
             ok, err = _close(got, want, TOL[dtype])
             worst = max(worst, err)
+            n_bytes = 2 * x.numel() * x.element_size() + D * w.element_size()
+            is_main = tuple(shape) == RMS_MAIN and dtype == torch.bfloat16
+            sets = [(x, w)] + ([(x.clone(), w.clone()) for _ in
+                               range(cold_sets(n_bytes) - 1)]
+                               if is_main else [])
             row = {"shape": list(shape), "dtype": str(dtype)[6:],
-                   "max_abs_err": err, "ok": ok,
-                   "ms": time_ms(lambda: krms.rmsnorm_cuda(x, w, eps)),
-                   "plain_ms": time_ms(lambda: ref.rmsnorm_ref(x, w, eps)),
-                   "library_ms": time_ms(
-                       lambda: F.rms_norm(x, (D,), w, eps))}
+                   "max_abs_err": err, "ok": ok}
+            _time_row(row, {
+                "ms": lambda x, w: krms.rmsnorm_cuda(x, w, eps),
+                "plain_ms": lambda x, w: ref.rmsnorm_ref(x, w, eps),
+                "library_ms": lambda x, w: F.rms_norm(x, (D,), w, eps)},
+                sets)
+            del sets
             row["bound_ms"], row["bound_by"] = _bound(
-                2 * x.numel() * x.element_size() + D * w.element_size(),
-                3 * x.numel(), dtype)
+                n_bytes, 3 * x.numel(), dtype)
             log("rmsnorm", json.dumps(row))
             if not ok:
                 failures.append(f"rmsnorm {shape} {dtype}: max err {err}")
-            if tuple(shape) == RMS_MAIN and dtype == torch.bfloat16:
+            if is_main:
                 main = row
     return dict(main, max_abs_err=worst)
 
@@ -171,6 +212,13 @@ def _flash_mask(Sq, Sk, causal, window, q_off, kv_len):
     return m
 
 
+def _sdpa_inputs(q, k, v):
+    """SDPA's layout (B, H, S, D) with K/V repeated to Hq heads."""
+    G = q.shape[2] // k.shape[2]
+    return (q.transpose(1, 2), k.repeat_interleave(G, dim=2).transpose(1, 2),
+            v.repeat_interleave(G, dim=2).transpose(1, 2))
+
+
 def phase_flash(gen: torch.Generator, failures: list) -> dict:
     main = None
     worst = 0.0
@@ -178,6 +226,11 @@ def phase_flash(gen: torch.Generator, failures: list) -> dict:
         B, Sq, Sk, Hq, Hkv, D, causal, window, q_off, kv_len = case
         kw = dict(causal=causal, sliding_window=window, q_offset=q_off,
                   kv_len=kv_len)
+        mask = _flash_mask(Sq, Sk, causal, window, q_off, kv_len)
+        # the work this call needs: (query, key) pairs that are visible,
+        # and the key rows that at least one query can see
+        pairs = int(mask.sum())
+        keys = int(mask.any(0).sum())
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v = (torch.randn((B, S, H, D), generator=gen,
                                    device="cuda").to(dtype)
@@ -187,31 +240,33 @@ def phase_flash(gen: torch.Generator, failures: list) -> dict:
             torch.cuda.synchronize()
             ok, err = _close(got, want, TOL[dtype])
             worst = max(worst, err)
-            mask = _flash_mask(Sq, Sk, causal, window, q_off, kv_len)
-            # library yardstick: SDPA on (B, H, S, D) with K/V repeated to
-            # Hq heads and the same boolean mask (only timed here)
-            G = Hq // Hkv
-            qt = q.transpose(1, 2)
-            kt = k.repeat_interleave(G, dim=2).transpose(1, 2)
-            vt = v.repeat_interleave(G, dim=2).transpose(1, 2)
-            pairs = int(mask.sum())
+            n_bytes = (2 * q.numel() + 2 * B * keys * Hkv * D) \
+                * q.element_size()
+            is_main = case == FLASH_MAIN and dtype == torch.bfloat16
+            sets = [(q, k, v)] + ([tuple(t.clone() for t in (q, k, v))
+                                   for _ in range(cold_sets(n_bytes) - 1)]
+                                  if is_main else [])
+            sets = [s + _sdpa_inputs(*s) for s in sets]
             row = {"case": list(case), "dtype": str(dtype)[6:],
-                   "max_abs_err": err, "ok": ok,
-                   "ms": time_ms(
-                       lambda: kflash.flash_attention_cuda(q, k, v, **kw)),
-                   "plain_ms": time_ms(
-                       lambda: ref.flash_attention_ref(q, k, v, **kw),
-                       reps=10),
-                   "library_ms": time_ms(
-                       lambda: F.scaled_dot_product_attention(
-                           qt, kt, vt, attn_mask=mask))}
+                   "max_abs_err": err, "ok": ok}
+            # library yardstick: SDPA with the same boolean mask (timed
+            # only; the port never calls it)
+            _time_row(row, {
+                "ms": lambda q, k, v, *_: kflash.flash_attention_cuda(
+                    q, k, v, **kw),
+                "plain_ms": lambda q, k, v, *_: ref.flash_attention_ref(
+                    q, k, v, **kw),
+                "library_ms": lambda q, k, v, qt, kt, vt:
+                    F.scaled_dot_product_attention(qt, kt, vt,
+                                                   attn_mask=mask)},
+                sets)
+            del sets
             row["bound_ms"], row["bound_by"] = _bound(
-                (2 * q.numel() + k.numel() + v.numel()) * q.element_size(),
-                4.0 * B * Hq * pairs * D, dtype)
+                n_bytes, 4.0 * B * Hq * pairs * D, dtype)
             log("flash", json.dumps(row))
             if not ok:
                 failures.append(f"flash {case} {dtype}: max err {err}")
-            if case == FLASH_MAIN and dtype == torch.bfloat16:
+            if is_main:
                 main = row
     return dict(main, max_abs_err=worst)
 
@@ -335,18 +390,16 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     smi = smi_line()
-    nvcc = subprocess.run([build._nvcc(), "--version"], capture_output=True,
-                          text=True, check=True, timeout=60)
+    nvcc = subprocess.run([str(Path(CUDA_HOME) / "bin" / "nvcc"),
+                           "--version"], capture_output=True, text=True,
+                          check=True, timeout=60)
     log("device:", smi, "| torch", torch.__version__, "| cuda",
         torch.version.cuda, "|", nvcc.stdout.strip().splitlines()[-1])
 
+    # the build's log, printed by ninja, holds ptxas' register counts
     t0 = time.perf_counter()
-    build.build_all()
+    build.extension(verbose=True)
     log(f"build: {time.perf_counter() - t0:.2f} s")
-    for name in build.SOURCES:
-        for line in build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas[{name}]", line.strip())
 
     failures: list = []
     gen = torch.Generator(device="cuda").manual_seed(0)

@@ -1,102 +1,47 @@
 """Builds the hand-written CUDA kernels from ``kernels/csrc`` at first use.
 
-Each ``csrc/*.cu`` file exports plain C functions and is compiled by its
-own ``nvcc`` process for ``sm_90a`` into a shared library, loaded with
-``ctypes``.  All sources compile in parallel.  No source includes
-PyTorch's headers, which keeps a cold build to seconds; the wrappers pass
-``data_ptr()``s and the current stream and check the returned
-``cudaError_t`` themselves.
+``torch.utils.cpp_extension.load`` compiles every source into one
+extension module, with ninja, for ``sm_90a``: the kernels' ``.cu`` files
+(plain CUDA, no PyTorch headers) and ``bindings.cpp``, the one file that
+includes ``torch/extension.h``.  ``load`` compiles with
+``__CUDA_NO_BFLOAT16_CONVERSIONS__``, so the kernels convert through the
+``__bfloat162float``/``__float2bfloat16`` intrinsics.
 
-Libraries land in ``<repo>/build/repro_torch_kernels`` (listed in
-``.gitignore``), named by a hash of their source and flags, so an edited
-source is rebuilt and an unchanged one is loaded as it is.  Nothing is
-downloaded; a failed build raises.
+The module lands in ``<repo>/build/repro_torch_kernels`` (listed in
+``.gitignore``); ``load`` rebuilds it when a source or a flag changes and
+otherwise loads it as it is.  Nothing is downloaded; a failed build
+raises.
 """
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Tuple
+from types import ModuleType
+from typing import Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = (Path(__file__).resolve().parents[3] / "build"
              / "repro_torch_kernels")
-SOURCES = ("rmsnorm", "flash_attention")
-NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+SOURCES = ("bindings.cpp", "rmsnorm.cu", "flash_attention.cu")
+CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a",
+              "-Xptxas=-v"]
 
-_LIBS: Dict[str, ctypes.CDLL] = {}
+_EXT: Optional[ModuleType] = None
 _LOCK = threading.Lock()
 
 
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    cand = Path(home) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError(
-            "nvcc not found (looked in $CUDA_HOME/bin, /usr/local/cuda/bin "
-            "and PATH): the CUDA kernels cannot be built")
-    return found
-
-
-def _target(name: str) -> Tuple[Path, Path]:
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return src, BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
-
-
-def _compile_all(names) -> None:
-    """Starts one nvcc per missing library, then waits for all of them."""
-    todo = [(n, *_target(n)) for n in names if not _target(n)[1].exists()]
-    if not todo:
-        return
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
-    procs = []
-    for name, src, out in todo:
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
-        procs.append((name, out, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)))
-    failed = []
-    for name, out, tmp, p in procs:
-        log, _ = p.communicate()
-        (BUILD_DIR / f"{name}.log").write_text(log)
-        if p.returncode != 0:
-            failed.append(f"{name} (nvcc exit {p.returncode}):\n{log}")
-            tmp.unlink(missing_ok=True)
-        else:
-            os.replace(tmp, out)  # atomic: a concurrent loader sees all
-    if failed:
-        raise RuntimeError("CUDA kernel build failed: " + "\n".join(failed))
-
-
-def build_all() -> Dict[str, ctypes.CDLL]:
-    """Builds (where needed) and loads every kernel library."""
+def extension(verbose: bool = False) -> ModuleType:
+    """Builds (where needed) and loads the kernels' extension module.
+    ``verbose`` prints the build's log, with ptxas' register and spill
+    counts for each kernel."""
+    global _EXT
     with _LOCK:
-        missing = [n for n in SOURCES if n not in _LIBS]
-        if missing:
-            _compile_all(missing)
-            for n in missing:
-                _LIBS[n] = ctypes.CDLL(str(_target(n)[1]))
-        return dict(_LIBS)
-
-
-def library(name: str) -> ctypes.CDLL:
-    return build_all()[name]
-
-
-def build_log(name: str) -> str:
-    """nvcc's output (with ``-Xptxas=-v`` register and spill counts) from
-    the build that produced the library, if this checkout built it."""
-    p = BUILD_DIR / f"{name}.log"
-    return p.read_text() if p.exists() else ""
+        if _EXT is None:
+            from torch.utils.cpp_extension import load
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            _EXT = load("repro_torch_kernels",
+                        [str(CSRC / s) for s in SOURCES],
+                        build_directory=str(BUILD_DIR),
+                        extra_cflags=["-O3"], extra_cuda_cflags=CUDA_FLAGS,
+                        verbose=verbose)
+        return _EXT

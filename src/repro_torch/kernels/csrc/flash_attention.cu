@@ -1,4 +1,5 @@
-// Flash-attention forward for Hopper (sm_90a), with a plain C entry point.
+// Flash-attention forward for Hopper (sm_90a).  Plain CUDA with a C
+// entry point: bindings.cpp launches it and checks the launch.
 //
 // Replaces the TPU kernel repro/kernels/flash_attention.py::
 // flash_attention_pallas (body _flash_kernel): online-softmax attention
@@ -8,9 +9,10 @@
 //
 // Bound on the card.  The work is 4*B*Hq*Sq*Sk_valid*D FLOPs (about half
 // of the full product under a causal mask) against reading q, k, v and
-// writing out once.  At the yi-6b prefill shape (B=4, Sq=512, 32/4 heads,
-// D=128) the two bounds are close: 8.6 GFLOP is 8.7 us at the bf16
-// tensor-core peak and 38 MB is 11.4 us at HBM rate.  This first version
+// writing out once (K and V only over the rows some query can see).  At
+// the yi-6b prefill shape (B=4, Sq=512, kv_len=512, 32/4 heads, D=128)
+// the two bounds are close: 8.6 GFLOP is 8.7 us at the bf16 tensor-core
+// peak and 37.7 MB is 11.3 us at HBM rate.  This first version
 // is a simple, exact one: the products run as f32 FMAs on the CUDA cores
 // (no tensor cores, no TF32), so it is limited by FMA throughput far
 // above either bound; wgmma, TMA and tuning are later work.
@@ -214,20 +216,21 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int Sq, int Sk, int Hq, int Hkv, Strides qs, Strides ks,
-           Strides vs, Strides os, float scale, int causal, int q_offset,
-           int kv_len, int window, cudaStream_t stream) {
+void launch(const void* q, const void* k, const void* v, void* o, int B,
+            int Sq, int Sk, int Hq, int Hkv, Strides qs, Strides ks,
+            Strides vs, Strides os, float scale, int causal, int q_offset,
+            int kv_len, int window, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   // Raise the dynamic shared-memory limit once per instantiation (a
   // repeated call would be harmless), so that launches captured into a
-  // CUDA graph make no other API call.
+  // CUDA graph make no other API call.  A failure is left to
+  // cudaGetLastError, like a failed launch.
   static bool configured = false;
   if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
+    if (cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem) != cudaSuccess)
+      return;
     configured = true;
   }
   dim3 grid((Sq + kBQ - 1) / kBQ, Hq, B);
@@ -235,30 +238,26 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), Sq, Sk, Hq / Hkv, qs,
       ks, vs, os, scale, causal, q_offset, kv_len, window);
-  return static_cast<int>(cudaGetLastError());
 }
 
+// Returns false, launching nothing, for a head_dim without an
+// instantiation.
 template <typename T>
-int dispatch_d(int D, const void* q, const void* k, const void* v, void* o,
-               int B, int Sq, int Sk, int Hq, int Hkv, Strides qs,
-               Strides ks, Strides vs, Strides os, float scale, int causal,
-               int q_offset, int kv_len, int window, cudaStream_t s) {
+bool dispatch_d(int D, const void* q, const void* k, const void* v, void* o,
+                int B, int Sq, int Sk, int Hq, int Hkv, Strides qs,
+                Strides ks, Strides vs, Strides os, float scale, int causal,
+                int q_offset, int kv_len, int window, cudaStream_t s) {
+  decltype(&launch<T, 16>) fn;
   switch (D) {
-    case 16:
-      return launch<T, 16>(q, k, v, o, B, Sq, Sk, Hq, Hkv, qs, ks, vs, os,
-                           scale, causal, q_offset, kv_len, window, s);
-    case 32:
-      return launch<T, 32>(q, k, v, o, B, Sq, Sk, Hq, Hkv, qs, ks, vs, os,
-                           scale, causal, q_offset, kv_len, window, s);
-    case 64:
-      return launch<T, 64>(q, k, v, o, B, Sq, Sk, Hq, Hkv, qs, ks, vs, os,
-                           scale, causal, q_offset, kv_len, window, s);
-    case 128:
-      return launch<T, 128>(q, k, v, o, B, Sq, Sk, Hq, Hkv, qs, ks, vs, os,
-                            scale, causal, q_offset, kv_len, window, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+    case 16: fn = &launch<T, 16>; break;
+    case 32: fn = &launch<T, 32>; break;
+    case 64: fn = &launch<T, 64>; break;
+    case 128: fn = &launch<T, 128>; break;
+    default: return false;
   }
+  fn(q, k, v, o, B, Sq, Sk, Hq, Hkv, qs, ks, vs, os, scale, causal, q_offset,
+     kv_len, window, s);
+  return true;
 }
 
 }  // namespace
@@ -266,17 +265,17 @@ int dispatch_d(int D, const void* q, const void* k, const void* v, void* o,
 // q: (B, Sq, Hq, D), k/v: (B, Sk, Hkv, D), o: (B, Sq, Hq, D), each with a
 // contiguous D axis and the given element strides for (batch, seq, head).
 // bf16 != 0 selects bf16 tensors, else f32.  Requires 0 <= kv_len <= Sk.
-// Returns the cudaError_t of the launch.
-extern "C" int repro_flash_fwd(
+// Launches on `stream` and leaves the launch's error to cudaGetLastError;
+// returns false, launching nothing, when D is not 16, 32, 64 or 128.
+extern "C" bool repro_flash_fwd(
     const void* q, const void* k, const void* v, void* o, int B, int Sq,
     int Sk, int Hq, int Hkv, int D, long long q_sb, long long q_ss,
     long long q_sh, long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh, long long o_sb,
     long long o_ss, long long o_sh, float scale, int causal, int q_offset,
-    int kv_len, int window, int bf16, void* stream) {
+    int kv_len, int window, int bf16, cudaStream_t s) {
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh},
       vs{v_sb, v_ss, v_sh}, os{o_sb, o_ss, o_sh};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
     return dispatch_d<__nv_bfloat16>(D, q, k, v, o, B, Sq, Sk, Hq, Hkv, qs,
                                      ks, vs, os, scale, causal, q_offset,

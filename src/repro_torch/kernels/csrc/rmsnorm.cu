@@ -1,4 +1,5 @@
-// Row RMSNorm forward for Hopper (sm_90a), with a plain C entry point.
+// Row RMSNorm forward for Hopper (sm_90a).  Plain CUDA with a C entry
+// point: bindings.cpp launches it and checks the launch.
 //
 // Replaces the TPU kernel repro/kernels/rmsnorm.py::rmsnorm_pallas (body
 // _rmsnorm_kernel): y = x * rsqrt(mean(x^2) + eps) * w, math in f32,
@@ -109,11 +110,11 @@ void launch(const void* x, const void* w, void* y, int rows, int D,
 }  // namespace
 
 // x, y: (rows, D) contiguous; w: (D,).  *_bf16 selects bf16 (1) or f32
-// (0) for each operand.  Returns the cudaError_t of the launch.
-extern "C" int repro_rmsnorm_fwd(const void* x, const void* w, void* y,
-                                 int rows, int D, float eps, int x_bf16,
-                                 int w_bf16, int vec, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+// (0) for each operand.  Launches on `stream` and leaves the launch's
+// error to cudaGetLastError.
+extern "C" void repro_rmsnorm_fwd(const void* x, const void* w, void* y,
+                                  int rows, int D, float eps, int x_bf16,
+                                  int w_bf16, int vec, cudaStream_t s) {
   if (x_bf16 && w_bf16)
     launch<__nv_bfloat16, __nv_bfloat16>(x, w, y, rows, D, eps, vec, s);
   else if (x_bf16)
@@ -122,5 +123,4 @@ extern "C" int repro_rmsnorm_fwd(const void* x, const void* w, void* y,
     launch<float, __nv_bfloat16>(x, w, y, rows, D, eps, vec, s);
   else
     launch<float, float>(x, w, y, rows, D, eps, vec, s);
-  return static_cast<int>(cudaGetLastError());
 }

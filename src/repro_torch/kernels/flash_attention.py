@@ -1,10 +1,12 @@
-"""Flash-attention forward: wrapper of ``csrc/flash_attention.cu``.
+"""Flash-attention forward: wrapper of ``csrc/flash_attention.cu`` (bound
+in ``csrc/bindings.cpp``).
 
 Replaces ``repro/kernels/flash_attention.py::flash_attention_pallas``
 (body ``_flash_kernel``).  Bound on the card: the larger of
 ``4 * B * Hq * Sq * Sk_valid * D`` FLOPs (about half under a causal mask)
-over the tensor-core peak and the bytes of q, k, v and out over HBM rate;
-at the yi-6b prefill shape the two are close (8.7 us and 11.4 us).  This
+over the tensor-core peak and the bytes of q, out and the K/V rows some
+query can see over HBM rate;
+at the yi-6b prefill shape the two are close (8.7 us and 11.3 us).  This
 first kernel computes in f32 FMAs on the CUDA cores, far from either:
 one thread block per (batch, q head, 64-row q tile), K/V tiles staged in
 shared memory, GQA inside the kernel (kv head = h // G), and tiles that
@@ -21,7 +23,6 @@ never makes one.
 """
 from __future__ import annotations
 
-import ctypes
 from typing import Optional
 
 import torch
@@ -32,16 +33,6 @@ launches = 0  # kernel launches since the last reset (set to 0 to reset)
 
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPES = (torch.float32, torch.bfloat16)
-
-
-def _fn():
-    f = build.library("flash_attention").repro_flash_fwd
-    f.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                  + [ctypes.c_longlong] * 12
-                  + [ctypes.c_float] + [ctypes.c_int] * 5
-                  + [ctypes.c_void_p])
-    f.restype = ctypes.c_int
-    return f
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -78,17 +69,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     o = torch.empty((B, Sq, Hq, D), dtype=q.dtype, device=q.device)
     if o.numel() == 0:
         return o
-    fn = _fn()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 B, Sq, Sk, Hq, Hkv, D,
-                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                 *o.stride()[:3],
-                 float(scale), int(bool(causal)), q_offset, kv_len,
-                 int(sliding_window), int(q.dtype == torch.bfloat16), stream)
-    if err:
-        raise RuntimeError(f"flash kernel launch failed: cudaError {err}")
+    build.extension().flash_fwd(q, k, v, o, float(scale), bool(causal),
+                                q_offset, kv_len, int(sliding_window))
     launches += 1
     return o
 

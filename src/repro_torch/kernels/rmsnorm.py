@@ -1,4 +1,5 @@
-"""RMSNorm: wrapper of the hand-written CUDA kernel ``csrc/rmsnorm.cu``.
+"""RMSNorm: wrapper of the hand-written CUDA kernel ``csrc/rmsnorm.cu``
+(bound in ``csrc/bindings.cpp``).
 
 Replaces ``repro/kernels/rmsnorm.py::rmsnorm_pallas`` (body
 ``_rmsnorm_kernel``).  Bound on the card: bytes — each of the rows*D
@@ -12,8 +13,6 @@ The plain version is :func:`repro_torch.kernels.ref.rmsnorm_ref`;
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from repro_torch.kernels import build
@@ -21,15 +20,6 @@ from repro_torch.kernels import build
 launches = 0  # kernel launches since the last reset (set to 0 to reset)
 
 _DTYPES = (torch.float32, torch.bfloat16)
-
-
-def _fn():
-    f = build.library("rmsnorm").repro_rmsnorm_fwd
-    f.argtypes = [ctypes.c_void_p] * 3 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    f.restype = ctypes.c_int
-    return f
 
 
 def rmsnorm_cuda(x: torch.Tensor, w: torch.Tensor,
@@ -52,16 +42,7 @@ def rmsnorm_cuda(x: torch.Tensor, w: torch.Tensor,
     rows = x.numel() // D if D else 0
     if rows == 0:
         return y
-    vec = int(D % (16 // x.element_size()) == 0
-              and x.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 0)
-    fn = _fn()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(x.data_ptr(), w.data_ptr(), y.data_ptr(), rows, D,
-                 float(eps), int(x.dtype == torch.bfloat16),
-                 int(w.dtype == torch.bfloat16), vec, stream)
-    if err:
-        raise RuntimeError(f"rmsnorm kernel launch failed: cudaError {err}")
+    build.extension().rmsnorm_fwd(x, w, y, float(eps))
     launches += 1
     return y
 

@@ -49,10 +49,11 @@ def _tol(dtype):
 @pytest.mark.parametrize("shape", [(8, 128), (3, 7, 384), (1, 513),
                                    (2048, 4096), (4, 4096)])
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_rmsnorm_kernel_matches_plain(cuda, shape, dtype):
+@pytest.mark.parametrize("w_dtype", DTYPES)  # w is read in its own dtype
+def test_rmsnorm_kernel_matches_plain(cuda, shape, dtype, w_dtype):
     g = torch.Generator(device=cuda).manual_seed(0)
     x = torch.randn(shape, generator=g, device=cuda).to(dtype)
-    w = torch.randn(shape[-1:], generator=g, device=cuda).to(dtype)
+    w = torch.randn(shape[-1:], generator=g, device=cuda).to(w_dtype)
     n = krms.launches
     got = ops.rmsnorm(x, w, eps=1e-5)
     torch.cuda.synchronize()
