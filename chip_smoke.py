@@ -1,5 +1,5 @@
-"""Drives the PyTorch port's serving path on one NVIDIA GPU and holds every
-hand-written kernel against its plain PyTorch version.
+"""Drives the PyTorch port's serving and training paths on one NVIDIA GPU
+and holds every hand-written kernel against its plain PyTorch version.
 
     python3 chip_smoke.py
 
@@ -10,11 +10,15 @@ Phases, each of which fails the run (non-zero exit, no final result line):
    one extension module by ``torch.utils.cpp_extension.load``, with its
    time and ptxas' register counts;
 3. kernel against plain: each kernel and its plain version on the same
-   inputs, at the main path's shapes and the sweep of tests/test_kernels.py
+   inputs, at the main paths' shapes and the sweep of tests/test_kernels.py
    (tolerance 2e-2 in bf16, 3e-5 in f32), with the kernel's time, the plain
    version's time and one library call's time (CUDA graph + events,
-   median), warm (inputs in L2) and, at the main path's shapes, cold
-   (inputs rotated past L2), and the bound of the work the call needs;
+   median), warm (inputs in L2) and, at the main paths' shapes, cold
+   (inputs rotated past L2), and the bound of the work the call needs.
+   Forward kernels (RMSNorm, flash attention, cross entropy) and, for
+   training, the RMSNorm and flash-attention backward kernels and the
+   flash forward's ``lse``.  The library yardstick of a backward is the
+   library forward plus backward less the forward;
 4. serving: ``run_serving("yi-6b", smoke=False, prompt_len=512, gen=32,
    batch=4)`` at full width and depth with launch counters reset just
    before and read just after;
@@ -22,10 +26,22 @@ Phases, each of which fails the run (non-zero exit, no final result line):
    ``use_kernels=False``; (b) decode at position S after a prefill of S
    tokens against a prefill of S + 1 tokens; both at relative L2 <= 5e-2;
 6. breakdown: ``torch.profiler`` over one warm prefill and four warm decode
-   steps (wall time, device time, busy share, top ops by device time).
+   steps (wall time, device time, busy share, top ops by device time);
+7. training: ``run_training("yi-6b", smoke=False, steps=3, seq_len=512,
+   global_batch=4, carousel=False)`` at full width and depth, launch
+   counters reset just before and read just after and held against the
+   counts the code implies; losses, step time of steps 2-3, tokens/s and
+   peak memory; then ``torch.profiler`` over one more (warm) step, and
+   the wall time of each half (gradients, AdamW) of another;
+8. end to end, training, at full width and 2 layers: one
+   ``grads_and_metrics`` through the kernels against one through
+   ``use_kernels=False``, loss within relative 1e-2 and every gradient leaf
+   within relative L2 5e-2.
 
 It prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
-Weights are random, made on the card from a seed; nothing is downloaded.
+A kernel's ``launches`` there is the sum of its counts over the serving
+and the training runs.  Weights are random, made on the card from a seed;
+nothing is downloaded.
 """
 from __future__ import annotations
 
@@ -43,14 +59,19 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 from torch.utils.cpp_extension import CUDA_HOME  # noqa: E402
 
-from repro_torch.configs.base import RunConfig, get_config  # noqa: E402
+from repro_torch.configs.base import (RunConfig, ShapeConfig,  # noqa: E402
+                                      get_config)
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import cross_entropy as kce  # noqa: E402
 from repro_torch.kernels import flash_attention as kflash  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import rmsnorm as krms  # noqa: E402
-from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch import serve, train  # noqa: E402
+from repro_torch.models import params as P  # noqa: E402
 from repro_torch.models import registry  # noqa: E402
+from repro_torch.optim import adamw_update  # noqa: E402
 from repro_torch.serve import engine  # noqa: E402
+from repro_torch.train import step as tstep  # noqa: E402
 
 # H100 SXM published dense peaks (NVIDIA data sheet) at the 700 W limit.
 HBM_BYTES_PER_S = 3.35e12
@@ -58,7 +79,10 @@ L2_BYTES = 50 * 2**20
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.bfloat16: 2e-2, torch.float32: 3e-5}
 E2E_TOL = 5e-2
+LOSS_TOL = 1e-2
 ARCH, PROMPT, GEN, BATCH = "yi-6b", 512, 32, 4
+TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH = 3, 512, 4
+E2E_TRAIN_LAYERS = 2
 DEVICE = "cuda"
 
 # B, Sq, Sk, Hq, Hkv, D, causal, window, q_off, kv_len: the six CASES of
@@ -73,8 +97,14 @@ FLASH_CASES = [
 ]
 FLASH_MAIN = (BATCH, PROMPT, PROMPT + GEN + 8, 32, 4, 128, True, 0, 0,
               PROMPT)
-RMS_MAIN = (BATCH * PROMPT, 4096)
+# the yi-6b training shape: self-attention over TRAIN_SEQ, causal
+FLASH_TRAIN = (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 32, 4, 128, True, 0, 0,
+               None)
+RMS_MAIN = (BATCH * PROMPT, 4096)  # also the training shape (4 x 512 rows)
 RMS_SHAPES = [RMS_MAIN, (BATCH, 4096), (8, 128), (3, 7, 384), (1, 513)]
+# T, D, V: the yi-6b loss head (4 x 512 tokens), then small ragged cases
+CE_MAIN = (TRAIN_BATCH * TRAIN_SEQ, 4096, 64000)
+CE_SHAPES = [CE_MAIN, (37, 48, 1000), (256, 64, 4099), (300, 128, 513)]
 
 
 def log(*a) -> None:
@@ -89,15 +119,17 @@ def smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, sets: int = 1, reps: int = 10) -> float:
+def time_ms(fn, sets: int = 1, reps: int = 10, calls: int = 10) -> float:
     """Device time of one call ``fn(i)``, ``i`` in ``range(sets)``: a run
     of calls captured in a CUDA graph, the graph replayed ``reps`` times
     between CUDA events, the median per-call time.  The graph takes the
     host's launch overhead out, so a short kernel is timed by what it
     costs on the card.  With ``sets`` > 1 the calls cycle through that
     many input sets, and each call's output is kept until its set comes
-    round again, so a set is evicted from L2 before it is read again."""
-    per_graph = sets * -(-10 // sets)
+    round again, so a set is evicted from L2 before it is read again.
+    ``calls`` (at least, rounded up to a multiple of ``sets``) go into
+    the graph."""
+    per_graph = sets * -(-calls // sets)
     keep = {}
 
     def run():
@@ -151,17 +183,32 @@ def _bound(n_bytes: float, flops: float, dtype: torch.dtype):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _time_row(row: dict, fns: dict, sets: list) -> None:
+def _time_row(row: dict, fns: dict, sets: list, calls: int = 10) -> None:
     """Adds each of ``fns`` (name -> function of one input set) to ``row``:
     its warm time (``sets[0]`` every call, so it sits in L2) as
     ``<name>_warm`` and, when more than one set is given, its cold time
     (the sets rotated past L2, as HBM serves them) as ``<name>``."""
     for key, fn in fns.items():
-        row[key + "_warm"] = time_ms(lambda i: fn(*sets[0]))
+        row[key + "_warm"] = time_ms(lambda i: fn(*sets[0]), calls=calls)
         if len(sets) > 1:
-            row[key] = time_ms(lambda i: fn(*sets[i]), len(sets))
+            row[key] = time_ms(lambda i: fn(*sets[i]), len(sets),
+                               calls=calls)
         else:
             row[key] = row[key + "_warm"]
+
+
+def _grad_ms(row: dict, key: str, fwd, inputs: list, grad_out,
+             sets: list) -> None:
+    """Library yardstick of a backward: the time of ``fwd`` plus its
+    backward (``torch.autograd.grad`` w.r.t. ``inputs``) less that of
+    ``fwd`` alone, warm and cold as ``_time_row`` does.  ``fwd`` and
+    ``inputs`` take one input set."""
+    both = {}
+    _time_row(both, {
+        "fb": lambda *s: torch.autograd.grad(fwd(*s), inputs(*s), grad_out),
+        "f": lambda *s: fwd(*s)}, sets)
+    row[key + "_warm"] = both["fb_warm"] - both["f_warm"]
+    row[key] = both["fb"] - both["f"]
 
 
 def phase_rmsnorm(gen: torch.Generator, failures: list) -> dict:
@@ -271,6 +318,193 @@ def phase_flash(gen: torch.Generator, failures: list) -> dict:
     return dict(main, max_abs_err=worst)
 
 
+def phase_rmsnorm_bwd(gen: torch.Generator, failures: list) -> dict:
+    """The backward kernel (dx, dw) against the plain backward, both fed
+    the plain forward's ``inv``; the forward's ``inv`` checked too."""
+    main = None
+    worst = 0.0
+    eps = 1e-5
+    for shape in RMS_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            D = shape[-1]
+            x, g = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                    for _ in range(2))
+            w = torch.randn((D,), generator=gen, device="cuda").to(dtype)
+            _, inv = krms.rmsnorm_cuda(x, w, eps, return_inv=True)
+            _, inv_ref = ref.rmsnorm_fwd_ref(x, w, eps)
+            got = krms.rmsnorm_bwd_cuda(x, w, inv_ref, g)
+            want = ref.rmsnorm_bwd_ref(x, w, inv_ref, g)
+            torch.cuda.synchronize()
+            ok, err = _close(inv, inv_ref, TOL[torch.float32])
+            for a, b in zip(got, want):
+                ok_i, err_i = _close(a, b, TOL[dtype])
+                ok, err = ok and ok_i, max(err, err_i)
+            worst = max(worst, err)
+            n_bytes = (3 * x.numel() * x.element_size() + 2 * D
+                       * w.element_size() + 4 * inv.numel())
+            is_main = tuple(shape) == RMS_MAIN and dtype == torch.bfloat16
+            sets = [(x, w, inv_ref, g)] + (
+                [tuple(t.clone() for t in (x, w, inv_ref, g))
+                 for _ in range(cold_sets(n_bytes) - 1)] if is_main else [])
+            row = {"shape": list(shape), "dtype": str(dtype)[6:],
+                   "max_abs_err": err, "ok": ok}
+            _time_row(row, {
+                "ms": lambda x, w, inv, g: krms.rmsnorm_bwd_cuda(x, w, inv,
+                                                                 g),
+                "plain_ms": lambda x, w, inv, g: ref.rmsnorm_bwd_ref(
+                    x, w, inv, g)}, sets)
+            lib_sets = [(x.clone().requires_grad_(),
+                         w.clone().requires_grad_()) for x, w, _, _ in sets]
+            _grad_ms(row, "library_ms",
+                     lambda x, w: F.rms_norm(x, (D,), w, eps),
+                     lambda x, w: (x, w), g, lib_sets)
+            del sets, lib_sets
+            row["bound_ms"], row["bound_by"] = _bound(
+                n_bytes, 8 * x.numel(), dtype)
+            log("rmsnorm_bwd", json.dumps(row))
+            if not ok:
+                failures.append(f"rmsnorm_bwd {shape} {dtype}: max err {err}")
+            if is_main:
+                main = row
+    return dict(main, max_abs_err=worst)
+
+
+def phase_flash_bwd(gen: torch.Generator, failures: list) -> dict:
+    """The forward's ``lse`` against the plain forward's, and the backward
+    kernels (dq, dk, dv) against the plain backward on the same out, lse
+    and dout, at the training shape and the CASES; at the training shape
+    also the forward writing ``lse`` timed (row "flash_lse")."""
+    main = None
+    worst = worst_lse = 0.0
+    for case in FLASH_CASES + [FLASH_TRAIN]:
+        B, Sq, Sk, Hq, Hkv, D, causal, window, q_off, kv_len = case
+        kw = dict(causal=causal, sliding_window=window, q_offset=q_off,
+                  kv_len=kv_len)
+        mask = _flash_mask(Sq, Sk, causal, window, q_off, kv_len)
+        pairs = int(mask.sum())
+        keys = int(mask.any(0).sum())
+        for dtype in (torch.bfloat16, torch.float32):
+            q, do = (torch.randn((B, Sq, Hq, D), generator=gen,
+                                 device="cuda").to(dtype) for _ in range(2))
+            k, v = (torch.randn((B, Sk, Hkv, D), generator=gen,
+                                device="cuda").to(dtype) for _ in range(2))
+            _, lse = kflash.flash_attention_cuda(q, k, v, return_lse=True,
+                                                 **kw)
+            o, lse_ref = ref.flash_attention_fwd_ref(q, k, v, **kw)
+            got = kflash.flash_attention_bwd_cuda(q, k, v, o, lse_ref, do,
+                                                  **kw)
+            want = ref.flash_attention_bwd_ref(q, k, v, o, lse_ref, do, **kw)
+            torch.cuda.synchronize()
+            ok, err_lse = _close(lse, lse_ref, TOL[dtype])
+            err = 0.0
+            for a, b in zip(got, want):
+                ok_i, err_i = _close(a, b, TOL[dtype])
+                ok, err = ok and ok_i, max(err, err_i)
+            worst, worst_lse = max(worst, err), max(worst_lse, err_lse)
+            n_bytes = ((4 * q.numel() + 4 * B * keys * Hkv * D)
+                       * q.element_size() + 4 * lse.numel())
+            is_main = case == FLASH_TRAIN and dtype == torch.bfloat16
+            inputs = (q, k, v, o, lse_ref, do)
+            sets = [inputs] + ([tuple(t.clone() for t in inputs)
+                                for _ in range(cold_sets(n_bytes) - 1)]
+                               if is_main else [])
+            row = {"case": list(case), "dtype": str(dtype)[6:],
+                   "max_abs_err": err, "lse_max_abs_err": err_lse, "ok": ok}
+            _time_row(row, {
+                "ms": lambda q, k, v, o, lse, do:
+                    kflash.flash_attention_bwd_cuda(q, k, v, o, lse, do,
+                                                    **kw),
+                "plain_ms": lambda q, k, v, o, lse, do:
+                    ref.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)},
+                sets)
+            # library yardstick: SDPA with K/V repeated to Hq heads (timed
+            # only; the port never calls it); causal self-attention as
+            # is_causal, any other mask as a boolean mask
+            plain_causal = (causal and Sq == Sk and not window and not q_off
+                            and kv_len is None)
+            lib_sets = [tuple(t.detach().requires_grad_() for t in
+                              _sdpa_inputs(*st[:3])) for st in sets]
+            _grad_ms(row, "library_ms",
+                     lambda qt, kt, vt: F.scaled_dot_product_attention(
+                         qt, kt, vt, is_causal=plain_causal,
+                         attn_mask=None if plain_causal else mask),
+                     lambda qt, kt, vt: (qt, kt, vt), do.transpose(1, 2),
+                     lib_sets)
+            row["bound_ms"], row["bound_by"] = _bound(
+                n_bytes, 10.0 * B * Hq * pairs * D, dtype)
+            log("flash_bwd", json.dumps(row))
+            if not ok:
+                failures.append(f"flash bwd/lse {case} {dtype}: max err "
+                                f"{err}, lse {err_lse}")
+            if is_main:
+                main = row
+                fwd = {"case": list(case), "dtype": str(dtype)[6:]}
+                # the training forward: the same kernel writing lse too
+                sets = [st[:3] + _sdpa_inputs(*st[:3]) for st in sets]
+                _time_row(fwd, {
+                    "ms": lambda q, k, v, *_: kflash.flash_attention_cuda(
+                        q, k, v, return_lse=True, **kw),
+                    "plain_ms": lambda q, k, v, *_:
+                        ref.flash_attention_fwd_ref(q, k, v, **kw),
+                    "library_ms": lambda q, k, v, qt, kt, vt:
+                        F.scaled_dot_product_attention(qt, kt, vt,
+                                                       is_causal=True)},
+                    sets)
+                fwd["bound_ms"], fwd["bound_by"] = _bound(
+                    (2 * q.numel() + 2 * B * keys * Hkv * D)
+                    * q.element_size() + 4 * lse.numel(),
+                    4.0 * B * Hq * pairs * D, dtype)
+            del sets, lib_sets
+    log("flash_lse", json.dumps(dict(fwd, max_abs_err=worst_lse)))
+    return dict(main, max_abs_err=worst)
+
+
+def phase_cross_entropy(gen: torch.Generator, failures: list) -> dict:
+    """The CE kernel's per-token (nll, lse) against the plain blockwise
+    statistics, timed at the loss head's shape in bf16.  Its 524 MB vocab
+    matrix is ten times L2, so its warm time is its cold time."""
+    main = None
+    worst = 0.0
+    for shape in CE_SHAPES:
+        T, D, V = shape
+        for dtype in (torch.bfloat16, torch.float32):
+            h = torch.randn((T, D), generator=gen, device="cuda").to(dtype)
+            w = (torch.randn((V, D), generator=gen, device="cuda")
+                 * D ** -0.5).to(dtype)
+            t = torch.randint(0, V, (T,), generator=gen, device="cuda")
+            got = kce.cross_entropy_cuda(h, w, t)
+            want = ref.cross_entropy_stats_ref(h, w, t, block_v=8192)
+            torch.cuda.synchronize()
+            ok, err = True, 0.0
+            for a, b in zip(got, want):
+                ok_i, err_i = _close(a, b, TOL[dtype])
+                ok, err = ok and ok_i, max(err, err_i)
+            worst = max(worst, err)
+            row = {"shape": list(shape), "dtype": str(dtype)[6:],
+                   "max_abs_err": err, "ok": ok}
+            is_main = shape == CE_MAIN and dtype == torch.bfloat16
+            if is_main:
+                # library yardstick: logits by cuBLAS, then cross_entropy
+                _time_row(row, {
+                    "ms": lambda h, w, t: kce.cross_entropy_cuda(h, w, t),
+                    "plain_ms": lambda h, w, t: ref.cross_entropy_stats_ref(
+                        h, w, t, block_v=8192),
+                    "library_ms": lambda h, w, t: F.cross_entropy(
+                        torch.matmul(h, w.t()).float(), t,
+                        reduction="none")}, [(h, w, t)], calls=3)
+                n_bytes = ((T + V) * D * h.element_size() + 8 * T
+                           + 8 * T)
+                row["bound_ms"], row["bound_by"] = _bound(
+                    n_bytes, 2.0 * T * V * D, dtype)
+                main = row
+            log("cross_entropy", json.dumps(row))
+            if not ok:
+                failures.append(f"cross_entropy {shape} {dtype}: max err "
+                                f"{err}")
+            del h, w
+    return dict(main, max_abs_err=worst)
+
+
 def phase_serving(failures: list) -> dict:
     krms.launches = 0
     kflash.launches = 0
@@ -333,10 +567,10 @@ def phase_end_to_end(failures: list):
     return params, toks[:, :PROMPT]
 
 
-def _profile(fn, top: int = 8) -> dict:
+def _profile(fn, top: int = 8, ops: bool = False) -> dict:
     """Wall time of ``fn`` (synchronised), the device time of the kernels
-    the profiler saw inside it, their ratio (busy share) and the top
-    kernels by device time."""
+    the profiler saw inside it, their ratio (busy share), the top kernels
+    and, with ``ops``, the top operators by device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -346,14 +580,22 @@ def _profile(fn, top: int = 8) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
     dev_us = sum(e.self_device_time_total for e in kernels)
     kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
-    return {"wall_ms": wall * 1e3, "device_ms": dev_us / 1e3,
-            "busy_share": dev_us / 1e3 / (wall * 1e3),
-            "top": [[e.key[:60], e.self_device_time_total / 1e3, e.count]
-                    for e in kernels[:top]]}
+    out = {"wall_ms": wall * 1e3, "device_ms": dev_us / 1e3,
+           "busy_share": dev_us / 1e3 / (wall * 1e3),
+           "top": [[e.key[:60], e.self_device_time_total / 1e3, e.count]
+                   for e in kernels[:top]]}
+    if ops:
+        aten = sorted((e for e in events if e.device_type == DeviceType.CPU
+                       and e.key.startswith("aten::")
+                       and e.self_device_time_total > 0),
+                      key=lambda e: e.self_device_time_total, reverse=True)
+        out["top_ops"] = [[e.key, e.self_device_time_total / 1e3, e.count]
+                          for e in aten[:top]]
+    return out
 
 
 def phase_breakdown(params, prompt: torch.Tensor) -> None:
@@ -381,6 +623,125 @@ def phase_breakdown(params, prompt: torch.Tensor) -> None:
         log("breakdown_decode4", json.dumps(_profile(decode4)))
 
 
+def phase_training(failures: list) -> dict:
+    """The training path at full width and depth, counted and timed; then
+    one more step (warm) under the profiler."""
+    cfg = get_config(ARCH)
+    for mod in (krms, kflash, kce):
+        mod.launches = 0
+    krms.bwd_launches = kflash.bwd_launches = 0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    stamps = []
+
+    def on_step(i, metrics):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    t0 = time.perf_counter()
+    res = train.run_training(ARCH, smoke=False, steps=TRAIN_STEPS,
+                             seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                             carousel=False, device=DEVICE, on_step=on_step)
+    counts = {"rmsnorm": krms.launches, "rmsnorm_bwd": krms.bwd_launches,
+              "flash_attention": kflash.launches,
+              "flash_attention_bwd": kflash.bwd_launches,
+              "cross_entropy": kce.launches}
+    peak = torch.cuda.max_memory_allocated()
+    # per step, with remat="full": each block's forward runs twice (the
+    # forward, then the recompute in the backward); ln_f is outside the
+    # checkpointed blocks; one CE call
+    L = cfg.num_layers
+    want = {k: n * TRAIN_STEPS for k, n in (
+        ("rmsnorm", 2 * L + 1 + 2 * L), ("rmsnorm_bwd", 2 * L + 1),
+        ("flash_attention", 2 * L), ("flash_attention_bwd", L),
+        ("cross_entropy", 1))}
+    steps_s = [b - a for a, b in zip(stamps, stamps[1:])]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    losses = res["losses"]
+    log("training", json.dumps({
+        "arch": ARCH, "layers": L, "steps": res["steps"],
+        "tokens_per_step": tokens, "losses": losses,
+        "first_step_s": stamps[0] - t0 if stamps else None,
+        "step_s_2_3": steps_s,
+        "tokens_per_s": tokens / statistics.mean(steps_s),
+        "wall_s": res["wall_s"], "peak_mem_bytes": peak,
+        "opt_state_dtype": train.default_run_config(
+            cfg, TRAIN_STEPS).opt_state_dtype,
+        "launches": counts, "expected_launches": want}))
+    if counts != want:
+        failures.append(f"training launch counts {counts} != {want}")
+    if len(losses) != TRAIN_STEPS or not all(
+            torch.isfinite(torch.tensor(losses))):
+        failures.append(f"training losses {losses}")
+
+    run = train.default_run_config(cfg, TRAIN_STEPS)
+    batch = registry.synth_inputs(
+        torch.Generator(device=DEVICE).manual_seed(TRAIN_STEPS), cfg,
+        ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train"), "train",
+        device=DEVICE)
+    step_fn = tstep.make_train_step(cfg, run)
+    state = res.pop("state")
+    row = _profile(lambda: step_fn(state, batch), top=15, ops=True)
+    # the step's two halves, each timed alone (synchronised) in one more
+    # warm step
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    grads, _ = tstep.grads_and_metrics(state["params"], cfg, run, batch)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    adamw_update(state["params"], grads, state["opt"], lr=run.learning_rate,
+                 weight_decay=run.weight_decay,
+                 max_grad_norm=run.max_grad_norm)
+    torch.cuda.synchronize()
+    row["grads_and_metrics_ms"] = (t1 - t0) * 1e3
+    row["adamw_update_ms"] = (time.perf_counter() - t1) * 1e3
+    log("breakdown_train_step", json.dumps(row))
+    del state, res, batch, grads
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _tree_items(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _tree_items(v, f"{prefix}/{k}")
+    else:
+        yield prefix, tree
+
+
+def phase_training_end_to_end(failures: list) -> None:
+    """One ``grads_and_metrics`` through the kernels against one through
+    the plain versions, at full width and E2E_TRAIN_LAYERS layers."""
+    cfg = get_config(ARCH).replace(num_layers=E2E_TRAIN_LAYERS)
+    dev = torch.device(DEVICE)
+    params = serve.init_params(cfg, 11, dev)
+    batch = registry.synth_inputs(
+        torch.Generator(device=dev).manual_seed(12), cfg,
+        ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train"), "train",
+        device=dev)
+    run = train.default_run_config(cfg, TRAIN_STEPS)
+    gk, mk = tstep.grads_and_metrics(params, cfg, run, batch)
+    gp, mp = tstep.grads_and_metrics(params, cfg,
+                                     run.replace(use_kernels=False), batch)
+    lk, lp = float(mk["loss"]), float(mp["loss"])
+    loss_rel = abs(lk - lp) / abs(lp)
+    rel = {name: _rel_l2(a, b) for (name, a), (_, b) in
+           zip(_tree_items(gk), _tree_items(gp))}
+    finite = all(bool(torch.isfinite(g).all()) for g in P.tree_leaves(gk))
+    log("end_to_end_training", json.dumps({
+        "layers": E2E_TRAIN_LAYERS, "loss_kernels": lk, "loss_plain": lp,
+        "loss_rel": loss_rel, "loss_tol": LOSS_TOL, "grad_rel_l2": rel,
+        "grad_tol": E2E_TOL, "grads_finite": finite}))
+    if not loss_rel <= LOSS_TOL:
+        failures.append(f"training loss kernels {lk} vs plain {lp}")
+    bad = {k: r for k, r in rel.items() if not r <= E2E_TOL}
+    if bad or not finite:
+        failures.append(f"training grads rel L2 > {E2E_TOL}: {bad}, "
+                        f"finite={finite}")
+    del params, gk, gp
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run",
@@ -403,8 +764,13 @@ def main() -> int:
 
     failures: list = []
     gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
     rms_main = phase_rmsnorm(gen, failures)
     flash_main = phase_flash(gen, failures)
+    rms_bwd_main = phase_rmsnorm_bwd(gen, failures)
+    flash_bwd_main = phase_flash_bwd(gen, failures)
+    ce_main = phase_cross_entropy(gen, failures)
+    log(f"kernel phases: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     counts = phase_serving(failures)
     log(f"serving phase: {time.perf_counter() - t0:.2f} s")
@@ -412,22 +778,33 @@ def main() -> int:
     params, prompt = phase_end_to_end(failures)
     log(f"end-to-end phase: {time.perf_counter() - t0:.2f} s")
     phase_breakdown(params, prompt)
-    del params
+    del params, prompt
+    t0 = time.perf_counter()
+    train_counts = phase_training(failures)
+    log(f"training phase: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    phase_training_end_to_end(failures)
+    log(f"end-to-end training phase: {time.perf_counter() - t0:.2f} s")
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
+    csrc = "src/repro_torch/kernels/csrc/"
     kernels = [
-        dict(name="rmsnorm", route="cuda",
-             source="src/repro_torch/kernels/csrc/rmsnorm.cu",
-             replaces="src/repro/kernels/rmsnorm.py:25",
-             launches=counts["rmsnorm"],
-             **{k: rms_main[k] for k in keys}),
-        dict(name="flash_attention", route="cuda",
-             source="src/repro_torch/kernels/csrc/flash_attention.cu",
-             replaces="src/repro/kernels/flash_attention.py:80",
-             launches=counts["flash_attention"],
-             **{k: flash_main[k] for k in keys}),
-    ]
+        dict(name=name, route="cuda", source=csrc + source,
+             replaces=replaces,
+             launches=counts.get(name, 0) + train_counts[name],
+             **{k: row[k] for k in keys})
+        for name, source, replaces, row in (
+            ("rmsnorm", "rmsnorm.cu", "src/repro/kernels/rmsnorm.py:25",
+             rms_main),
+            ("rmsnorm_bwd", "rmsnorm.cu", "src/repro/kernels/ref.py:60",
+             rms_bwd_main),
+            ("flash_attention", "flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:80", flash_main),
+            ("flash_attention_bwd", "flash_attention.cu",
+             "src/repro/kernels/ref.py:188", flash_bwd_main),
+            ("cross_entropy", "cross_entropy.cu",
+             "src/repro/kernels/cross_entropy.py:56", ce_main))]
     log(f"total: {time.perf_counter() - t_start:.2f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))

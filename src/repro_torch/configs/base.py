@@ -3,7 +3,8 @@
 ``ModelConfig`` and ``ShapeConfig`` are copies of the dataclasses in
 ``repro/configs/base.py`` (the port imports nothing from ``repro``), with
 the same fields, so one arch is described the same way in both packages.
-``RunConfig`` keeps only the fields the ported serving path reads.
+``RunConfig`` keeps only the fields the ported serving and training paths
+read, with the JAX defaults.
 """
 from __future__ import annotations
 
@@ -93,7 +94,8 @@ class ShapeConfig:
 
 @dataclass
 class RunConfig:
-    """Knobs of one run of the ported path.
+    """Knobs of one run of the ported paths (the JAX defaults of
+    ``repro/configs/base.py::RunConfig`` for the fields both have).
 
     ``use_kernels``: None launches the hand-written kernels exactly when
     the tensors lie on CUDA and uses the plain versions on the CPU; True on
@@ -101,8 +103,21 @@ class RunConfig:
     comparison phases of the tests and of ``chip_smoke.py``).
     """
 
+    accum_steps: int = 1  # gradient-accumulation microbatches
+    remat: str = "full"  # none | full (checkpoint each block) | dots
+    grad_compression: str = "none"  # none | bf16
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.1
+    warmup_steps: int = 100
+    total_steps: int = 1_000
+    max_grad_norm: float = 1.0
+    seed: int = 0
     attn_block_k: int = 512  # KV chunk of the plain flash reference
+    ce_mode: str = "blockwise"  # blockwise | direct
+    ce_block_v: int = 8192
+    ce_dtype: str = "bfloat16"  # logits matmul input dtype (f32 accum)
     logits_in_fp32: bool = True
+    opt_state_dtype: str = "float32"  # float32 | bfloat16
     use_kernels: Optional[bool] = None
 
     def replace(self, **kw: Any) -> "RunConfig":

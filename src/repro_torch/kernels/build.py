@@ -22,7 +22,8 @@ from typing import Optional
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = (Path(__file__).resolve().parents[3] / "build"
              / "repro_torch_kernels")
-SOURCES = ("bindings.cpp", "rmsnorm.cu", "flash_attention.cu")
+SOURCES = ("bindings.cpp", "rmsnorm.cu", "flash_attention.cu",
+           "cross_entropy.cu")
 CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a",
               "-Xptxas=-v"]
 

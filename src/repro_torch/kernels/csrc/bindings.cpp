@@ -1,11 +1,12 @@
 // PyTorch bindings of the hand-written CUDA kernels in this directory.
 //
-// The only source that includes PyTorch's headers: rmsnorm.cu and
-// flash_attention.cu are plain CUDA with C entry points taking pointers,
-// strides and a stream.  Each function here launches on the current
-// stream of its tensors' device and checks the launch.  The Python
-// wrappers (kernels/rmsnorm.py, kernels/flash_attention.py) check devices,
-// dtypes, shapes and contiguity and allocate the outputs.
+// The only source that includes PyTorch's headers: rmsnorm.cu,
+// flash_attention.cu and cross_entropy.cu are plain CUDA with C entry
+// points taking pointers, strides and a stream.  Each function here
+// launches on the current stream of its tensors' device and checks the
+// launch.  The Python wrappers (kernels/rmsnorm.py,
+// kernels/flash_attention.py, kernels/cross_entropy.py) check devices,
+// dtypes, shapes and contiguity and allocate the outputs and scratch.
 #include <torch/extension.h>
 
 #include <ATen/cuda/CUDAContext.h>
@@ -15,16 +16,37 @@
 #include <cstdint>
 
 extern "C" void repro_rmsnorm_fwd(const void* x, const void* w, void* y,
-                                  int rows, int D, float eps, int x_bf16,
-                                  int w_bf16, int vec, cudaStream_t s);
+                                  float* inv, int rows, int D, float eps,
+                                  int x_bf16, int w_bf16, int vec,
+                                  cudaStream_t s);
+extern "C" int repro_rmsnorm_bwd_parts(int rows);
+extern "C" void repro_rmsnorm_bwd(const void* x, const void* w,
+                                  const float* inv, const void* g, void* dx,
+                                  void* dw, float* part, int rows, int D,
+                                  int x_bf16, int w_bf16, cudaStream_t s);
 
 extern "C" bool repro_flash_fwd(
-    const void* q, const void* k, const void* v, void* o, int B, int Sq,
-    int Sk, int Hq, int Hkv, int D, long long q_sb, long long q_ss,
+    const void* q, const void* k, const void* v, void* o, float* lse, int B,
+    int Sq, int Sk, int Hq, int Hkv, int D, long long q_sb, long long q_ss,
     long long q_sh, long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh, long long o_sb,
     long long o_ss, long long o_sh, float scale, int causal, int q_offset,
     int kv_len, int window, int bf16, cudaStream_t s);
+extern "C" bool repro_flash_bwd(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const float* lse, float* delta, void* dq, void* dk,
+    void* dv, int B, int Sq, int Sk, int Hq, int Hkv, int D, long long q_sb,
+    long long q_ss, long long q_sh, long long k_sb, long long k_ss,
+    long long k_sh, long long v_sb, long long v_ss, long long v_sh,
+    long long do_sb, long long do_ss, long long do_sh, float scale,
+    int causal, int q_offset, int kv_len, int window, int bf16,
+    cudaStream_t s);
+
+extern "C" int repro_ce_splits(int n_tok, int V);
+extern "C" void repro_ce_fwd(const void* hidden, const void* w,
+                             const long long* targets, float* part,
+                             float* nll, float* lse, int n_tok, int V, int D,
+                             int bf16, cudaStream_t s);
 
 namespace {
 
@@ -34,28 +56,52 @@ bool aligned16(const at::Tensor& t) {
   return reinterpret_cast<std::uintptr_t>(t.data_ptr()) % 16 == 0;
 }
 
-// x, y: (..., D) contiguous, one dtype; w: (D,).  Writes y.
+// x, y: (..., D) contiguous, one dtype; w: (D,); inv: (rows,) f32 or
+// None.  Writes y (and inv).
 void rmsnorm_fwd(const at::Tensor& x, const at::Tensor& w, at::Tensor y,
-                 double eps) {
+                 double eps, const c10::optional<at::Tensor>& inv) {
   const c10::cuda::CUDAGuard guard(x.device());
   const int64_t D = x.size(-1);
   const int vec = D % (16 / x.element_size()) == 0 && aligned16(x) &&
                   aligned16(y);
   repro_rmsnorm_fwd(x.data_ptr(), w.data_ptr(), y.data_ptr(),
+                    inv ? inv->data_ptr<float>() : nullptr,
                     static_cast<int>(x.numel() / D), static_cast<int>(D),
                     static_cast<float>(eps), is_bf16(x), is_bf16(w), vec,
                     at::cuda::getCurrentCUDAStream());
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+int64_t rmsnorm_bwd_parts(int64_t rows) {
+  return repro_rmsnorm_bwd_parts(static_cast<int>(rows));
+}
+
+// x, g, dx: (rows, D) contiguous in x's dtype; w, dw: (D,); inv: (rows,)
+// f32; part: (rmsnorm_bwd_parts(rows), D) f32 scratch.  Writes dx, dw.
+void rmsnorm_bwd(const at::Tensor& x, const at::Tensor& w,
+                 const at::Tensor& inv, const at::Tensor& g, at::Tensor dx,
+                 at::Tensor dw, at::Tensor part) {
+  const c10::cuda::CUDAGuard guard(x.device());
+  const int64_t D = x.size(-1);
+  repro_rmsnorm_bwd(x.data_ptr(), w.data_ptr(), inv.data_ptr<float>(),
+                    g.data_ptr(), dx.data_ptr(), dw.data_ptr(),
+                    part.data_ptr<float>(), static_cast<int>(x.numel() / D),
+                    static_cast<int>(D), is_bf16(x), is_bf16(w),
+                    at::cuda::getCurrentCUDAStream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
 // q, o: (B, Sq, Hq, D); k, v: (B, Sk, Hkv, D); one dtype, D axis
-// contiguous, any other strides.  Writes o.
+// contiguous, any other strides; lse: (B, Sq, Hq) f32 contiguous or None.
+// Writes o (and lse).
 void flash_fwd(const at::Tensor& q, const at::Tensor& k, const at::Tensor& v,
-               at::Tensor o, double scale, bool causal, int64_t q_offset,
-               int64_t kv_len, int64_t window) {
+               at::Tensor o, const c10::optional<at::Tensor>& lse,
+               double scale, bool causal, int64_t q_offset, int64_t kv_len,
+               int64_t window) {
   const c10::cuda::CUDAGuard guard(q.device());
   const bool launched = repro_flash_fwd(
-      q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), q.size(0),
+      q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+      lse ? lse->data_ptr<float>() : nullptr, q.size(0),
       q.size(1), k.size(1), q.size(2), k.size(2), q.size(3), q.stride(0),
       q.stride(1), q.stride(2), k.stride(0), k.stride(1), k.stride(2),
       v.stride(0), v.stride(1), v.stride(2), o.stride(0), o.stride(1),
@@ -65,9 +111,57 @@ void flash_fwd(const at::Tensor& q, const at::Tensor& k, const at::Tensor& v,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+// q, dout: (B, Sq, Hq, D); k, v: (B, Sk, Hkv, D); one dtype, D axis
+// contiguous, any other strides; o, lse, delta (scratch) and the outputs
+// dq, dk, dv contiguous.  Writes dq, dk, dv.
+void flash_bwd(const at::Tensor& q, const at::Tensor& k, const at::Tensor& v,
+               const at::Tensor& o, const at::Tensor& lse,
+               const at::Tensor& dout, at::Tensor delta, at::Tensor dq,
+               at::Tensor dk, at::Tensor dv, double scale, bool causal,
+               int64_t q_offset, int64_t kv_len, int64_t window) {
+  const c10::cuda::CUDAGuard guard(q.device());
+  const bool launched = repro_flash_bwd(
+      q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+      dout.data_ptr(), lse.data_ptr<float>(), delta.data_ptr<float>(),
+      dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), q.size(0), q.size(1),
+      k.size(1), q.size(2), k.size(2), q.size(3), q.stride(0), q.stride(1),
+      q.stride(2), k.stride(0), k.stride(1), k.stride(2), v.stride(0),
+      v.stride(1), v.stride(2), dout.stride(0), dout.stride(1),
+      dout.stride(2), static_cast<float>(scale), causal, q_offset, kv_len,
+      window, is_bf16(q), at::cuda::getCurrentCUDAStream());
+  TORCH_CHECK(launched, "flash_bwd: no kernel for head_dim ", q.size(3));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+int64_t ce_splits(int64_t n_tok, int64_t V) {
+  return repro_ce_splits(static_cast<int>(n_tok), static_cast<int>(V));
+}
+
+// hidden: (T, D), w: (V, D) contiguous, one dtype; targets: (T,) int64;
+// part: (ce_splits(T, V), T, 3) f32 scratch.  Writes nll, lse (T,) f32.
+void ce_fwd(const at::Tensor& hidden, const at::Tensor& w,
+            const at::Tensor& targets, at::Tensor part, at::Tensor nll,
+            at::Tensor lse) {
+  const c10::cuda::CUDAGuard guard(hidden.device());
+  repro_ce_fwd(hidden.data_ptr(), w.data_ptr(),
+               reinterpret_cast<const long long*>(
+                   targets.data_ptr<int64_t>()),
+               part.data_ptr<float>(), nll.data_ptr<float>(),
+               lse.data_ptr<float>(), static_cast<int>(hidden.size(0)),
+               static_cast<int>(w.size(0)), static_cast<int>(hidden.size(1)),
+               is_bf16(hidden), at::cuda::getCurrentCUDAStream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
-  m.def("rmsnorm_fwd", &rmsnorm_fwd, "row RMSNorm forward into y");
-  m.def("flash_fwd", &flash_fwd, "flash-attention forward into o");
+  m.def("rmsnorm_fwd", &rmsnorm_fwd, "row RMSNorm forward into y (and inv)");
+  m.def("rmsnorm_bwd_parts", &rmsnorm_bwd_parts,
+        "rows of the RMSNorm backward's f32 dw scratch");
+  m.def("rmsnorm_bwd", &rmsnorm_bwd, "RMSNorm backward into dx, dw");
+  m.def("flash_fwd", &flash_fwd, "flash-attention forward into o (and lse)");
+  m.def("flash_bwd", &flash_bwd, "flash-attention backward into dq, dk, dv");
+  m.def("ce_splits", &ce_splits, "vocab splits of the CE forward's scratch");
+  m.def("ce_fwd", &ce_fwd, "blockwise cross-entropy forward into nll, lse");
 }

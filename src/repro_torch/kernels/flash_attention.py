@@ -1,54 +1,55 @@
-"""Flash-attention forward: wrapper of ``csrc/flash_attention.cu`` (bound
-in ``csrc/bindings.cpp``).
+"""Flash attention: wrappers of the hand-written CUDA kernels
+``csrc/flash_attention.cu`` (bound in ``csrc/bindings.cpp``) and the
+autograd Function around them.
 
-Replaces ``repro/kernels/flash_attention.py::flash_attention_pallas``
-(body ``_flash_kernel``).  Bound on the card: the larger of
-``4 * B * Hq * Sq * Sk_valid * D`` FLOPs (about half under a causal mask)
-over the tensor-core peak and the bytes of q, out and the K/V rows some
-query can see over HBM rate;
-at the yi-6b prefill shape the two are close (8.7 us and 11.3 us).  This
-first kernel computes in f32 FMAs on the CUDA cores, far from either:
-one thread block per (batch, q head, 64-row q tile), K/V tiles staged in
-shared memory, GQA inside the kernel (kv head = h // G), and tiles that
-no row of the q tile can see skipped.
+The forward replaces ``repro/kernels/flash_attention.py::
+flash_attention_pallas`` (body ``_flash_kernel``); the backward is the twin
+of ``repro/kernels/ref.py::_flash_bwd_inner``, which the JAX package runs
+in jnp.  Bound on the card: the larger of the FLOPs of the visible
+(query, key) pairs over the tensor-core peak and the bytes of the inputs
+and outputs over HBM rate; at the yi-6b shapes the two are close.  These
+first kernels compute in f32 FMAs on the CUDA cores, far from either:
+the forward runs one thread block per (batch, q head, 64-row q tile),
+K/V tiles staged in shared memory, GQA inside the kernel (kv head =
+h // G), tiles that no row can see skipped; the backward runs one block
+per (batch, kv head, 64-key tile) for dk and dv, summed over the G q
+heads inside the block, and one per (batch, q head, q tile) for dq.
 
 q, k and v keep the JAX layout ``(B, S, H, D)`` and are read through
 their strides (each needs a contiguous D axis), so the caller neither
 transposes nor repeats K/V.
 
-The plain version is :func:`repro_torch.kernels.ref.flash_attention_ref`;
-``kernels/ops.py`` sends CPU tensors there.  A row with no valid key
-differs between the two (see the .cu source note); the serving path
-never makes one.
+The plain versions are :func:`repro_torch.kernels.ref.
+flash_attention_fwd_ref` and :func:`~repro_torch.kernels.ref.
+flash_attention_bwd_ref`; ``kernels/ops.py`` sends CPU tensors there.  A
+row with no valid key differs between kernel and plain version (see the
+.cu source note); the serving and training paths never make one.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels import ref
 
-launches = 0  # kernel launches since the last reset (set to 0 to reset)
+# kernel launches since the last reset (set to 0 to reset)
+launches = 0  # forward
+bwd_launches = 0  # backward (one count per call of its three kernels)
 
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
-def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, causal: bool = True, q_offset: int = 0,
-                         kv_len: Optional[int] = None,
-                         sliding_window: int = 0,
-                         scale: Optional[float] = None) -> torch.Tensor:
-    """Launches the kernel.  q: (B, Sq, Hq, D); k, v: (B, Sk, Hkv, D);
-    one CUDA device, one dtype (bf16 or f32).  Returns (B, Sq, Hq, D)."""
-    global launches
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, name: str,
+           kv_len: Optional[int], q_offset: int) -> int:
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
-        raise ValueError("flash_attention_cuda needs q, k, v on one CUDA "
-                         f"device, got {q.device}, {k.device}, {v.device}")
+        raise ValueError(f"{name} needs q, k, v on one CUDA device, got "
+                         f"{q.device}, {k.device}, {v.device}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError("flash_attention_cuda takes one dtype, bf16 or "
-                        f"f32; got {q.dtype}, {k.dtype}, {v.dtype}")
+        raise TypeError(f"{name} takes one dtype, bf16 or f32; got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"bad shapes q{tuple(q.shape)} k{tuple(k.shape)} "
                          f"v{tuple(v.shape)}")
@@ -59,18 +60,110 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if D not in HEAD_DIMS:
         raise ValueError(f"head_dim {D} not in {HEAD_DIMS}")
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
-        raise ValueError("flash_attention_cuda needs a contiguous D axis")
+        raise ValueError(f"{name} needs a contiguous D axis")
     kv_len = Sk if kv_len is None else int(kv_len)
-    q_offset = int(q_offset)
     if not 0 <= kv_len <= Sk or q_offset < 0:
         raise ValueError(f"need 0 <= kv_len <= Sk and q_offset >= 0, got "
                          f"kv_len={kv_len}, Sk={Sk}, q_offset={q_offset}")
+    return kv_len
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True, q_offset: int = 0,
+                         kv_len: Optional[int] = None,
+                         sliding_window: int = 0,
+                         scale: Optional[float] = None,
+                         return_lse: bool = False):
+    """Launches the forward kernel.  q: (B, Sq, Hq, D); k, v: (B, Sk,
+    Hkv, D); one CUDA device, one dtype (bf16 or f32).  Returns the
+    (B, Sq, Hq, D) output and, with ``return_lse``, the f32 (B, Sq, Hq)
+    statistic ``lse = m + log(max(l, 1e-30))`` the backward reads."""
+    global launches
+    q_offset = int(q_offset)
+    kv_len = _check(q, k, v, "flash_attention_cuda", kv_len, q_offset)
+    B, Sq, Hq, D = q.shape
     scale = scale if scale is not None else D ** -0.5
     o = torch.empty((B, Sq, Hq, D), dtype=q.dtype, device=q.device)
-    if o.numel() == 0:
-        return o
-    build.extension().flash_fwd(q, k, v, o, float(scale), bool(causal),
-                                q_offset, kv_len, int(sliding_window))
-    launches += 1
-    return o
+    lse = (torch.empty((B, Sq, Hq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
+    if o.numel():
+        build.extension().flash_fwd(q, k, v, o, lse, float(scale),
+                                    bool(causal), q_offset, kv_len,
+                                    int(sliding_window))
+        launches += 1
+    return (o, lse) if return_lse else o
 
+
+def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, o: torch.Tensor,
+                             lse: torch.Tensor, dout: torch.Tensor, *,
+                             causal: bool = True, q_offset: int = 0,
+                             kv_len: Optional[int] = None,
+                             sliding_window: int = 0,
+                             scale: Optional[float] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """Launches the backward kernels.  q, k, v as for the forward; o and
+    lse the forward's outputs (contiguous); dout the cotangent of o
+    (contiguous, q's dtype).  Returns (dq, dk, dv), contiguous, in q's
+    dtype; dk and dv are summed over the G q heads of each kv head."""
+    global bwd_launches
+    q_offset = int(q_offset)
+    kv_len = _check(q, k, v, "flash_attention_bwd_cuda", kv_len, q_offset)
+    B, Sq, Hq, D = q.shape
+    for name, t, dt, shape in (("o", o, q.dtype, q.shape),
+                               ("dout", dout, q.dtype, q.shape),
+                               ("lse", lse, torch.float32, q.shape[:3])):
+        if (t.shape != shape or t.dtype != dt or not t.is_contiguous()
+                or t.device != q.device):
+            raise ValueError(f"{name} must be contiguous {tuple(shape)} {dt} "
+                             f"on {q.device}, got {tuple(t.shape)} {t.dtype}")
+    scale = scale if scale is not None else D ** -0.5
+    dq = torch.empty((B, Sq, Hq, D), dtype=q.dtype, device=q.device)
+    dk = torch.empty(k.shape, dtype=q.dtype, device=q.device)
+    dv = torch.empty(v.shape, dtype=q.dtype, device=q.device)
+    if dq.numel() == 0 or dk.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    delta = torch.empty((B, Sq, Hq), dtype=torch.float32, device=q.device)
+    build.extension().flash_bwd(q, k, v, o, lse, dout, delta, dq, dk, dv,
+                                float(scale), bool(causal), q_offset, kv_len,
+                                int(sliding_window))
+    bwd_launches += 1
+    return dq, dk, dv
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Flash attention with the O(S) custom backward of
+    ``repro/kernels/ref.py::_flash_vjp_factory``: the forward saves q, k,
+    v, out and the f32 ``lse``; the backward recomputes p from them.
+    Under activation checkpointing the recomputed forward saves the
+    recomputed ``lse``.  ``kernel`` selects the CUDA kernels, else the
+    plain versions (``opts`` carries ``block_k`` for those)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kernel: bool, opts: dict):
+        if kernel:
+            out, lse = flash_attention_cuda(
+                q, k, v, causal=opts["causal"], q_offset=opts["q_offset"],
+                kv_len=opts["kv_len"],
+                sliding_window=opts["sliding_window"], return_lse=True)
+        else:
+            out, lse = ref.flash_attention_fwd_ref(q, k, v, **opts)
+        ctx.kernel, ctx.opts = kernel, opts
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dout = dout.to(q.dtype).contiguous()
+        opts = ctx.opts
+        if ctx.kernel:
+            dq, dk, dv = flash_attention_bwd_cuda(
+                q, k, v, out, lse, dout, causal=opts["causal"],
+                q_offset=opts["q_offset"], kv_len=opts["kv_len"],
+                sliding_window=opts["sliding_window"])
+        else:
+            dq, dk, dv = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout,
+                                                     **opts)
+        return dq, dk, dv, None, None

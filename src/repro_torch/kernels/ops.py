@@ -5,6 +5,12 @@ as ``repro/kernels/ops.py`` dispatches between Pallas and ``ref.py``.
 the tensor lies on CUDA; True on a CPU tensor raises; False takes the
 plain version.  A CUDA tensor sent to a kernel launches it or raises:
 there is no fallback.
+
+Where a gradient is needed (grad mode on and an input that requires
+grad), ``rmsnorm`` and ``flash_attention`` go through their autograd
+Functions, whose backward is a kernel too (or the plain backward); the
+forward then also writes the statistic the backward reads.  Otherwise
+they call the forward alone, so serving pays nothing for training.
 """
 from __future__ import annotations
 
@@ -12,6 +18,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import cross_entropy as _ce
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import rmsnorm as _rmsnorm
@@ -26,9 +33,16 @@ def _kernel_path(x: torch.Tensor, use_kernels: Optional[bool]) -> bool:
     return bool(use_kernels)
 
 
+def _needs_grad(*ts: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
 def rmsnorm(x, w, *, eps: float = 1e-6,
             use_kernels: Optional[bool] = None) -> torch.Tensor:
-    if _kernel_path(x, use_kernels):
+    kernel = _kernel_path(x, use_kernels)
+    if _needs_grad(x, w):
+        return _rmsnorm.RMSNormFn.apply(x, w, eps, kernel)
+    if kernel:
         return _rmsnorm.rmsnorm_cuda(x, w, eps)
     return _ref.rmsnorm_ref(x, w, eps)
 
@@ -37,10 +51,30 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
                     kv_len: Optional[int] = None, sliding_window: int = 0,
                     block_k: int = 512,
                     use_kernels: Optional[bool] = None) -> torch.Tensor:
-    if _kernel_path(q, use_kernels):
-        return _flash.flash_attention_cuda(
-            q, k, v, causal=causal, q_offset=q_offset, kv_len=kv_len,
-            sliding_window=sliding_window)
-    return _ref.flash_attention_ref(
-        q, k, v, causal=causal, q_offset=q_offset, kv_len=kv_len,
-        sliding_window=sliding_window, block_k=block_k)
+    kernel = _kernel_path(q, use_kernels)
+    opts = dict(causal=causal, q_offset=q_offset, kv_len=kv_len,
+                sliding_window=sliding_window)
+    if _needs_grad(q, k, v):
+        return _flash.FlashAttentionFn.apply(q, k, v, kernel,
+                                             dict(opts, block_k=block_k))
+    if kernel:
+        return _flash.flash_attention_cuda(q, k, v, **opts)
+    return _ref.flash_attention_ref(q, k, v, block_k=block_k, **opts)
+
+
+def cross_entropy(hidden, w_vocab, targets, valid=None, *,
+                  mode: str = "direct", block_v: int = 4096,
+                  use_kernels: Optional[bool] = None) -> torch.Tensor:
+    """Mean NLL over the valid tokens (forward only, as the Pallas
+    kernel).  The kernel multiplies in f32 whatever ``mode`` says, as
+    ``cross_entropy_pallas`` does; the plain path takes ``mode``."""
+    if _kernel_path(hidden, use_kernels):
+        nll, _ = _ce.cross_entropy_cuda(hidden, w_vocab, targets)
+        if valid is None:
+            return nll.mean()
+        vf = valid.float()
+        return (nll * vf).sum() / torch.clamp(vf.sum(), min=1.0)
+    if mode == "blockwise":
+        return _ref.cross_entropy_blockwise_ref(hidden, w_vocab, targets,
+                                                valid, block_v=block_v)
+    return _ref.cross_entropy_direct_ref(hidden, w_vocab, targets, valid)

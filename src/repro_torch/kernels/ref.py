@@ -1,13 +1,14 @@
-"""Plain PyTorch versions of the ported kernels (forward only).
+"""Plain PyTorch versions of the ported kernels, forward and backward.
 
-They follow ``repro/kernels/ref.py`` op for op and are the oracles the
-hand-written CUDA kernels are held against: nothing here calls
-``F.scaled_dot_product_attention`` or any other fused library operator.
-On a CPU tensor the kernel wrappers run these.
+They follow ``repro/kernels/ref.py`` (and the custom VJPs there) op for op
+and are the oracles the hand-written CUDA kernels are held against:
+nothing here calls ``F.scaled_dot_product_attention``,
+``F.cross_entropy`` or any other fused library operator.  On a CPU
+tensor the kernel wrappers and autograd Functions run these.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -17,10 +18,31 @@ NEG_INF = -1e30
 def rmsnorm_ref(x: torch.Tensor, w: torch.Tensor,
                 eps: float = 1e-6) -> torch.Tensor:
     """Row RMSNorm over the last axis: f32 math, output in x's dtype."""
+    return rmsnorm_fwd_ref(x, w, eps)[0]
+
+
+def rmsnorm_fwd_ref(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``_rmsnorm_fwd_math``: (y in x's dtype, per-row f32 ``inv`` of
+    shape ``x.shape[:-1]``)."""
     xf = x.float()
     var = (xf * xf).mean(dim=-1, keepdim=True)
-    y = xf * torch.rsqrt(var + eps) * w.float()
-    return y.to(x.dtype)
+    inv = torch.rsqrt(var + eps)
+    y = xf * inv * w.float()
+    return y.to(x.dtype), inv[..., 0]
+
+
+def rmsnorm_bwd_ref(x: torch.Tensor, w: torch.Tensor, inv: torch.Tensor,
+                    g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``_rmsnorm_vjp_bwd``: (dx in x's dtype, dw in w's dtype) from the
+    saved x, w, per-row ``inv`` and the cotangent g."""
+    xf, gf, wf = x.float(), g.float(), w.float()
+    xhat = xf * inv[..., None]
+    gw = gf * wf
+    dx = inv[..., None] * (gw - xhat * (gw * xhat).mean(dim=-1,
+                                                        keepdim=True))
+    dw = (gf * xhat).sum(dim=tuple(range(x.dim() - 1)))
+    return dx.to(x.dtype), dw.to(w.dtype)
 
 
 def attention_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, *,
@@ -34,6 +56,11 @@ def attention_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, *,
     if sliding_window:
         mask = mask & (k_pos[None, :] > q_pos[:, None] - sliding_window)
     return mask
+
+
+def _pad_rows(t: torch.Tensor, pad: int) -> torch.Tensor:
+    """Zero-pads axis 1 of a (B, S, H, D) tensor by ``pad`` rows."""
+    return torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad)) if pad else t
 
 
 def flash_attention_ref(
@@ -51,6 +78,19 @@ def flash_attention_ref(
     """Chunked online-softmax attention with GQA (q head h reads kv head
     h // G).  A row whose every key is masked comes out as the plain mean
     over V, zero padding included, because exp(NEG_INF - NEG_INF) = 1."""
+    return flash_attention_fwd_ref(
+        q, k, v, causal=causal, q_offset=q_offset, kv_len=kv_len,
+        sliding_window=sliding_window, block_k=block_k, scale=scale)[0]
+
+
+def flash_attention_fwd_ref(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+    causal: bool = True, q_offset: int = 0, kv_len: Optional[int] = None,
+    sliding_window: int = 0, block_k: int = 512,
+    scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``_flash_fwd_inner``: (out in q's dtype, f32 ``lse = m + log(max(l,
+    1e-30))`` of shape (B, Sq, Hq))."""
     B, Sq, Hq, D = q.shape
     _, Sk, Hkv, _ = k.shape
     if Hq % max(Hkv, 1):
@@ -59,10 +99,7 @@ def flash_attention_ref(
     scale = scale if scale is not None else D ** -0.5
     block_k = min(block_k, max(Sk, 1))
     pad = (-Sk) % block_k
-    kf, vf = k.float(), v.float()
-    if pad:
-        kf = torch.nn.functional.pad(kf, (0, 0, 0, 0, 0, pad))
-        vf = torch.nn.functional.pad(vf, (0, 0, 0, 0, 0, pad))
+    kf, vf = _pad_rows(k.float(), pad), _pad_rows(v.float(), pad)
     n_blocks = kf.shape[1] // block_k
 
     qf = (q.float() * scale).reshape(B, Sq, Hkv, G, D)
@@ -89,7 +126,58 @@ def flash_attention_ref(
         m = m_new
     l = torch.clamp(l, min=1e-30)
     out = (acc / l[..., None]).reshape(B, Sq, Hq, D)
-    return out.to(q.dtype)
+    lse = (m + torch.log(l)).reshape(B, Sq, Hq)
+    return out.to(q.dtype), lse
+
+
+def flash_attention_bwd_ref(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+    lse: torch.Tensor, dout: torch.Tensor, *, causal: bool = True,
+    q_offset: int = 0, kv_len: Optional[int] = None,
+    sliding_window: int = 0, block_k: int = 512,
+    scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``_flash_bwd_inner``: p recomputed per KV block from ``lse``,
+    ``delta = rowsum(dout * out)``; dk and dv summed over the G q heads of
+    each kv head.  Returns (dq, dk, dv) in the dtypes of q, k, v."""
+    B, Sq, Hq, D = q.shape
+    _, Sk, Hkv, _ = k.shape
+    G = Hq // Hkv
+    scale = scale if scale is not None else D ** -0.5
+    block_k = min(block_k, max(Sk, 1))
+    pad = (-Sk) % block_k
+    kf, vf = _pad_rows(k.float(), pad), _pad_rows(v.float(), pad)
+    n_blocks = kf.shape[1] // block_k
+
+    qf = (q.float() * scale).reshape(B, Sq, Hkv, G, D)
+    dof = dout.float().reshape(B, Sq, Hkv, G, D)
+    of = out.float().reshape(B, Sq, Hkv, G, D)
+    delta = (dof * of).sum(dim=-1)  # (B, Sq, Hkv, G)
+    lse = lse.reshape(B, Sq, Hkv, G)
+    q_pos = q_offset + torch.arange(Sq, device=q.device)
+    valid_len = Sk if kv_len is None else kv_len
+
+    dq = torch.zeros((B, Sq, Hkv, G, D), device=q.device)
+    dks, dvs = [], []
+    for j in range(n_blocks):
+        kb = kf[:, j * block_k:(j + 1) * block_k]
+        vb = vf[:, j * block_k:(j + 1) * block_k]
+        k_pos = j * block_k + torch.arange(block_k, device=q.device)
+        s = torch.einsum("bqhgd,bkhd->bqhgk", qf, kb)
+        mask = attention_mask(q_pos, k_pos, valid_len=valid_len,
+                              causal=causal, sliding_window=sliding_window)
+        mask = mask[None, :, None, None, :]
+        s = s.masked_fill(~mask, NEG_INF)
+        p = torch.exp(s - lse[..., None]).masked_fill(~mask, 0.0)
+        dvs.append(torch.einsum("bqhgk,bqhgd->bkhd", p, dof))
+        dp = torch.einsum("bqhgd,bkhd->bqhgk", dof, vb)
+        ds = p * (dp - delta[..., None])
+        dq = dq + torch.einsum("bqhgk,bkhd->bqhgd", ds, kb)
+        dks.append(torch.einsum("bqhgk,bqhgd->bkhd", ds, qf))
+    dq = (dq * scale).reshape(B, Sq, Hq, D)
+    dk = torch.cat(dks, dim=1)[:, :Sk]
+    dv = torch.cat(dvs, dim=1)[:, :Sk]
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def attention_naive(q, k, v, *, causal: bool = True, q_offset: int = 0,
@@ -111,3 +199,64 @@ def attention_naive(q, k, v, *, causal: bool = True, q_offset: int = 0,
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bqhgk,bkhd->bqhgd", p, v.float())
     return out.reshape(B, Sq, Hq, D).to(q.dtype)
+
+
+def _masked_mean_bool(nll: torch.Tensor,
+                      valid: Optional[torch.Tensor]) -> torch.Tensor:
+    if valid is None:
+        return nll.mean()
+    nll = torch.where(valid.bool(), nll, torch.zeros_like(nll))
+    return nll.sum() / torch.clamp(valid.sum().float(), min=1.0)
+
+
+def cross_entropy_stats_ref(hidden: torch.Tensor, w_vocab: torch.Tensor,
+                            targets: torch.Tensor, *, block_v: int = 2048
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-token f32 (nll, lse) over vocab blocks with online (max,
+    sumexp, target logit) statistics: the plain version of the CE kernel
+    (``_ce_kernel`` and ``train/loss.py::_ce_fwd_stats``).  Inputs are
+    read in their own dtype and multiplied in f32, which is exact for
+    bf16 inputs, as a bf16 product with f32 accumulation is."""
+    T, D = hidden.shape
+    V = w_vocab.shape[0]
+    block_v = min(block_v, V)
+    hf = hidden.float()
+    m = torch.full((T,), NEG_INF, device=hidden.device)
+    l = torch.zeros((T,), device=hidden.device)
+    tgt = torch.zeros((T,), device=hidden.device)
+    for v0 in range(0, V, block_v):
+        logits = hf @ w_vocab[v0:v0 + block_v].float().t()  # (T, <=bv)
+        m_new = torch.maximum(m, logits.amax(dim=-1))
+        l = l * torch.exp(m - m_new) + torch.exp(
+            logits - m_new[:, None]).sum(dim=-1)
+        m = m_new
+        hit = (targets >= v0) & (targets < v0 + logits.shape[1])
+        idx = (targets - v0).clamp(0, logits.shape[1] - 1)
+        tgt = tgt + torch.where(
+            hit, logits.gather(1, idx[:, None].long())[:, 0],
+            torch.zeros_like(tgt))
+    lse = m + torch.log(torch.clamp(l, min=1e-30))
+    return lse - tgt, lse
+
+
+def cross_entropy_direct_ref(hidden: torch.Tensor, w_vocab: torch.Tensor,
+                             targets: torch.Tensor,
+                             valid: Optional[torch.Tensor] = None
+                             ) -> torch.Tensor:
+    """Mean NLL from the whole (T, V) f32 logit matrix (small shapes)."""
+    logits = hidden.float() @ w_vocab.float().t()
+    m = logits.amax(dim=-1, keepdim=True)
+    lse = (m + torch.log(torch.exp(logits - m).sum(dim=-1,
+                                                    keepdim=True)))[:, 0]
+    tgt = logits.gather(1, targets[:, None].long())[:, 0]
+    return _masked_mean_bool(lse - tgt, valid)
+
+
+def cross_entropy_blockwise_ref(hidden: torch.Tensor, w_vocab: torch.Tensor,
+                                targets: torch.Tensor,
+                                valid: Optional[torch.Tensor] = None, *,
+                                block_v: int = 2048) -> torch.Tensor:
+    """Mean NLL from the vocab-blockwise statistics."""
+    nll, _ = cross_entropy_stats_ref(hidden, w_vocab, targets,
+                                     block_v=block_v)
+    return _masked_mean_bool(nll, valid)

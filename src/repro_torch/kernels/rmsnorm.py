@@ -1,48 +1,117 @@
-"""RMSNorm: wrapper of the hand-written CUDA kernel ``csrc/rmsnorm.cu``
-(bound in ``csrc/bindings.cpp``).
+"""RMSNorm: wrappers of the hand-written CUDA kernels ``csrc/rmsnorm.cu``
+(bound in ``csrc/bindings.cpp``) and the autograd Function around them.
 
-Replaces ``repro/kernels/rmsnorm.py::rmsnorm_pallas`` (body
-``_rmsnorm_kernel``).  Bound on the card: bytes — each of the rows*D
-elements is read once and written once, so the least time is
-``rows * D * (in + out itemsize)`` over HBM bandwidth.  One thread block
-per row, 16-byte vector loads, an f32 sum of squares reduced with warp
-shuffles (see the source note in the .cu file).
+The forward replaces ``repro/kernels/rmsnorm.py::rmsnorm_pallas`` (body
+``_rmsnorm_kernel``); the backward is the twin of
+``repro/kernels/ref.py::_rmsnorm_vjp_bwd``, which the JAX package runs in
+jnp.  Both are bound by bytes: the least time is the bytes each element
+needs read and written once over HBM bandwidth.  The forward runs one
+thread block per row, with 16-byte vector loads and an f32 sum of squares
+reduced with warp shuffles; the backward one block per 8 rows, with the
+dw sum across blocks written as f32 partials and summed by a second
+kernel (see the source notes).
 
-The plain version is :func:`repro_torch.kernels.ref.rmsnorm_ref`;
-``kernels/ops.py`` sends CPU tensors there.
+The plain versions are :func:`repro_torch.kernels.ref.rmsnorm_fwd_ref`
+and :func:`~repro_torch.kernels.ref.rmsnorm_bwd_ref`; ``kernels/ops.py``
+sends CPU tensors there.
 """
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels import ref
 
-launches = 0  # kernel launches since the last reset (set to 0 to reset)
+# kernel launches since the last reset (set to 0 to reset)
+launches = 0  # forward
+bwd_launches = 0  # backward
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
-def rmsnorm_cuda(x: torch.Tensor, w: torch.Tensor,
-                 eps: float = 1e-6) -> torch.Tensor:
-    """Launches the kernel.  x: (..., D) contiguous CUDA tensor, bf16 or
-    f32; w: (D,) bf16 or f32 on the same device.  Output in x's dtype."""
-    global launches
+def _check(x: torch.Tensor, w: torch.Tensor, name: str) -> int:
     if not (x.is_cuda and w.device == x.device):
-        raise ValueError(f"rmsnorm_cuda needs x and w on one CUDA device, "
+        raise ValueError(f"{name} needs x and w on one CUDA device, "
                          f"got {x.device} and {w.device}")
     if x.dtype not in _DTYPES or w.dtype not in _DTYPES:
-        raise TypeError(f"rmsnorm_cuda takes bf16/f32, got {x.dtype}, "
-                        f"{w.dtype}")
+        raise TypeError(f"{name} takes bf16/f32, got {x.dtype}, {w.dtype}")
     D = x.shape[-1]
     if w.shape != (D,):
         raise ValueError(f"w must have shape ({D},), got {tuple(w.shape)}")
     if not (x.is_contiguous() and w.is_contiguous()):
-        raise ValueError("rmsnorm_cuda needs contiguous x and w")
+        raise ValueError(f"{name} needs contiguous x and w")
+    return D
+
+
+def rmsnorm_cuda(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6, *,
+                 return_inv: bool = False):
+    """Launches the forward kernel.  x: (..., D) contiguous CUDA tensor,
+    bf16 or f32; w: (D,) bf16 or f32 on the same device.  Output in x's
+    dtype; with ``return_inv`` also the per-row f32 ``inv`` of shape
+    ``x.shape[:-1]`` that the backward reads."""
+    global launches
+    D = _check(x, w, "rmsnorm_cuda")
     y = torch.empty_like(x)
+    inv = (torch.empty(x.shape[:-1], dtype=torch.float32, device=x.device)
+           if return_inv else None)
+    if x.numel():
+        build.extension().rmsnorm_fwd(x, w, y, float(eps), inv)
+        launches += 1
+    return (y, inv) if return_inv else y
+
+
+def rmsnorm_bwd_cuda(x: torch.Tensor, w: torch.Tensor, inv: torch.Tensor,
+                     g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launches the backward kernels.  x, g: (..., D) contiguous, one
+    dtype; w: (D,); inv: the forward's f32 per-row statistic.  Returns
+    (dx in x's dtype, dw in w's dtype)."""
+    global bwd_launches
+    D = _check(x, w, "rmsnorm_bwd_cuda")
+    if g.shape != x.shape or g.dtype != x.dtype or not g.is_contiguous():
+        raise ValueError(f"g must be contiguous {tuple(x.shape)} {x.dtype}, "
+                         f"got {tuple(g.shape)} {g.dtype}")
+    if (inv.dtype != torch.float32 or inv.shape != x.shape[:-1]
+            or not inv.is_contiguous() or g.device != x.device
+            or inv.device != x.device):
+        raise ValueError("inv must be the forward's contiguous f32 "
+                         f"{tuple(x.shape[:-1])} on {x.device}")
+    dx = torch.empty_like(x)
     rows = x.numel() // D if D else 0
     if rows == 0:
-        return y
-    build.extension().rmsnorm_fwd(x, w, y, float(eps))
-    launches += 1
-    return y
+        return dx, torch.zeros_like(w)
+    ext = build.extension()
+    part = torch.empty((ext.rmsnorm_bwd_parts(rows), D),
+                       dtype=torch.float32, device=x.device)
+    dw = torch.empty_like(w)
+    ext.rmsnorm_bwd(x, w, inv, g, dx, dw, part)
+    bwd_launches += 1
+    return dx, dw
 
+
+class RMSNormFn(torch.autograd.Function):
+    """y = rmsnorm(x, w) with the custom backward of
+    ``repro/kernels/ref.py::_rmsnorm_vjp``: the forward saves x, w and the
+    per-row ``inv``; the backward returns dx in x's dtype and dw in w's.
+    ``kernel`` selects the CUDA kernels, else the plain versions."""
+
+    @staticmethod
+    def forward(ctx, x, w, eps: float, kernel: bool):
+        if kernel:
+            y, inv = rmsnorm_cuda(x, w, eps, return_inv=True)
+        else:
+            y, inv = ref.rmsnorm_fwd_ref(x, w, eps)
+        ctx.kernel = kernel
+        ctx.save_for_backward(x, w, inv)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, inv = ctx.saved_tensors
+        g = g.to(x.dtype).contiguous()
+        if ctx.kernel:
+            dx, dw = rmsnorm_bwd_cuda(x, w, inv, g)
+        else:
+            dx, dw = ref.rmsnorm_bwd_ref(x, w, inv, g)
+        return dx, dw, None, None

@@ -55,14 +55,22 @@ def synth_inputs(generator: torch.Generator, cfg: ModelConfig,
                  shape: ShapeConfig, kind: Optional[str] = None,
                  device: str = "cuda") -> Dict[str, Any]:
     """Random token inputs for one (shape, kind), drawn from
-    ``generator`` (which must live on ``device``)."""
+    ``generator`` (which must live on ``device``): ``tokens`` (B, S), and
+    for ``"train"`` also ``labels`` (B, S) and a float ``loss_mask`` of
+    ones, as in ``repro/models/registry.py::synth_inputs``."""
     kind = kind or shape.kind
     B, S = shape.global_batch, shape.seq_len
     if kind == "decode":
         return {"tokens": torch.randint(0, cfg.vocab_size, (B, 1),
                                         generator=generator, device=device),
                 "pos": S // 2}
-    if kind != "prefill":
+    if kind not in ("prefill", "train"):
         raise NotImplementedError(f"inputs of kind {kind!r} are not ported")
-    return {"tokens": torch.randint(0, cfg.vocab_size, (B, S),
-                                    generator=generator, device=device)}
+    out = {"tokens": torch.randint(0, cfg.vocab_size, (B, S),
+                                   generator=generator, device=device)}
+    if kind == "train":
+        out["labels"] = torch.randint(0, cfg.vocab_size, (B, S),
+                                      generator=generator, device=device)
+        out["loss_mask"] = torch.ones((B, S), dtype=torch.float32,
+                                      device=device)
+    return out

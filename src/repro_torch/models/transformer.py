@@ -2,13 +2,18 @@
 ``repro/models/transformer.py``.
 
 Layers are stacked on a leading L axis as in the JAX tree; a Python loop
-over layers takes the place of ``lax.scan``.
+over layers takes the place of ``lax.scan``, and ``run.remat="full"``
+wraps each block in ``torch.utils.checkpoint`` as ``jax.checkpoint`` does.
+``params["blocks"]`` may also be a list of per-layer trees (views into the
+stacks): the training step passes that, so that autograd takes each
+layer's gradient on its own view instead of on the whole stack.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.models import layers as L
@@ -55,13 +60,21 @@ def _block(p_l: Params, cfg: ModelConfig, run: RunConfig, x: torch.Tensor,
 
 def _run_blocks(params: Params, cfg: ModelConfig, run: RunConfig,
                 x: torch.Tensor, pos: int, cache: Optional[Params] = None,
-                kv_len: Optional[int] = None) -> torch.Tensor:
+                kv_len: Optional[int] = None,
+                remat: bool = False) -> torch.Tensor:
     """Runs every block, then ``ln_f``.  A given cache is updated in place
-    (each layer's slice is a view into the stack)."""
+    (each layer's slice is a view into the stack).  ``remat`` (with grad
+    mode on) keeps only each block's input for the backward and runs the
+    block again there."""
+    blocks = params["blocks"]
     for i in range(cfg.num_layers):
+        p_l = blocks[i] if isinstance(blocks, list) else _layer(blocks, i)
         c_l = None if cache is None else _layer(cache, i)
-        x = _block(_layer(params["blocks"], i), cfg, run, x, pos, c_l,
-                   kv_len)
+        if remat and torch.is_grad_enabled():
+            x = checkpoint(_block, p_l, cfg, run, x, pos, c_l, kv_len,
+                           use_reentrant=False)
+        else:
+            x = _block(p_l, cfg, run, x, pos, c_l, kv_len)
     return L.rmsnorm(params["ln_f"], x, cfg, run)
 
 
@@ -69,8 +82,12 @@ def forward(params: Params, cfg: ModelConfig, run: RunConfig,
             batch: Dict[str, Any]) -> torch.Tensor:
     """Forward over a (B, S) batch -> final hidden states (B, S, d)."""
     _check_family(cfg)
+    if run.remat not in ("none", "full"):
+        raise NotImplementedError(
+            f"remat {run.remat!r} is not ported yet (ROADMAP A4); use "
+            "'full' or 'none'")
     x = L.embed(params["embed"], batch["tokens"])
-    return _run_blocks(params, cfg, run, x, 0)
+    return _run_blocks(params, cfg, run, x, 0, remat=run.remat == "full")
 
 
 def cache_defs(cfg: ModelConfig, batch: int, max_len: int) -> Params:

@@ -11,13 +11,18 @@ Tolerances are those of tests/test_kernels.py: 2e-2 in bf16, 3e-5 in f32.
 import pytest
 import torch
 
-from repro_torch.configs.base import RunConfig, get_smoke_config
+from repro_torch.configs.base import RunConfig, ShapeConfig, get_smoke_config
+from repro_torch.kernels import cross_entropy as kce
 from repro_torch.kernels import flash_attention as kflash
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import rmsnorm as krms
 from repro_torch.launch import serve
+from repro_torch.launch import train
 from repro_torch.models import registry
+from repro_torch.models.params import tree_leaves
 from repro_torch.serve import engine
+from repro_torch.train import loss as tloss
+from repro_torch.train import step as tstep
 
 pytestmark = pytest.mark.cuda
 
@@ -126,3 +131,134 @@ def test_smoke_serving_kernels_match_plain(cuda):
         out[name] = (lp, ld)
     for a, b in zip(out["kernel"], out["plain"]):
         torch.testing.assert_close(a, b, rtol=3e-2, atol=3e-2)
+
+
+# ---------------------------------------------------------------------------
+# Training: backward kernels, the CE kernel, the autograd Functions
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("shape", [(8, 128), (3, 7, 384), (1, 513),
+                                   (2048, 4096), (20, 64)])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("w_dtype", DTYPES)
+def test_rmsnorm_bwd_kernel_matches_plain(cuda, shape, dtype, w_dtype):
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    w = torch.randn(shape[-1:], generator=g, device=cuda).to(w_dtype)
+    dy = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    y, inv = krms.rmsnorm_cuda(x, w, 1e-5, return_inv=True)
+    y_ref, inv_ref = ref.rmsnorm_fwd_ref(x, w, 1e-5)
+    n = krms.bwd_launches
+    dx, dw = krms.rmsnorm_bwd_cuda(x, w, inv, dy)
+    torch.cuda.synchronize()
+    assert krms.bwd_launches == n + 1
+    assert dx.dtype == dtype and dw.dtype == w_dtype
+    torch.testing.assert_close(inv, inv_ref, rtol=3e-5, atol=3e-5)
+    rdx, rdw = ref.rmsnorm_bwd_ref(x, w, inv_ref, dy)
+    torch.testing.assert_close(dx.float(), rdx.float(), **_tol(dtype))
+    torch.testing.assert_close(dw.float(), rdw.float(),
+                               **_tol(torch.bfloat16 if torch.bfloat16 in
+                                      (dtype, w_dtype) else dtype))
+
+
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_lse_and_bwd_kernels_match_plain(cuda, case, dtype):
+    B, Sq, Sk, Hq, Hkv, D, causal, window, q_off, kv_len = case
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q, do = (torch.randn((B, Sq, Hq, D), generator=g, device=cuda).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn((B, Sk, Hkv, D), generator=g, device=cuda).to(dtype)
+            for _ in range(2))
+    kw = dict(causal=causal, sliding_window=window, q_offset=q_off,
+              kv_len=kv_len)
+    o, lse = kflash.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    o_ref, lse_ref = ref.flash_attention_fwd_ref(q, k, v, **kw)
+    torch.testing.assert_close(lse, lse_ref, rtol=3e-5, atol=3e-5)
+    n = kflash.bwd_launches
+    got = kflash.flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert kflash.bwd_launches == n + 1
+    want = ref.flash_attention_bwd_ref(q, k, v, o_ref, lse_ref, do, **kw)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.shape == b.shape and a.dtype == dtype, name
+        torch.testing.assert_close(a.float(), b.float(), msg=name,
+                                   **_tol(dtype))
+
+
+@pytest.mark.parametrize("T,D,V", [(37, 48, 1000), (256, 64, 4099),
+                                   (300, 128, 513), (2048, 4096, 64000)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ce_kernel_matches_plain(cuda, T, D, V, dtype):
+    g = torch.Generator(device=cuda).manual_seed(6)
+    h = torch.randn((T, D), generator=g, device=cuda).to(dtype)
+    w = (torch.randn((V, D), generator=g, device=cuda) * D ** -0.5).to(dtype)
+    t = torch.randint(0, V, (T,), generator=g, device=cuda)
+    n = kce.launches
+    nll, lse = kce.cross_entropy_cuda(h, w, t)
+    torch.cuda.synchronize()
+    assert kce.launches == n + 1
+    rnll, rlse = ref.cross_entropy_stats_ref(h, w, t, block_v=8192)
+    tol = dict(rtol=3e-5, atol=3e-5) if dtype == torch.float32 else _tol(
+        dtype)
+    torch.testing.assert_close(nll, rnll, **tol)
+    torch.testing.assert_close(lse, rlse, **tol)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_autograd_functions_match_plain(cuda, dtype):
+    """ops.rmsnorm, ops.flash_attention and ce_blockwise with inputs that
+    require grad: the kernel Functions against the plain Functions."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+
+    def both(fn, *shapes):
+        xs = [torch.randn(s, generator=g, device=cuda).to(dtype)
+              for s in shapes]
+        out = []
+        for use in (None, False):
+            leaves = [x.clone().requires_grad_() for x in xs]
+            y = fn(use, *leaves)
+            y.backward(torch.ones_like(y))
+            out.append([y] + [x.grad for x in leaves])
+        for a, b in zip(*out):
+            torch.testing.assert_close(a.float(), b.float(), **_tol(dtype))
+
+    both(lambda u, x, w: ops.rmsnorm(x, w, eps=1e-5, use_kernels=u),
+         (4, 33, 256), (256,))
+    both(lambda u, q, k, v: ops.flash_attention(q, k, v, use_kernels=u),
+         (2, 96, 8, 64), (2, 96, 2, 64), (2, 96, 2, 64))
+    t = torch.randint(0, 700, (96,), generator=g, device=cuda)
+    both(lambda u, h, w: tloss.ce_blockwise(h, w * 0.1, t, None, 256,
+                                            torch.bfloat16, use_kernels=u),
+         (96, 64), (700, 64))
+
+
+def test_smoke_training_on_card(cuda):
+    """Smoke training on the card runs every kernel, gives finite losses,
+    and one step's gradients agree with the plain path's."""
+    for mod in (krms, kflash, kce):
+        mod.launches = 0
+    krms.bwd_launches = kflash.bwd_launches = 0
+    res = train.run_training("yi-6b", smoke=True, steps=3, seq_len=64,
+                             global_batch=2, carousel=False, device="cuda")
+    assert res["steps"] == 3
+    assert all(torch.isfinite(torch.tensor(res["losses"])))
+    L = get_smoke_config("yi-6b").num_layers
+    assert (krms.launches, krms.bwd_launches) == (3 * (4 * L + 1),
+                                                  3 * (2 * L + 1))
+    assert (kflash.launches, kflash.bwd_launches) == (3 * 2 * L, 3 * L)
+    assert kce.launches == 3
+
+    cfg = get_smoke_config("yi-6b")
+    params = serve.init_params(cfg, 1, cuda)
+    batch = registry.synth_inputs(torch.Generator(device=cuda).manual_seed(
+        8), cfg, ShapeConfig("t", 64, 2, "train"), device=cuda)
+    gk, mk = tstep.grads_and_metrics(params, cfg, RunConfig(ce_block_v=64),
+                                     batch)
+    gp, mp = tstep.grads_and_metrics(
+        params, cfg, RunConfig(ce_block_v=64, use_kernels=False), batch)
+    torch.testing.assert_close(mk["loss"], mp["loss"], rtol=1e-2, atol=0)
+    for a, b in zip(tree_leaves(gk), tree_leaves(gp)):
+        assert float((a.float() - b.float()).norm()
+                     / b.float().norm()) <= 5e-2

@@ -154,3 +154,59 @@ def test_unported_configs_raise():
     with pytest.raises(NotImplementedError):
         tengine.init_cache(cfg.replace(kv_cache_dtype="int8"), 1, 4,
                            device="cpu")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_forward_hidden_states_match_jax(jax_params, dtype):
+    """ROADMAP A2: final hidden states of ``registry.forward`` (the
+    training forward, ln_f applied) against the JAX ``registry.forward``
+    on the same weights, with and without activation checkpointing."""
+    jcfg, tcfg = j_smoke(ARCH), get_smoke_config(ARCH)
+    jp, tp = _both_params(jax_params, dtype)
+    toks = np.random.default_rng(4).integers(0, tcfg.vocab_size, (B, S),
+                                             dtype=np.int32)
+    want = jreg.forward(jp, jcfg, JRunConfig(), {"tokens": jnp.asarray(toks)})
+    for remat in ("full", "none"):
+        got = treg.forward(tp, tcfg, RunConfig(remat=remat),
+                           {"tokens": torch.from_numpy(toks).long()})
+        assert got.shape == (B, S, tcfg.d_model)
+        assert got.dtype == getattr(torch, dtype)
+        tol = TOL[dtype]
+        np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)
+
+
+def test_kernel_ops_keep_gradients():
+    """The norms and the attention of the model pass gradients on: their
+    autograd Functions (on the CPU, the plain forward and the custom
+    backward) give what autograd through the plain forward gives, and a
+    model forward puts a gradient on every parameter."""
+    from repro_torch.kernels import ops, ref
+
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(6, 32, generator=g, requires_grad=True)
+    w = torch.randn(32, generator=g, requires_grad=True)
+    dy = torch.randn(6, 32, generator=g)
+    gx, gw = torch.autograd.grad(ops.rmsnorm(x, w, eps=1e-5), (x, w), dy)
+    rx, rw = torch.autograd.grad(ref.rmsnorm_ref(x, w, 1e-5), (x, w), dy)
+    torch.testing.assert_close(gx, rx, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(gw, rw, rtol=1e-5, atol=1e-6)
+
+    q = torch.randn(2, 12, 4, 16, generator=g, requires_grad=True)
+    k = torch.randn(2, 12, 2, 16, generator=g, requires_grad=True)
+    v = torch.randn(2, 12, 2, 16, generator=g, requires_grad=True)
+    do = torch.randn(2, 12, 4, 16, generator=g)
+    got = torch.autograd.grad(ops.flash_attention(q, k, v, block_k=8),
+                              (q, k, v), do)
+    want = torch.autograd.grad(ref.attention_naive(q, k, v), (q, k, v), do)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+    cfg = get_smoke_config(ARCH)
+    params = TP.tree_map(lambda t: t.float().requires_grad_(),
+                         tserve.init_params(cfg, 0, torch.device("cpu")))
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=g)
+    treg.forward(params, cfg, RunConfig(), {"tokens": toks}).sum().backward()
+    params["embed"].pop("lm_head")  # the LM head is not part of forward
+    for leaf in TP.tree_leaves(params):
+        assert leaf.grad is not None and bool(torch.isfinite(leaf.grad).all())
+        assert float(leaf.grad.norm()) > 0
