@@ -11,22 +11,34 @@ Phases, each of which fails the run (non-zero exit, no final result line):
    time and ptxas' register counts;
 3. kernel against plain: each kernel and its plain version on the same
    inputs, at the main paths' shapes and the sweep of tests/test_kernels.py
-   (tolerance 2e-2 in bf16, 3e-5 in f32), with the kernel's time, the plain
-   version's time and one library call's time (CUDA graph + events,
-   median), warm (inputs in L2) and, at the main paths' shapes, cold
-   (inputs rotated past L2), and the bound of the work the call needs.
-   Forward kernels (RMSNorm, flash attention, cross entropy) and, for
-   training, the RMSNorm and flash-attention backward kernels and the
-   flash forward's ``lse``.  The library yardstick of a backward is the
-   library forward plus backward less the forward;
-4. serving: ``run_serving("yi-6b", smoke=False, prompt_len=512, gen=32,
-   batch=4)`` at full width and depth with launch counters reset just
-   before and read just after;
-5. end to end at full width: (a) prefill logits through the kernels against
-   ``use_kernels=False``; (b) decode at position S after a prefill of S
-   tokens against a prefill of S + 1 tokens; both at relative L2 <= 5e-2;
+   (tolerance 2e-2 in bf16, 3e-5 in f32; the SSD scan 3e-2 and 3e-4), with
+   the kernel's time, the plain version's time and one library call's time
+   (CUDA graph + events, median), warm (inputs in L2) and, at the models'
+   shapes, cold (inputs rotated past L2), and the bound of the work the
+   call needs.  Forward kernels (RMSNorm, flash attention, cross entropy;
+   RMSNorm and flash also at the zamba2-1.2b / mamba2-130m prefill
+   shapes) and, for training, the RMSNorm and flash-attention backward
+   kernels and the flash forward's ``lse``; then the SSD chunked scan
+   (phase "ssd": ``y`` and the final state against ``ssd_ref`` on the
+   SSD_CASES of tests/test_kernels.py, S < chunk, an ``init_state`` chain
+   of two calls against one, and both models' prefill shapes; no library
+   call computes it).  The library yardstick of a backward is the library
+   forward plus backward less the forward;
+4. serving: ``run_serving(arch, smoke=False, prompt_len=P, gen=32,
+   batch=4)`` at full width and depth for yi-6b (P = 512), zamba2-1.2b
+   and mamba2-130m (P = 2048; phases "serving_zamba2", "serving_mamba2"),
+   launch counters reset just before each and read just after, and held
+   against the counts the code implies;
+5. end to end at full width and depth, each model: (a) prefill logits
+   through the kernels against ``use_kernels=False``; (b) decode at
+   position S after a prefill of S tokens against a prefill of S + 1
+   tokens (for the SSM models S + 1 = 2049, one past a chunk boundary);
+   both at relative L2 <= 5e-2.  Beside (a), not checked: both paths
+   against the plain path with the same weights in f32, to show how far
+   bf16 rounding alone moves the logits of the random model;
 6. breakdown: ``torch.profiler`` over one warm prefill and four warm decode
-   steps (wall time, device time, busy share, top ops by device time);
+   steps of yi-6b and of zamba2-1.2b (wall time, device time, busy share,
+   top kernels by device time);
 7. training: ``run_training("yi-6b", smoke=False, steps=3, seq_len=512,
    global_batch=4, carousel=False)`` at full width and depth, launch
    counters reset just before and read just after and held against the
@@ -39,8 +51,9 @@ Phases, each of which fails the run (non-zero exit, no final result line):
    within relative L2 5e-2.
 
 It prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
-A kernel's ``launches`` there is the sum of its counts over the serving
-and the training runs.  Weights are random, made on the card from a seed;
+A kernel's ``launches`` there is the sum of its counts over the three
+serving runs and the training run; ``ssd_scan``'s row is the zamba2-1.2b
+prefill shape.  Weights are random, made on the card from a seed;
 nothing is downloaded.
 """
 from __future__ import annotations
@@ -66,6 +79,7 @@ from repro_torch.kernels import cross_entropy as kce  # noqa: E402
 from repro_torch.kernels import flash_attention as kflash  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import rmsnorm as krms  # noqa: E402
+from repro_torch.kernels import ssd_scan as kssd  # noqa: E402
 from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.models import params as P  # noqa: E402
 from repro_torch.models import registry  # noqa: E402
@@ -78,9 +92,11 @@ HBM_BYTES_PER_S = 3.35e12
 L2_BYTES = 50 * 2**20
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.bfloat16: 2e-2, torch.float32: 3e-5}
+SSD_TOL = {torch.bfloat16: 3e-2, torch.float32: 3e-4}
 E2E_TOL = 5e-2
 LOSS_TOL = 1e-2
 ARCH, PROMPT, GEN, BATCH = "yi-6b", 512, 32, 4
+SSM_ARCHS, SSM_PROMPT = ("zamba2-1.2b", "mamba2-130m"), 2048
 TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH = 3, 512, 4
 E2E_TRAIN_LAYERS = 2
 DEVICE = "cuda"
@@ -97,11 +113,25 @@ FLASH_CASES = [
 ]
 FLASH_MAIN = (BATCH, PROMPT, PROMPT + GEN + 8, 32, 4, 128, True, 0, 0,
               PROMPT)
+# zamba2-1.2b prefill: 32/32 heads of 64 over a cache of SSM_PROMPT + GEN + 8
+FLASH_ZAMBA2 = (BATCH, SSM_PROMPT, SSM_PROMPT + GEN + 8, 32, 32, 64, True,
+                0, 0, SSM_PROMPT)
 # the yi-6b training shape: self-attention over TRAIN_SEQ, causal
 FLASH_TRAIN = (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 32, 4, 128, True, 0, 0,
                None)
 RMS_MAIN = (BATCH * PROMPT, 4096)  # also the training shape (4 x 512 rows)
-RMS_SHAPES = [RMS_MAIN, (BATCH, 4096), (8, 128), (3, 7, 384), (1, 513)]
+# the zamba2-1.2b / mamba2-130m prefill norms: d_model and the gated norm
+RMS_SSM = [(BATCH * SSM_PROMPT, d) for d in (2048, 4096, 768, 1536)]
+# the backward's sweep: the training shape and the small ragged cases
+RMS_TRAIN_SHAPES = [RMS_MAIN, (BATCH, 4096), (8, 128), (3, 7, 384), (1, 513)]
+RMS_SHAPES = RMS_TRAIN_SHAPES + RMS_SSM
+# B, S, H, P, G, N, chunk: the SSD_CASES of tests/test_kernels.py, S <
+# chunk, then the zamba2-1.2b and mamba2-130m prefill shapes
+SSD_ZAMBA2 = (BATCH, SSM_PROMPT, 64, 64, 1, 64, 128)
+SSD_MAMBA2 = (BATCH, SSM_PROMPT, 24, 64, 1, 128, 128)
+SSD_CASES = [(2, 96, 4, 16, 1, 32, 32), (1, 130, 6, 32, 2, 16, 64),
+             (2, 64, 2, 64, 1, 128, 32), (2, 50, 4, 64, 1, 64, 128),
+             SSD_ZAMBA2, SSD_MAMBA2]
 # T, D, V: the yi-6b loss head (4 x 512 tokens), then small ragged cases
 CE_MAIN = (TRAIN_BATCH * TRAIN_SEQ, 4096, 64000)
 CE_SHAPES = [CE_MAIN, (37, 48, 1000), (256, 64, 4099), (300, 128, 513)]
@@ -227,9 +257,11 @@ def phase_rmsnorm(gen: torch.Generator, failures: list) -> dict:
             worst = max(worst, err)
             n_bytes = 2 * x.numel() * x.element_size() + D * w.element_size()
             is_main = tuple(shape) == RMS_MAIN and dtype == torch.bfloat16
+            cold = dtype == torch.bfloat16 and (is_main
+                                                or tuple(shape) in RMS_SSM)
             sets = [(x, w)] + ([(x.clone(), w.clone()) for _ in
                                range(cold_sets(n_bytes) - 1)]
-                               if is_main else [])
+                               if cold else [])
             row = {"shape": list(shape), "dtype": str(dtype)[6:],
                    "max_abs_err": err, "ok": ok}
             _time_row(row, {
@@ -269,7 +301,7 @@ def _sdpa_inputs(q, k, v):
 def phase_flash(gen: torch.Generator, failures: list) -> dict:
     main = None
     worst = 0.0
-    for case in FLASH_CASES + [FLASH_MAIN]:
+    for case in FLASH_CASES + [FLASH_MAIN, FLASH_ZAMBA2]:
         B, Sq, Sk, Hq, Hkv, D, causal, window, q_off, kv_len = case
         kw = dict(causal=causal, sliding_window=window, q_offset=q_off,
                   kv_len=kv_len)
@@ -290,9 +322,11 @@ def phase_flash(gen: torch.Generator, failures: list) -> dict:
             n_bytes = (2 * q.numel() + 2 * B * keys * Hkv * D) \
                 * q.element_size()
             is_main = case == FLASH_MAIN and dtype == torch.bfloat16
+            cold = dtype == torch.bfloat16 and case in (FLASH_MAIN,
+                                                        FLASH_ZAMBA2)
             sets = [(q, k, v)] + ([tuple(t.clone() for t in (q, k, v))
                                    for _ in range(cold_sets(n_bytes) - 1)]
-                                  if is_main else [])
+                                  if cold else [])
             sets = [s + _sdpa_inputs(*s) for s in sets]
             row = {"case": list(case), "dtype": str(dtype)[6:],
                    "max_abs_err": err, "ok": ok}
@@ -324,7 +358,7 @@ def phase_rmsnorm_bwd(gen: torch.Generator, failures: list) -> dict:
     main = None
     worst = 0.0
     eps = 1e-5
-    for shape in RMS_SHAPES:
+    for shape in RMS_TRAIN_SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
             D = shape[-1]
             x, g = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
@@ -505,24 +539,137 @@ def phase_cross_entropy(gen: torch.Generator, failures: list) -> dict:
     return dict(main, max_abs_err=worst)
 
 
-def phase_serving(failures: list) -> dict:
-    krms.launches = 0
-    kflash.launches = 0
-    res = serve.run_serving(ARCH, smoke=False, prompt_len=PROMPT, gen=GEN,
+def _ssd_inputs(gen: torch.Generator, case, dtype):
+    """The inputs of tests/test_kernels.py's SSD sweep, on the card."""
+    B, S, H, P, G, N, _ = case
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    return ((rn(B, S, H, P) * 0.5).to(dtype), F.softplus(rn(B, S, H)),
+            -torch.exp(rn(H) * 0.3), (rn(B, S, G, N) * 0.3).to(dtype),
+            (rn(B, S, G, N) * 0.3).to(dtype))
+
+
+def _ssd_work(case, x_bytes: int):
+    """(bytes, FLOPs) one SSD call needs: x, dt, B and C read once, y and
+    the final state written once; C Bᵀ once per group over the causal
+    (i, j) pairs of each chunk, the intra-chunk product over those pairs,
+    the inter-chunk output and the state update."""
+    B, S, H, P, G, N, Q = case
+    pairs = sum(q * (q + 1) // 2 for q in
+                [Q] * (S // Q) + ([S % Q] if S % Q else []))
+    n_bytes = (2 * B * S * H * P * x_bytes + 4 * B * S * H
+               + 2 * B * S * G * N * x_bytes + 4 * B * H * P * N)
+    flops = (2.0 * B * G * pairs * N + 2.0 * B * H * pairs * P
+             + 4.0 * B * H * S * N * P)
+    return n_bytes, flops
+
+
+def phase_ssd(gen: torch.Generator, failures: list) -> dict:
+    """The SSD kernel's y and final state against ``ssd_ref`` on every
+    case and dtype, the models' shapes timed cold and warm; then two calls
+    chained through ``init_state`` against one call over the whole."""
+    main = None
+    worst = 0.0
+    for case in SSD_CASES:
+        chunk = case[-1]
+        for dtype in (torch.bfloat16, torch.float32):
+            x, dt, A, Bm, Cm = _ssd_inputs(gen, case, dtype)
+            got = kssd.ssd_cuda(x, dt, A, Bm, Cm, chunk=chunk,
+                                return_state=True)
+            want = ref.ssd_ref(x, dt, A, Bm, Cm, chunk=chunk,
+                               return_state=True)
+            torch.cuda.synchronize()
+            ok, err = True, 0.0
+            for a, b in zip(got, want):
+                ok_i, err_i = _close(a, b, SSD_TOL[dtype])
+                ok, err = ok and ok_i, max(err, err_i)
+            worst = max(worst, err)
+            row = {"case": list(case), "dtype": str(dtype)[6:],
+                   "max_abs_err": err, "ok": ok}
+            del got, want
+            n_bytes, flops = _ssd_work(case, x.element_size())
+            model = case in (SSD_ZAMBA2, SSD_MAMBA2)
+            if model and dtype == torch.bfloat16:
+                inputs = (x, dt, A, Bm, Cm)
+                sets = [inputs] + [tuple(t.clone() for t in inputs)
+                                   for _ in range(cold_sets(n_bytes) - 1)]
+                _time_row(row, {
+                    "ms": lambda *t: kssd.ssd_cuda(*t, chunk=chunk,
+                                                   return_state=True),
+                    "plain_ms": lambda *t: ref.ssd_ref(*t, chunk=chunk,
+                                                       return_state=True)},
+                    sets, calls=4)
+                del sets
+                row["library_ms"] = None  # no PyTorch call computes it
+                if case == SSD_ZAMBA2:
+                    main = row
+            row["bound_ms"], row["bound_by"] = _bound(n_bytes, flops, dtype)
+            log("ssd", json.dumps(row))
+            if not ok:
+                failures.append(f"ssd {case} {dtype}: max err {err}")
+            del x, dt, A, Bm, Cm
+    # two calls chained through the state against one over the whole
+    case, cut = (2, 300, 8, 64, 1, 64, 128), 137
+    for dtype in (torch.bfloat16, torch.float32):
+        x, dt, A, Bm, Cm = _ssd_inputs(gen, case, dtype)
+        h0 = torch.randn((2, 8, 64, 64), generator=gen, device="cuda") * 0.1
+        y1, h1 = kssd.ssd_cuda(x[:, :cut], dt[:, :cut], A, Bm[:, :cut],
+                               Cm[:, :cut], chunk=128, init_state=h0,
+                               return_state=True)
+        y2, h2 = kssd.ssd_cuda(x[:, cut:], dt[:, cut:], A, Bm[:, cut:],
+                               Cm[:, cut:], chunk=128, init_state=h1,
+                               return_state=True)
+        want_y, want_h = ref.ssd_ref(x, dt, A, Bm, Cm, chunk=128,
+                                     init_state=h0, return_state=True)
+        torch.cuda.synchronize()
+        ok_y, err_y = _close(torch.cat([y1, y2], 1), want_y, SSD_TOL[dtype])
+        ok_h, err_h = _close(h2, want_h, SSD_TOL[dtype])
+        worst = max(worst, err_y, err_h)
+        log("ssd_chain", json.dumps({
+            "case": list(case), "cut": cut, "dtype": str(dtype)[6:],
+            "max_abs_err": max(err_y, err_h), "ok": ok_y and ok_h}))
+        if not (ok_y and ok_h):
+            failures.append(f"ssd init_state chain {dtype}: y err {err_y}, "
+                            f"state err {err_h}")
+    return dict(main, max_abs_err=worst)
+
+
+def serving_launches(cfg, gen: int) -> dict:
+    """Kernel launches one ``run_serving`` with ``gen`` tokens implies: the
+    norms of ``gen`` forwards (one prefill, gen - 1 decode steps); flash
+    attention and the SSD scan in the prefill only (decode runs the plain
+    ``_attention_kvseq`` and ``ssd_decode``)."""
+    L = cfg.num_layers
+    attn = {"dense": L, "ssm": 0,
+            "hybrid": L // max(cfg.attn_every, 1)}[cfg.family]
+    ssd = 0 if cfg.family == "dense" else L
+    # dense: ln1, ln2 a block; mamba: ln and the gated norm a block; the
+    # shared block: ln1, ln2 an application; ln_f
+    norms = 2 * L + (2 * attn if cfg.family == "hybrid" else 0) + 1
+    return {"rmsnorm": norms * gen, "flash_attention": attn,
+            "ssd_scan": ssd}
+
+
+def phase_serving(failures: list, arch: str = ARCH, prompt: int = PROMPT,
+                  label: str = "serving") -> dict:
+    krms.launches = kflash.launches = kssd.launches = 0
+    res = serve.run_serving(arch, smoke=False, prompt_len=prompt, gen=GEN,
                             batch=BATCH, device=DEVICE)
-    counts = {"rmsnorm": krms.launches, "flash_attention": kflash.launches}
-    cfg = get_config(ARCH)
-    want = {"rmsnorm": (2 * cfg.num_layers + 1) * GEN,
-            "flash_attention": cfg.num_layers}
+    counts = {"rmsnorm": krms.launches, "flash_attention": kflash.launches,
+              "ssd_scan": kssd.launches}
+    cfg = get_config(arch)
+    want = serving_launches(cfg, GEN)
     tok = res.pop("tokens")
     in_range = bool(((tok >= 0) & (tok < cfg.vocab_size)).all())
-    log("serving", json.dumps(dict(res, launches=counts,
-                                   expected_launches=want,
-                                   tokens_in_range=in_range)))
+    log(label, json.dumps(dict(res, layers=cfg.num_layers, prompt=prompt,
+                               launches=counts, expected_launches=want,
+                               tokens_in_range=in_range)))
     if counts != want:
-        failures.append(f"launch counts {counts} != expected {want}")
+        failures.append(f"{arch} launch counts {counts} != expected {want}")
     if not in_range or tuple(tok.shape) != (BATCH, GEN):
-        failures.append(f"bad tokens: shape {tuple(tok.shape)}")
+        failures.append(f"{arch} bad tokens: shape {tuple(tok.shape)}")
     return counts
 
 
@@ -531,40 +678,50 @@ def _rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a - b).norm() / b.norm())
 
 
-def phase_end_to_end(failures: list):
-    cfg = get_config(ARCH)
+def phase_end_to_end(failures: list, arch: str = ARCH, prompt: int = PROMPT,
+                     label: str = "end_to_end"):
+    cfg = get_config(arch)
     dev = torch.device(DEVICE)
     params = serve.init_params(cfg, 1, dev)
     g = torch.Generator(device=dev).manual_seed(7)
-    toks = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT + 1),
+    toks = torch.randint(0, cfg.vocab_size, (BATCH, prompt + 1),
                          generator=g, device=dev)
-    max_len = PROMPT + GEN + 8
+    max_len = prompt + GEN + 8
     kern, plain = RunConfig(), RunConfig(use_kernels=False)
     with torch.inference_mode():
         cache = engine.init_cache(cfg, BATCH, max_len, dev)
         lk, cache = registry.prefill(params, cfg, kern,
-                                     {"tokens": toks[:, :PROMPT]}, cache)
+                                     {"tokens": toks[:, :prompt]}, cache)
         lp, _ = registry.prefill(params, cfg, plain,
-                                 {"tokens": toks[:, :PROMPT]},
+                                 {"tokens": toks[:, :prompt]},
                                  engine.init_cache(cfg, BATCH, max_len, dev))
-        ld, _ = registry.decode(params, cfg, kern, toks[:, PROMPT:], cache,
-                                PROMPT)
+        ld, _ = registry.decode(params, cfg, kern, toks[:, prompt:], cache,
+                                prompt)
         ll, _ = registry.prefill(params, cfg, kern, {"tokens": toks},
+                                 engine.init_cache(cfg, BATCH, max_len, dev))
+        # a yardstick for (a), not a check: the plain path with the same
+        # weights in f32 (f32 activations; the KV cache stays bf16)
+        lf, _ = registry.prefill(P.cast_tree(params, torch.float32), cfg,
+                                 plain, {"tokens": toks[:, :prompt]},
                                  engine.init_cache(cfg, BATCH, max_len, dev))
     finite = all(bool(torch.isfinite(t).all()) for t in (lk, lp, ld, ll))
     a = _rel_l2(lk[:, -1], lp[:, -1])
     b = _rel_l2(ld[:, -1], ll[:, -1])
-    log("end_to_end", json.dumps({
+    log(label, json.dumps({
+        "arch": arch, "layers": cfg.num_layers, "prompt": prompt,
         "kernel_vs_plain_prefill_rel_l2": a,
         "decode_vs_longer_prefill_rel_l2": b, "logits_finite": finite,
-        "tol": E2E_TOL}))
+        "tol": E2E_TOL,
+        "kernel_vs_f32_plain_rel_l2": _rel_l2(lk[:, -1], lf[:, -1]),
+        "plain_vs_f32_plain_rel_l2": _rel_l2(lp[:, -1], lf[:, -1])}))
     if not finite:
-        failures.append("non-finite logits")
+        failures.append(f"{arch}: non-finite logits")
     if not a <= E2E_TOL:
-        failures.append(f"kernel vs plain prefill rel L2 {a} > {E2E_TOL}")
+        failures.append(f"{arch}: kernel vs plain prefill rel L2 {a} > "
+                        f"{E2E_TOL}")
     if not b <= E2E_TOL:
-        failures.append(f"decode vs prefill rel L2 {b} > {E2E_TOL}")
-    return params, toks[:, :PROMPT]
+        failures.append(f"{arch}: decode vs prefill rel L2 {b} > {E2E_TOL}")
+    return params, toks[:, :prompt]
 
 
 def _profile(fn, top: int = 8, ops: bool = False) -> dict:
@@ -598,13 +755,15 @@ def _profile(fn, top: int = 8, ops: bool = False) -> dict:
     return out
 
 
-def phase_breakdown(params, prompt: torch.Tensor) -> None:
+def phase_breakdown(params, prompt: torch.Tensor, arch: str = ARCH,
+                    label: str = "breakdown") -> None:
     """Where the time goes in one warm prefill and four warm decode steps
     on the kernel path (torch.profiler; the shapes ran before, so cuBLAS
     and the allocator are warm)."""
-    cfg = get_config(ARCH)
+    cfg = get_config(arch)
     run = RunConfig()
-    max_len = PROMPT + GEN + 8
+    S = prompt.shape[1]
+    max_len = S + GEN + 8
     with torch.inference_mode():
         cache = engine.init_cache(cfg, BATCH, max_len, torch.device(DEVICE))
         box = {}
@@ -616,11 +775,11 @@ def phase_breakdown(params, prompt: torch.Tensor) -> None:
         def decode4():
             tok = box["tok"]
             for i in range(4):
-                tok, _ = engine.decode_step(params, tok, cache, PROMPT + i,
+                tok, _ = engine.decode_step(params, tok, cache, S + i,
                                             cfg=cfg, run=run)
 
-        log("breakdown_prefill", json.dumps(_profile(prefill)))
-        log("breakdown_decode4", json.dumps(_profile(decode4)))
+        log(label + "_prefill", json.dumps(_profile(prefill)))
+        log(label + "_decode4", json.dumps(_profile(decode4)))
 
 
 def phase_training(failures: list) -> dict:
@@ -770,15 +929,29 @@ def main() -> int:
     rms_bwd_main = phase_rmsnorm_bwd(gen, failures)
     flash_bwd_main = phase_flash_bwd(gen, failures)
     ce_main = phase_cross_entropy(gen, failures)
+    ssd_main = phase_ssd(gen, failures)
     log(f"kernel phases: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
-    counts = phase_serving(failures)
+    counts = [phase_serving(failures)]
     log(f"serving phase: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     params, prompt = phase_end_to_end(failures)
     log(f"end-to-end phase: {time.perf_counter() - t0:.2f} s")
     phase_breakdown(params, prompt)
     del params, prompt
+    for arch in SSM_ARCHS:
+        tag = arch.split("-")[0]
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        counts.append(phase_serving(failures, arch, SSM_PROMPT,
+                                    f"serving_{tag}"))
+        params, prompt = phase_end_to_end(failures, arch, SSM_PROMPT,
+                                          f"end_to_end_{tag}")
+        if arch == "zamba2-1.2b":
+            phase_breakdown(params, prompt, arch, f"breakdown_{tag}")
+        del params, prompt
+        log(f"{arch} phases: {time.perf_counter() - t0:.2f} s")
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     train_counts = phase_training(failures)
     log(f"training phase: {time.perf_counter() - t0:.2f} s")
@@ -792,7 +965,7 @@ def main() -> int:
     kernels = [
         dict(name=name, route="cuda", source=csrc + source,
              replaces=replaces,
-             launches=counts.get(name, 0) + train_counts[name],
+             launches=sum(c.get(name, 0) for c in counts + [train_counts]),
              **{k: row[k] for k in keys})
         for name, source, replaces, row in (
             ("rmsnorm", "rmsnorm.cu", "src/repro/kernels/rmsnorm.py:25",
@@ -804,7 +977,9 @@ def main() -> int:
             ("flash_attention_bwd", "flash_attention.cu",
              "src/repro/kernels/ref.py:188", flash_bwd_main),
             ("cross_entropy", "cross_entropy.cu",
-             "src/repro/kernels/cross_entropy.py:56", ce_main))]
+             "src/repro/kernels/cross_entropy.py:56", ce_main),
+            ("ssd_scan", "ssd_scan.cu", "src/repro/kernels/ssd_scan.py:71",
+             ssd_main))]
     log(f"total: {time.perf_counter() - t_start:.2f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))

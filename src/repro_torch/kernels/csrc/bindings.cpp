@@ -1,12 +1,13 @@
 // PyTorch bindings of the hand-written CUDA kernels in this directory.
 //
 // The only source that includes PyTorch's headers: rmsnorm.cu,
-// flash_attention.cu and cross_entropy.cu are plain CUDA with C entry
-// points taking pointers, strides and a stream.  Each function here
-// launches on the current stream of its tensors' device and checks the
-// launch.  The Python wrappers (kernels/rmsnorm.py,
-// kernels/flash_attention.py, kernels/cross_entropy.py) check devices,
-// dtypes, shapes and contiguity and allocate the outputs and scratch.
+// flash_attention.cu, cross_entropy.cu and ssd_scan.cu are plain CUDA with
+// C entry points taking pointers, strides and a stream.  Each function
+// here launches on the current stream of its tensors' device and checks
+// the launch.  The Python wrappers (kernels/rmsnorm.py,
+// kernels/flash_attention.py, kernels/cross_entropy.py,
+// kernels/ssd_scan.py) check devices, dtypes, shapes and contiguity and
+// allocate the outputs and scratch.
 #include <torch/extension.h>
 
 #include <ATen/cuda/CUDAContext.h>
@@ -47,6 +48,15 @@ extern "C" void repro_ce_fwd(const void* hidden, const void* w,
                              const long long* targets, float* part,
                              float* nll, float* lse, int n_tok, int V, int D,
                              int bf16, cudaStream_t s);
+
+extern "C" bool repro_ssd_fwd(
+    const void* x, const float* dt, const float* A, const void* Bm,
+    const void* Cm, const float* h0, float* cb, void* y, float* hout,
+    int Bsz, int S, int H, int P, int G, int N, int Q, long long x_sb,
+    long long x_ss, long long x_sh, long long dt_sb, long long dt_ss,
+    long long dt_sh, long long b_sb, long long b_ss, long long b_sg,
+    long long c_sb, long long c_ss, long long c_sg, long long y_sb,
+    long long y_ss, long long y_sh, int bf16, cudaStream_t s);
 
 namespace {
 
@@ -153,6 +163,30 @@ void ce_fwd(const at::Tensor& hidden, const at::Tensor& w,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+// x: (B, S, H, P); Bm, Cm: (B, S, G, N), one dtype, last axis contiguous,
+// any other strides; dt: (B, S, H) f32, last axis contiguous; A: (H,) f32;
+// h0: (B, H, P, N) f32 contiguous or None; cb: (B, G, ceil(S / chunk),
+// chunk, chunk) f32 scratch; y: (B, S, H, P) in x's dtype; hout: (B, H,
+// P, N) f32 contiguous.  Writes y and hout.
+void ssd_fwd(const at::Tensor& x, const at::Tensor& dt, const at::Tensor& A,
+             const at::Tensor& Bm, const at::Tensor& Cm,
+             const c10::optional<at::Tensor>& h0, at::Tensor cb, at::Tensor y,
+             at::Tensor hout, int64_t chunk) {
+  const c10::cuda::CUDAGuard guard(x.device());
+  const bool launched = repro_ssd_fwd(
+      x.data_ptr(), dt.data_ptr<float>(), A.data_ptr<float>(),
+      Bm.data_ptr(), Cm.data_ptr(), h0 ? h0->data_ptr<float>() : nullptr,
+      cb.data_ptr<float>(), y.data_ptr(), hout.data_ptr<float>(),
+      x.size(0), x.size(1), x.size(2), x.size(3), Bm.size(2), Bm.size(3),
+      chunk, x.stride(0), x.stride(1), x.stride(2), dt.stride(0),
+      dt.stride(1), dt.stride(2), Bm.stride(0), Bm.stride(1), Bm.stride(2),
+      Cm.stride(0), Cm.stride(1), Cm.stride(2), y.stride(0), y.stride(1),
+      y.stride(2), is_bf16(x), at::cuda::getCurrentCUDAStream());
+  TORCH_CHECK(launched, "ssd_fwd: no kernel for x", x.sizes(), " B",
+              Bm.sizes(), " chunk ", chunk);
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -164,4 +198,5 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("flash_bwd", &flash_bwd, "flash-attention backward into dq, dk, dv");
   m.def("ce_splits", &ce_splits, "vocab splits of the CE forward's scratch");
   m.def("ce_fwd", &ce_fwd, "blockwise cross-entropy forward into nll, lse");
+  m.def("ssd_fwd", &ssd_fwd, "Mamba2 SSD chunked scan into y and hout");
 }

@@ -11,6 +11,8 @@ grad), ``rmsnorm`` and ``flash_attention`` go through their autograd
 Functions, whose backward is a kernel too (or the plain backward); the
 forward then also writes the statistic the backward reads.  Otherwise
 they call the forward alone, so serving pays nothing for training.
+``ssd`` has no backward kernel (the JAX package autodiffs ``ssd_ref``), so
+its kernel path refuses to run where a gradient is needed.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ from repro_torch.kernels import cross_entropy as _ce
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import rmsnorm as _rmsnorm
+from repro_torch.kernels import ssd_scan as _ssd
 
 
 def _kernel_path(x: torch.Tensor, use_kernels: Optional[bool]) -> bool:
@@ -60,6 +63,30 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
     if kernel:
         return _flash.flash_attention_cuda(q, k, v, **opts)
     return _ref.flash_attention_ref(q, k, v, block_k=block_k, **opts)
+
+
+def ssd(x, dt, A, Bm, Cm, *, chunk: int = 128, init_state=None,
+        return_state: bool = False, use_kernels: Optional[bool] = None):
+    """The chunked SSD scan (Mamba2 prefill): the CUDA kernel or
+    ``ssd_ref``."""
+    if _kernel_path(x, use_kernels):
+        if _needs_grad(*(t for t in (x, dt, A, Bm, Cm, init_state)
+                         if t is not None)):
+            raise NotImplementedError(
+                "the SSD kernel has no backward; SSM/hybrid training is "
+                "ROADMAP A6 (training part): pass use_kernels=False to "
+                "autodiff the plain ssd_ref")
+        return _ssd.ssd_cuda(x, dt, A, Bm, Cm, chunk=chunk,
+                             init_state=init_state,
+                             return_state=return_state)
+    return _ref.ssd_ref(x, dt, A, Bm, Cm, chunk=chunk, init_state=init_state,
+                        return_state=return_state)
+
+
+def ssd_decode(x, dt, A, Bm, Cm, h):
+    """Single-token SSD recurrence (decode), plain torch on every device:
+    the JAX package has no kernel there either."""
+    return _ref.ssd_decode_ref(x, dt, A, Bm, Cm, h)
 
 
 def cross_entropy(hidden, w_vocab, targets, valid=None, *,

@@ -11,6 +11,7 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -1e30
 
@@ -199,6 +200,131 @@ def attention_naive(q, k, v, *, causal: bool = True, q_offset: int = 0,
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bqhgk,bkhd->bqhgd", p, v.float())
     return out.reshape(B, Sq, Hq, D).to(q.dtype)
+
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 SSD (state-space duality): the chunked scan and its oracles
+# ---------------------------------------------------------------------------
+
+
+def _segsum(x: torch.Tensor) -> torch.Tensor:
+    """x: (..., Q).  (..., Q, Q) with out[..., i, j] = sum_{j<s<=i} x[s]
+    for j <= i and -inf above the diagonal (the log of the decay matrix
+    L)."""
+    Q = x.shape[-1]
+    cs = torch.cumsum(x, dim=-1)
+    seg = cs[..., :, None] - cs[..., None, :]
+    mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
+    return seg.masked_fill(~mask, float("-inf"))
+
+
+def ssd_ref(
+    x: torch.Tensor,   # (B, S, H, P)
+    dt: torch.Tensor,  # (B, S, H)   (post-softplus, positive)
+    A: torch.Tensor,   # (H,)        (negative)
+    Bm: torch.Tensor,  # (B, S, G, N)
+    Cm: torch.Tensor,  # (B, S, G, N)
+    *,
+    chunk: int = 128,
+    init_state: Optional[torch.Tensor] = None,  # (B, H, P, N)
+    return_state: bool = False,
+):
+    """Chunked SSD: y[t] = C[t] . h[t], h[t] = exp(dt[t] A) h[t-1] +
+    dt[t] B[t] x[t], in f32, y in x's dtype; with ``return_state`` also
+    the f32 (B, H, P, N) state after the last token.  Heads map to the G
+    B/C groups as h // (H / G).  The tail is zero-padded to a whole chunk
+    (dt = 0 there: decay 1, no injection)."""
+    B_, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    assert H % G == 0
+    HG = H // G
+    pad = (-S) % chunk
+    if pad:
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        Bm = F.pad(Bm, (0, 0, 0, 0, 0, pad))
+        Cm = F.pad(Cm, (0, 0, 0, 0, 0, pad))
+    Sp = x.shape[1]
+    C_ = Sp // chunk
+
+    xc = x.float().reshape(B_, C_, chunk, H, P)
+    dtc = dt.float().reshape(B_, C_, chunk, H)
+    Bc = Bm.float().reshape(B_, C_, chunk, G, N)
+    Cc = Cm.float().reshape(B_, C_, chunk, G, N)
+    Af = A.float()
+
+    dA = dtc * Af[None, None, None, :]            # (B, C, Q, H)
+    dA_cs = torch.cumsum(dA, dim=2)               # cumulative within chunk
+
+    # intra-chunk (diagonal blocks)
+    L = torch.exp(_segsum(dA.permute(0, 1, 3, 2)))  # (B, C, H, Q, Q)
+    CB = torch.einsum("bclgn,bcsgn->bcgls", Cc, Bc)  # (B, C, G, Q, Q)
+    CB = torch.repeat_interleave(CB, HG, dim=2)      # (B, C, H, Q, Q)
+    M = CB * L
+    y_intra = torch.einsum("bchls,bcsh,bcshp->bclhp", M, dtc, xc)
+
+    # chunk states
+    decay_to_end = torch.exp(dA_cs[:, :, -1:, :] - dA_cs)  # (B, C, Q, H)
+    Br = torch.repeat_interleave(Bc, HG, dim=3)            # (B, C, Q, H, N)
+    states = torch.einsum("bcshn,bcsh,bcsh,bcshp->bchpn",
+                          Br, decay_to_end, dtc, xc)
+
+    # inter-chunk recurrence (lax.scan in the JAX version)
+    chunk_decay = torch.exp(dA.sum(dim=2))  # (B, C, H)
+    h = (torch.zeros((B_, H, P, N), dtype=torch.float32, device=x.device)
+         if init_state is None else init_state.float())
+    h_prev = []
+    for c in range(C_):
+        h_prev.append(h)  # the state BEFORE chunk c
+        h = h * chunk_decay[:, c, :, None, None] + states[:, c]
+    h_prev = torch.stack(h_prev, dim=1)  # (B, C, H, P, N)
+
+    # inter-chunk output
+    in_decay = torch.exp(dA_cs)                    # (B, C, Q, H)
+    Cr = torch.repeat_interleave(Cc, HG, dim=3)    # (B, C, Q, H, N)
+    y_inter = torch.einsum("bclhn,bclh,bchpn->bclhp", Cr, in_decay, h_prev)
+
+    y = (y_intra + y_inter).reshape(B_, Sp, H, P)[:, :S].to(x.dtype)
+    if return_state:
+        return y, h
+    return y
+
+
+def ssd_decode_ref(
+    x: torch.Tensor,   # (B, H, P)  one token
+    dt: torch.Tensor,  # (B, H)
+    A: torch.Tensor,   # (H,)
+    Bm: torch.Tensor,  # (B, G, N)
+    Cm: torch.Tensor,  # (B, G, N)
+    h: torch.Tensor,   # (B, H, P, N) state
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One token of the SSD recurrence: (y in x's dtype, new f32
+    state)."""
+    H = x.shape[1]
+    HG = H // Bm.shape[1]
+    dtf = dt.float()
+    dA = torch.exp(dtf * A.float()[None, :])  # (B, H)
+    Br = torch.repeat_interleave(Bm.float(), HG, dim=1)  # (B, H, N)
+    Cr = torch.repeat_interleave(Cm.float(), HG, dim=1)
+    h_new = h * dA[:, :, None, None] + (
+        dtf[:, :, None, None] * x.float()[:, :, :, None]
+        * Br[:, :, None, :])
+    y = torch.einsum("bhpn,bhn->bhp", h_new, Cr)
+    return y.to(x.dtype), h_new
+
+
+def ssd_sequential_ref(x, dt, A, Bm, Cm, *, init_state=None):
+    """Token-by-token recurrence — oracle for ssd_ref (small shapes)."""
+    B_, S, H, P = x.shape
+    N = Bm.shape[-1]
+    h = (torch.zeros((B_, H, P, N), dtype=torch.float32, device=x.device)
+         if init_state is None else init_state.float())
+    ys = []
+    for t in range(S):
+        y, h = ssd_decode_ref(x[:, t], dt[:, t], A, Bm[:, t], Cm[:, t], h)
+        ys.append(y)
+    return torch.stack(ys, dim=1).to(x.dtype), h
 
 
 def _masked_mean_bool(nll: torch.Tensor,

@@ -1,11 +1,15 @@
 """Batched serving driver: prefill a batch of prompts, decode greedily.
 
-The PyTorch twin of ``repro/launch/serve.py::run_serving``.  One card
-holds the model, so there is no mesh and there are no sharding rules.
-Weights are random, drawn on the device from a seeded generator.
+The PyTorch twin of ``repro/launch/serve.py::run_serving``, for every
+ported family: dense (yi-6b, KV cache), ssm (mamba2-130m, conv tails and
+SSM state) and hybrid (zamba2-1.2b, both).  One card holds the model, so
+there is no mesh and there are no sharding rules.  Weights are random,
+drawn on the device from a seeded generator.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --full \
         --prompt-len 512 --gen 32 --batch 4
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \
+        --full --prompt-len 2048 --gen 32 --batch 4
 """
 from __future__ import annotations
 

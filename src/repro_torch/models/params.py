@@ -22,7 +22,7 @@ Tree = Union[Dict[str, Any], Any]
 @dataclass(frozen=True)
 class ParamDef:
     shape: Tuple[int, ...]
-    init: str = "normal"  # normal | zeros | ones | scaled
+    init: str = "normal"  # normal | zeros | ones | scaled | ssm_a | ssm_dt
     scale: float = 0.02
     dtype: torch.dtype = torch.bfloat16
 
@@ -37,6 +37,12 @@ def tree_map(f: Callable[[Any], Any], tree: Tree) -> Tree:
     if isinstance(tree, dict):
         return {k: tree_map(f, v) for k, v in tree.items()}
     return f(tree)
+
+
+def layer(tree: Tree, i: int) -> Tree:
+    """Layer ``i`` of a tree stacked on a leading L axis: a view of each
+    leaf's slice (writes through it reach the stack)."""
+    return tree_map(lambda a: a[i], tree)
 
 
 def tree_leaves(tree: Tree):
@@ -62,6 +68,14 @@ def _init_leaf(d: ParamDef, gen: torch.Generator,
     elif d.init == "scaled":  # fan-in scaled
         fan_in = d.shape[-2] if len(d.shape) >= 2 else d.shape[-1]
         s = 1.0 / math.sqrt(max(fan_in, 1))
+    elif d.init == "ssm_a":  # Mamba2 A_log: log of Uniform[1, 16]
+        u = torch.rand(d.shape, generator=gen, dtype=torch.float32,
+                       device=device)
+        return torch.log(u.mul_(15.0).add_(1.0)).to(d.dtype)
+    elif d.init == "ssm_dt":  # dt bias: inverse softplus of U[1e-3, 1e-1]
+        u = torch.rand(d.shape, generator=gen, dtype=torch.float32,
+                       device=device).mul_(0.099).add_(0.001)
+        return (u + torch.log(-torch.expm1(-u))).to(d.dtype)
     else:
         raise ValueError(f"unknown init {d.init!r}")
     x = torch.randn(d.shape, generator=gen, dtype=torch.float32,

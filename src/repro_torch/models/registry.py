@@ -1,7 +1,7 @@
 """Model registry: family -> module dispatch, and input synthesis.
 
-Ported from ``repro/models/registry.py`` for the dense family only; every
-model module exposes ``param_defs``, ``forward``, ``cache_defs``,
+Ported from ``repro/models/registry.py`` for the dense, ssm (mamba2) and
+hybrid (zamba2) families; every model module exposes ``param_defs``, ``forward``, ``cache_defs``,
 ``prefill`` and ``decode`` with the signatures of the JAX package (``pos``
 is a Python int).
 """
@@ -13,11 +13,15 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig, RunConfig, ShapeConfig
-from repro_torch.models import transformer
+from repro_torch.models import hybrid, mamba2, transformer
 
 Params = Dict[str, Any]
 
-_FAMILY_MODULES: Dict[str, ModuleType] = {"dense": transformer}
+_FAMILY_MODULES: Dict[str, ModuleType] = {
+    "dense": transformer,
+    "ssm": mamba2,
+    "hybrid": hybrid,
+}
 
 
 def module_for(cfg: ModelConfig) -> ModuleType:

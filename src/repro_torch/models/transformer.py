@@ -17,6 +17,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.models import layers as L
+from repro_torch.models import params as P
 
 Params = Dict[str, Any]
 
@@ -42,11 +43,6 @@ def param_defs(cfg: ModelConfig) -> Params:
     }
 
 
-def _layer(tree: Params, i: int) -> Params:
-    return {k: (_layer(v, i) if isinstance(v, dict) else v[i])
-            for k, v in tree.items()}
-
-
 def _block(p_l: Params, cfg: ModelConfig, run: RunConfig, x: torch.Tensor,
            pos: int, cache_l: Optional[Params], kv_len: Optional[int]
            ) -> torch.Tensor:
@@ -68,8 +64,8 @@ def _run_blocks(params: Params, cfg: ModelConfig, run: RunConfig,
     block again there."""
     blocks = params["blocks"]
     for i in range(cfg.num_layers):
-        p_l = blocks[i] if isinstance(blocks, list) else _layer(blocks, i)
-        c_l = None if cache is None else _layer(cache, i)
+        p_l = blocks[i] if isinstance(blocks, list) else P.layer(blocks, i)
+        c_l = None if cache is None else P.layer(cache, i)
         if remat and torch.is_grad_enabled():
             x = checkpoint(_block, p_l, cfg, run, x, pos, c_l, kv_len,
                            use_reentrant=False)

@@ -1,5 +1,7 @@
 """Serving steps: prefill (fill the cache from a prompt) and greedy decode
-(one token), ported from ``repro/serve/engine.py``."""
+(one token), ported from ``repro/serve/engine.py``.  The cache is what
+the model family's ``cache_defs`` describe: a KV cache (dense), conv
+tails and SSM states (ssm), or both (hybrid)."""
 from __future__ import annotations
 
 from typing import Any, Dict, Tuple, Union

@@ -6,7 +6,8 @@ PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerances are those of tests/test_kernels.py: 2e-2 in bf16, 3e-5 in f32.
+Tolerances are those of tests/test_kernels.py: 2e-2 in bf16, 3e-5 in f32
+(the SSD scan: 3e-2 in bf16, 3e-4 in f32).
 """
 import pytest
 import torch
@@ -16,6 +17,7 @@ from repro_torch.kernels import cross_entropy as kce
 from repro_torch.kernels import flash_attention as kflash
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import rmsnorm as krms
+from repro_torch.kernels import ssd_scan as kssd
 from repro_torch.launch import serve
 from repro_torch.launch import train
 from repro_torch.models import registry
@@ -262,3 +264,127 @@ def test_smoke_training_on_card(cuda):
     for a, b in zip(tree_leaves(gk), tree_leaves(gp)):
         assert float((a.float() - b.float()).norm()
                      / b.float().norm()) <= 5e-2
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 / Zamba2 serving: the SSD scan kernel
+# ---------------------------------------------------------------------------
+
+SSD_CASES = [
+    # B, S, H, P, G, N, chunk: the SSD_CASES of tests/test_kernels.py,
+    # then S < chunk, and the smoke configs' P = N = 16
+    (2, 96, 4, 16, 1, 32, 32),
+    (1, 130, 6, 32, 2, 16, 64),
+    (2, 64, 2, 64, 1, 128, 32),
+    (2, 50, 4, 64, 1, 64, 128),
+    (2, 77, 8, 16, 1, 16, 32),
+]
+
+
+def _ssd_tol(dtype):
+    t = 3e-2 if dtype == torch.bfloat16 else 3e-4
+    return dict(rtol=t, atol=t)
+
+
+def _ssd_inputs(case, dtype, device, seed=0, state=False):
+    B, S, H, P, G, N, _ = case
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device=device)
+
+    x = (rn(B, S, H, P) * 0.5).to(dtype)
+    dt = torch.nn.functional.softplus(rn(B, S, H))
+    A = -torch.exp(rn(H) * 0.3)
+    Bm = (rn(B, S, G, N) * 0.3).to(dtype)
+    Cm = (rn(B, S, G, N) * 0.3).to(dtype)
+    h0 = rn(B, H, P, N) * 0.1 if state else None
+    return x, dt, A, Bm, Cm, h0
+
+
+@pytest.mark.parametrize("case", SSD_CASES)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("state", [False, True])
+def test_ssd_kernel_matches_plain(cuda, case, dtype, state):
+    x, dt, A, Bm, Cm, h0 = _ssd_inputs(case, dtype, cuda, state=state)
+    chunk = case[-1]
+    n = kssd.launches
+    y, h = ops.ssd(x, dt, A, Bm, Cm, chunk=chunk, init_state=h0,
+                   return_state=True)
+    torch.cuda.synchronize()
+    assert kssd.launches == n + 1 and y.dtype == dtype
+    ry, rh = ref.ssd_ref(x, dt, A, Bm, Cm, chunk=chunk, init_state=h0,
+                         return_state=True)
+    torch.testing.assert_close(y.float(), ry.float(), **_ssd_tol(dtype))
+    torch.testing.assert_close(h, rh, **_ssd_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ssd_kernel_state_chain_and_strided_views(cuda, dtype):
+    """Two calls chained through the state equal one call over the whole
+    sequence; x as a view of (B, S, H * P) and B/C as slices of a wider
+    tensor give the same answer as contiguous copies."""
+    B, S, H, P, N, Q = 2, 200, 4, 32, 64, 64
+    g = torch.Generator(device=cuda).manual_seed(4)
+    xs = (torch.randn((B, S, H * P + 8), generator=g, device=cuda)
+          * 0.5).to(dtype)
+    bc = (torch.randn((B, S, 2 * N), generator=g, device=cuda)
+          * 0.3).to(dtype)
+    x = xs[..., :H * P].reshape(B, S, H, P)
+    Bm, Cm = bc[..., :N].unsqueeze(2), bc[..., N:].unsqueeze(2)
+    dt = torch.nn.functional.softplus(
+        torch.randn((B, S, H), generator=g, device=cuda))
+    A = -torch.exp(torch.randn((H,), generator=g, device=cuda) * 0.3)
+    y, h = kssd.ssd_cuda(x, dt, A, Bm, Cm, chunk=Q, return_state=True)
+    yc, hc = kssd.ssd_cuda(x.contiguous(), dt, A, Bm.contiguous(),
+                           Cm.contiguous(), chunk=Q, return_state=True)
+    torch.testing.assert_close(y, yc, rtol=0, atol=0)
+    torch.testing.assert_close(h, hc, rtol=0, atol=0)
+    cut = 137
+    y1, h1 = kssd.ssd_cuda(x[:, :cut], dt[:, :cut], A, Bm[:, :cut],
+                           Cm[:, :cut], chunk=Q, return_state=True)
+    y2, h2 = kssd.ssd_cuda(x[:, cut:], dt[:, cut:], A, Bm[:, cut:],
+                           Cm[:, cut:], chunk=Q, init_state=h1,
+                           return_state=True)
+    torch.testing.assert_close(torch.cat([y1, y2], 1).float(), y.float(),
+                               **_ssd_tol(dtype))
+    torch.testing.assert_close(h2, h, **_ssd_tol(dtype))
+
+
+def test_ssd_kernel_rejects_bad_inputs_and_gradients(cuda):
+    x, dt, A, Bm, Cm, _ = _ssd_inputs((1, 8, 2, 16, 1, 16, 8),
+                                      torch.float32, cuda)
+    with pytest.raises(TypeError):
+        kssd.ssd_cuda(x, dt.to(torch.bfloat16), A, Bm, Cm, chunk=8)
+    with pytest.raises(ValueError, match="chunk"):
+        kssd.ssd_cuda(x, dt, A, Bm, Cm, chunk=256)
+    with pytest.raises(ValueError, match="last axis"):
+        kssd.ssd_cuda(x.transpose(2, 3).contiguous().transpose(2, 3), dt,
+                      A, Bm, Cm, chunk=8)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ops.ssd(x.requires_grad_(), dt, A, Bm, Cm, chunk=8)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-1.2b"])
+def test_smoke_ssm_serving_kernels_match_plain(cuda, arch):
+    """Prefill over two chunks and a ragged tail, then two decode steps,
+    through the kernels against the plain versions."""
+    cfg = get_smoke_config(arch)
+    params = serve.init_params(cfg, 1, cuda)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    toks = torch.randint(0, cfg.vocab_size, (2, 72), generator=g,
+                         device=cuda)
+    out = {}
+    n = kssd.launches
+    for name, run in (("kernel", RunConfig()),
+                      ("plain", RunConfig(use_kernels=False))):
+        cache = engine.init_cache(cfg, 2, 80, cuda)
+        lp, cache = registry.prefill(params, cfg, run,
+                                     {"tokens": toks[:, :70]}, cache)
+        ld, cache = registry.decode(params, cfg, run, toks[:, 70:71], cache,
+                                    70)
+        ld2, _ = registry.decode(params, cfg, run, toks[:, 71:], cache, 71)
+        out[name] = (lp, ld, ld2)
+    assert kssd.launches == n + cfg.num_layers
+    for a, b in zip(out["kernel"], out["plain"]):
+        torch.testing.assert_close(a, b, rtol=3e-2, atol=3e-2)
