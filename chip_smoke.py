@@ -8,7 +8,9 @@ Phases, each of which fails the run (non-zero exit, no final result line):
 1. device: ``nvidia-smi`` name and power limit, torch / CUDA / nvcc versions;
 2. build: every source in ``src/repro_torch/kernels/csrc`` compiled into
    one extension module by ``torch.utils.cpp_extension.load``, with its
-   time and ptxas' register counts;
+   time and ptxas' register counts; then the CUDA runtime's registers,
+   local (spill) bytes, shared memory and resident blocks a SM of each
+   tensor-core kernel (fails if one uses local memory);
 3. kernel against plain: each kernel and its plain version on the same
    inputs, at the main paths' shapes and the sweep of tests/test_kernels.py
    (tolerance 2e-2 in bf16, 3e-5 in f32; the SSD scan 3e-2 and 3e-4), with
@@ -18,7 +20,8 @@ Phases, each of which fails the run (non-zero exit, no final result line):
    call needs.  Forward kernels (RMSNorm, flash attention, cross entropy;
    RMSNorm and flash also at the zamba2-1.2b / mamba2-130m prefill
    shapes) and, for training, the RMSNorm and flash-attention backward
-   kernels and the flash forward's ``lse``; then the SSD chunked scan
+   kernels (the latter's device time split by kernel under the
+   profiler) and the flash forward's ``lse``; then the SSD chunked scan
    (phase "ssd": ``y`` and the final state against ``ssd_ref`` on the
    SSD_CASES of tests/test_kernels.py, S < chunk, an ``init_state`` chain
    of two calls against one, and both models' prefill shapes; no library
@@ -43,14 +46,16 @@ Phases, each of which fails the run (non-zero exit, no final result line):
    global_batch=4, carousel=False)`` at full width and depth, launch
    counters reset just before and read just after and held against the
    counts the code implies; losses, step time of steps 2-3, tokens/s and
-   peak memory; then ``torch.profiler`` over one more (warm) step, and
+   peak memory; then ``torch.profiler`` over one more (warm) step (with
+   the device time of the flash-backward and CE kernels picked out), and
    the wall time of each half (gradients, AdamW) of another;
 8. end to end, training, at full width and 2 layers: one
    ``grads_and_metrics`` through the kernels against one through
    ``use_kernels=False``, loss within relative 1e-2 and every gradient leaf
    within relative L2 5e-2.
 
-It prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
+It prints a ``{"kernel_info": [...]}`` line, a ``{"kernels": [...]}`` line
+and, last, ``{"ok": true, ...}``.
 A kernel's ``launches`` there is the sum of its counts over the three
 serving runs and the training run; ``ssd_scan``'s row is the zamba2-1.2b
 prefill shape.  Weights are random, made on the card from a seed;
@@ -466,6 +471,11 @@ def phase_flash_bwd(gen: torch.Generator, failures: list) -> dict:
                      lib_sets)
             row["bound_ms"], row["bound_by"] = _bound(
                 n_bytes, 10.0 * B * Hq * pairs * D, dtype)
+            if is_main:
+                # device time of each of the backward's kernels in one call
+                row["split"] = _profile(
+                    lambda: kflash.flash_attention_bwd_cuda(*inputs, **kw),
+                    pick=("flash_bwd",))["picked"]
             log("flash_bwd", json.dumps(row))
             if not ok:
                 failures.append(f"flash bwd/lse {case} {dtype}: max err "
@@ -724,10 +734,11 @@ def phase_end_to_end(failures: list, arch: str = ARCH, prompt: int = PROMPT,
     return params, toks[:, :prompt]
 
 
-def _profile(fn, top: int = 8, ops: bool = False) -> dict:
+def _profile(fn, top: int = 8, ops: bool = False, pick=()) -> dict:
     """Wall time of ``fn`` (synchronised), the device time of the kernels
-    the profiler saw inside it, their ratio (busy share), the top kernels
-    and, with ``ops``, the top operators by device time."""
+    the profiler saw inside it, their ratio (busy share), the top kernels,
+    with ``ops`` the top operators by device time, and the kernels whose
+    names hold one of ``pick`` (device ms, count)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -745,6 +756,10 @@ def _profile(fn, top: int = 8, ops: bool = False) -> dict:
            "busy_share": dev_us / 1e3 / (wall * 1e3),
            "top": [[e.key[:60], e.self_device_time_total / 1e3, e.count]
                    for e in kernels[:top]]}
+    if pick:
+        out["picked"] = [[e.key[:60], e.self_device_time_total / 1e3,
+                          e.count] for e in kernels
+                         if any(p in e.key for p in pick)]
     if ops:
         aten = sorted((e for e in events if e.device_type == DeviceType.CPU
                        and e.key.startswith("aten::")
@@ -840,7 +855,8 @@ def phase_training(failures: list) -> dict:
         device=DEVICE)
     step_fn = tstep.make_train_step(cfg, run)
     state = res.pop("state")
-    row = _profile(lambda: step_fn(state, batch), top=15, ops=True)
+    row = _profile(lambda: step_fn(state, batch), top=15, ops=True,
+                   pick=("flash_bwd", "ce_fwd", "ce_merge"))
     # the step's two halves, each timed alone (synchronised) in one more
     # warm step
     torch.cuda.synchronize()
@@ -918,10 +934,19 @@ def main() -> int:
 
     # the build's log, printed by ninja, holds ptxas' register counts
     t0 = time.perf_counter()
-    build.extension(verbose=True)
+    ext = build.extension(verbose=True)
     log(f"build: {time.perf_counter() - t0:.2f} s")
+    # registers, spills, shared memory and resident blocks a SM of the
+    # tensor-core kernels, as the CUDA runtime reports them
+    kernel_info = [dict(zip(("name", "registers", "local_bytes",
+                             "static_smem", "dynamic_smem", "threads",
+                             "blocks_per_sm"), [name] + list(vals)))
+                   for name, vals in ext.kernel_info()]
 
     failures: list = []
+    spilling = [k["name"] for k in kernel_info if k["local_bytes"]]
+    if spilling:
+        failures.append(f"tensor-core kernels use local memory: {spilling}")
     gen = torch.Generator(device="cuda").manual_seed(0)
     t0 = time.perf_counter()
     rms_main = phase_rmsnorm(gen, failures)
@@ -982,6 +1007,7 @@ def main() -> int:
              ssd_main))]
     log(f"total: {time.perf_counter() - t_start:.2f} s")
     log(smi)
+    log(json.dumps({"kernel_info": kernel_info}))
     log(json.dumps({"kernels": kernels}))
     if failures:
         for f in failures:

@@ -5,9 +5,14 @@ Replaces ``repro/kernels/cross_entropy.py::cross_entropy_pallas`` (body
 ``_ce_kernel``): the ``hidden @ w_vocabᵀ`` product fused with an online
 (max, sumexp, target logit) reduction over vocab tiles, so the (T, V)
 logits never reach device memory.  Bound on the card: operations
-(``2 * T * V * D`` FLOPs over the peak of the input type); this first
-kernel runs f32 FMAs on the CUDA cores.  One thread block per (128-token
-tile, vocab split); a second kernel merges the splits' statistics.
+(``2 * T * V * D`` FLOPs over the peak of the input type).  bf16 inputs
+(the training path) run on the tensor cores (``wgmma`` from swizzled
+bf16 tiles, f32 sums): one block per (128-token tile, vocab split), 256
+vocab entries a tile; f32 inputs run f32 FMAs on the CUDA cores.  A
+second kernel merges the splits' statistics.  The bf16 kernel copies
+16-byte chunks, so for a ``D`` that is not a multiple of 8 (or a
+misaligned tensor) the wrapper zero-pads ``D`` in a copy; zero columns
+add nothing to the logits.
 
 The plain version is :func:`repro_torch.kernels.ref.
 cross_entropy_stats_ref`; ``kernels/ops.py`` and ``train/loss.py`` send
@@ -30,8 +35,8 @@ def cross_entropy_cuda(hidden: torch.Tensor, w_vocab: torch.Tensor,
                        targets: torch.Tensor
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launches the kernel.  hidden: (T, D), w_vocab: (V, D), contiguous,
-    one dtype (bf16 or f32), multiplied in f32; targets: (T,) integer ids
-    in [0, V).  Returns per-token f32 (nll, lse)."""
+    one dtype (bf16 or f32), products summed in f32; targets: (T,)
+    integer ids in [0, V).  Returns per-token f32 (nll, lse)."""
     global launches
     if not (hidden.is_cuda and w_vocab.device == hidden.device
             and targets.device == hidden.device):
@@ -60,9 +65,14 @@ def cross_entropy_cuda(hidden: torch.Tensor, w_vocab: torch.Tensor,
         return nll, lse
     if V == 0 or D == 0:
         raise ValueError("cross_entropy_cuda needs V > 0 and D > 0")
+    bf16 = hidden.dtype == torch.bfloat16
+    if bf16 and (D % 8 or hidden.data_ptr() % 16 or w_vocab.data_ptr() % 16):
+        pad = -D % 8
+        hidden = torch.nn.functional.pad(hidden, (0, pad))
+        w_vocab = torch.nn.functional.pad(w_vocab, (0, pad))
     ext = build.extension()
-    part = torch.empty((ext.ce_splits(T, V), T, 3), dtype=torch.float32,
-                       device=hidden.device)
+    part = torch.empty((ext.ce_splits(T, V, bf16), T, 3),
+                       dtype=torch.float32, device=hidden.device)
     ext.ce_fwd(hidden, w_vocab, targets.to(torch.int64).contiguous(), part,
                nll, lse)
     launches += 1

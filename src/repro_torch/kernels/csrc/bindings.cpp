@@ -15,6 +15,9 @@
 #include <c10/cuda/CUDAGuard.h>
 
 #include <cstdint>
+#include <string>
+#include <utility>
+#include <vector>
 
 extern "C" void repro_rmsnorm_fwd(const void* x, const void* w, void* y,
                                   float* inv, int rows, int D, float eps,
@@ -42,12 +45,15 @@ extern "C" bool repro_flash_bwd(
     long long do_sb, long long do_ss, long long do_sh, float scale,
     int causal, int q_offset, int kv_len, int window, int bf16,
     cudaStream_t s);
+extern "C" bool repro_flash_bwd_info(int idx, int D, const char** name,
+                                     int* out);
 
-extern "C" int repro_ce_splits(int n_tok, int V);
+extern "C" int repro_ce_splits(int n_tok, int V, int bf16);
 extern "C" void repro_ce_fwd(const void* hidden, const void* w,
                              const long long* targets, float* part,
                              float* nll, float* lse, int n_tok, int V, int D,
                              int bf16, cudaStream_t s);
+extern "C" bool repro_ce_info(int idx, const char** name, int* out);
 
 extern "C" bool repro_ssd_fwd(
     const void* x, const float* dt, const float* A, const void* Bm,
@@ -122,8 +128,9 @@ void flash_fwd(const at::Tensor& q, const at::Tensor& k, const at::Tensor& v,
 }
 
 // q, dout: (B, Sq, Hq, D); k, v: (B, Sk, Hkv, D); one dtype, D axis
-// contiguous, any other strides; o, lse, delta (scratch) and the outputs
-// dq, dk, dv contiguous.  Writes dq, dk, dv.
+// contiguous, any other strides (bf16: 16-byte aligned, strides a multiple
+// of 8); o, lse, delta (scratch) and the outputs dq, dk, dv contiguous.
+// Writes dq, dk, dv.
 void flash_bwd(const at::Tensor& q, const at::Tensor& k, const at::Tensor& v,
                const at::Tensor& o, const at::Tensor& lse,
                const at::Tensor& dout, at::Tensor delta, at::Tensor dq,
@@ -143,12 +150,13 @@ void flash_bwd(const at::Tensor& q, const at::Tensor& k, const at::Tensor& v,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
-int64_t ce_splits(int64_t n_tok, int64_t V) {
-  return repro_ce_splits(static_cast<int>(n_tok), static_cast<int>(V));
+int64_t ce_splits(int64_t n_tok, int64_t V, bool bf16) {
+  return repro_ce_splits(static_cast<int>(n_tok), static_cast<int>(V), bf16);
 }
 
-// hidden: (T, D), w: (V, D) contiguous, one dtype; targets: (T,) int64;
-// part: (ce_splits(T, V), T, 3) f32 scratch.  Writes nll, lse (T,) f32.
+// hidden: (T, D), w: (V, D) contiguous, one dtype (bf16: 16-byte aligned,
+// D a multiple of 8); targets: (T,) int64; part: (ce_splits(T, V, bf16),
+// T, 3) f32 scratch.  Writes nll, lse (T,) f32.
 void ce_fwd(const at::Tensor& hidden, const at::Tensor& w,
             const at::Tensor& targets, at::Tensor part, at::Tensor nll,
             at::Tensor lse) {
@@ -187,6 +195,25 @@ void ssd_fwd(const at::Tensor& x, const at::Tensor& dt, const at::Tensor& A,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+// (name, [registers, local bytes, static smem, dynamic smem, threads,
+// blocks a SM]) of each tensor-core kernel: the flash backward's at every
+// head_dim (name suffix <D>), then the CE forward's.
+std::vector<std::pair<std::string, std::vector<int64_t>>> kernel_info() {
+  const c10::cuda::CUDAGuard guard(at::cuda::current_device());
+  std::vector<std::pair<std::string, std::vector<int64_t>>> rows;
+  int out[6];
+  const char* name = nullptr;
+  auto add = [&](const std::string& n) {
+    rows.emplace_back(n, std::vector<int64_t>(out, out + 6));
+  };
+  for (int D : {16, 32, 64, 128})
+    for (int idx = 0; repro_flash_bwd_info(idx, D, &name, out); ++idx)
+      add(std::string(name) + "<" + std::to_string(D) + ">");
+  for (int idx = 0; repro_ce_info(idx, &name, out); ++idx) add(name);
+  C10_CUDA_CHECK(cudaGetLastError());
+  return rows;
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -199,4 +226,7 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("ce_splits", &ce_splits, "vocab splits of the CE forward's scratch");
   m.def("ce_fwd", &ce_fwd, "blockwise cross-entropy forward into nll, lse");
   m.def("ssd_fwd", &ssd_fwd, "Mamba2 SSD chunked scan into y and hout");
+  m.def("kernel_info", &kernel_info,
+        "registers, spills, shared memory and occupancy of the tensor-core "
+        "kernels");
 }

@@ -40,20 +40,52 @@
 // tile and delta = rowsum(dO * O):
 //   dv = p^T dO,  ds = p * (dO V^T - delta),  dk = ds^T (q * scale),
 //   dq = scale * ds K,
-// dk and dv summed over the G q heads that read each kv head.  Three
-// kernels, no atomics, the same result on every run:
+// dk and dv summed over the G q heads that read each kv head.  No float
+// atomics anywhere: the same bits on every run.  At the yi-6b training
+// shape (B=4, S=512, 32/4 heads, D=128, causal) the work is about 21.5
+// GFLOP (21.7 us at the bf16 tensor-core peak) against about 76 MB (22.6
+// us): the bound is the bytes, by a hair.
+//
+// bf16 (the training path): tensor cores.  The five products (S = Q K^T,
+// dP = dO V^T, dV = P^T dO, dK = dS^T Q, dQ = dS K) run as
+// mma.sync.m16n8k16 with bf16 operands and f32 accumulators, fed by
+// ldmatrix from bf16 tiles in shared memory (swizzled, tc.cuh) that
+// cp.async loads through a ring (4 steps deep for dk/dv, lse and delta
+// included; double-buffered for dq), so the next steps load while one
+// multiplies.  S is scaled in f32 (q is not pre-scaled in bf16: 128^-0.5
+// is no power of two); P = exp(S - lse) and dS = P * (dP - delta) are
+// formed in f32 registers and rounded to bf16 only as operands of the
+// dV, dK and dQ products, straight from the C fragments (no trip
+// through shared memory); dK and dQ are scaled in f32 at the end.
 //   1. delta, one warp per (b, q row, q head);
-//   2. dk, dv: one block per (b, kv head, 64-key tile) loops over its G
-//      q heads and the q tiles that can see the keys, holding dk and dv
-//      in registers;
-//   3. dq: one block per (b, q head, 64-row q tile) loops over the key
-//      tiles its rows can see, as the forward does.
-// At the yi-6b training shape (B=4, S=512, 32/4 heads, D=128, causal) the
-// work is about 21.5 GFLOP (21.7 us at the bf16 tensor-core peak) against
-// about 76 MB (22.6 us); like the forward, these first kernels run f32
-// FMAs on the CUDA cores and are bound by that arithmetic.
+//   2. dk, dv: a cluster of C blocks of 4 warps per (64-key tile, kv
+//      head, b), C the largest divisor of G up to 8 (the portable cluster
+//      size); block j walks q heads j, j + C, ... of the kv head's G, and
+//      the q tiles of 32 rows that can see its keys.  Each warp owns 16
+//      keys and computes S^T = K Q^T and dP^T = V dO^T, so P^T and dS^T
+//      come out as the A operands of dV and dK.  At the end the cluster
+//      sums its blocks' f32 dk, dv through distributed shared memory, in
+//      rank order, each block writing a slice of the tile's rows.  Why
+//      split the q heads: one block per (key tile, kv head, b) gives 128
+//      blocks for 132 SMs at the training shape, the causal key tile 0
+//      walking 8x the steps of tile 7; one block per q head (C = G = 8)
+//      gives 1024 blocks, about four waves at two blocks a SM, which even
+//      out the causal imbalance, and the sum stays on chip (no f32
+//      partials in memory);
+//   3. dq: one block of 4 warps per (64-row q tile, q head, b) walks the
+//      64-key steps its rows can see; each warp owns 16 q rows.
+//
+// f32 (the 3e-5 sweeps, no main path): f32 FMAs on the CUDA cores over
+// f32 tiles padded to D + 1; TF32 cannot meet 3e-5.
+// Three kernels: delta; dk/dv with one block per (key tile, kv head, b)
+// looping over its G q heads; dq as above.
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "tc.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -514,6 +546,390 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Backward on tensor cores (bf16)
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kTcThreads = 128;  // 4 warps, each 16 rows of the block
+constexpr int kTcKeys = 64;      // keys of a dk/dv block
+constexpr int kTcQStep = 32;     // q rows of one step of a dk/dv block
+constexpr int kTcQ = 64;         // q rows of a dq block
+constexpr int kTcKStep = 64;     // keys of one step of a dq block
+constexpr int kTcQStages = 4;    // ring depth of the dk/dv block's steps
+constexpr int kTcKStages = 2;    // ring depth of the dq block's steps
+
+// K, V; a ring of Q, dO, lse, delta steps.
+template <int D>
+constexpr size_t tc_dkdv_smem() {
+  return sizeof(bf16) * (size_t)(2 * kTcKeys * D +
+                                 2 * kTcQStages * kTcQStep * D) +
+         sizeof(float) * 2 * kTcQStages * kTcQStep;
+}
+// Q, dO; a ring of K, V steps.
+template <int D>
+constexpr size_t tc_dq_smem() {
+  return sizeof(bf16) * (size_t)(2 * kTcQ * D +
+                                 2 * kTcKStages * kTcKStep * D);
+}
+
+__device__ __forceinline__ bool visible(int qi, int Sq, int qp, int kp,
+                                        int kv_len, int causal, int window) {
+  return qi < Sq && kp < kv_len && (!causal || kp <= qp) &&
+         (window <= 0 || kp > qp - window);
+}
+
+// dk, dv (B, Sk, Hkv, D) of one 64-key tile of kv head hk.  Block y =
+// hk * C + j of a cluster of C blocks (C divides G, C <= 8) walks the q
+// heads hk * G + j + C * m, m = 0 .. G / C - 1, summing in registers;
+// the cluster then sums its C blocks' dk, dv through distributed shared
+// memory, block j writing rows j * R .. j * R + R - 1 of the tile (R =
+// 64 / C rounded up), the blocks' terms added in rank order.
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 2)
+flash_bwd_dkdv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v,
+                         const bf16* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq,
+                         int Sk, int G, int C, Strides qs, Strides ks,
+                         Strides vs, Strides dos, float scale, int causal,
+                         int q_offset, int kv_len, int window) {
+  constexpr int NB = D / 8;               // n8 blocks of a D-wide output
+  constexpr int QB = kTcQStep / 8;        // n8 blocks of a q step
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  bf16* sK = reinterpret_cast<bf16*>(smem_raw);  // kTcKeys x D
+  bf16* sV = sK + kTcKeys * D;                   // kTcKeys x D
+  bf16* sQ = sV + kTcKeys * D;                   // ring of kTcQStep x D
+  bf16* sdO = sQ + kTcQStages * kTcQStep * D;    // ring of kTcQStep x D
+  float* sL = reinterpret_cast<float*>(sdO + kTcQStages * kTcQStep * D);
+  float* sDelta = sL + kTcQStages * kTcQStep;    // rings of kTcQStep
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int k0 = blockIdx.x * kTcKeys, b = blockIdx.z;
+  const int hk = blockIdx.y / C, j = blockIdx.y % C;
+  const int Hkv = gridDim.y / C, Hq = Hkv * G;
+  const int krow = warp * 16;  // this warp's keys in the tile
+
+  float adk[NB][4], adv[NB][4];
+#pragma unroll
+  for (int n = 0; n < NB; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) adk[n][i] = adv[n][i] = 0.f;
+
+  // q rows that can see a key of this tile (as in the f32 kernel)
+  int qi_begin = 0, qi_end = 0;
+  if (k0 < kv_len) {
+    const int k_last = min(k0 + kTcKeys, kv_len) - 1;
+    qi_begin = causal ? max(0, k0 - q_offset) : 0;
+    qi_end = window > 0 ? min(Sq, max(0, k_last + window - q_offset)) : Sq;
+  }
+  if (qi_begin < qi_end) {
+    tc::load_tile_async<kTcKeys, D, kTcThreads>(
+        sK, k + b * ks.b + hk * ks.h, ks.s, k0, Sk);
+    tc::load_tile_async<kTcKeys, D, kTcThreads>(
+        sV, v + b * vs.b + hk * vs.h, vs.s, k0, Sk);
+    const int t_begin = qi_begin / kTcQStep;
+    const int t_end = (qi_end + kTcQStep - 1) / kTcQStep;
+    for (int h = hk * G + j; h < (hk + 1) * G; h += C) {
+      const bf16* qb = q + b * qs.b + h * qs.h;
+      const bf16* dob = dout + b * dos.b + h * dos.h;
+      auto load_step = [&](int tq, int buf) {
+        const int q0 = tq * kTcQStep;
+        tc::load_tile_async<kTcQStep, D, kTcThreads>(
+            sQ + buf * kTcQStep * D, qb, qs.s, q0, Sq);
+        tc::load_tile_async<kTcQStep, D, kTcThreads>(
+            sdO + buf * kTcQStep * D, dob, dos.s, q0, Sq);
+        for (int r = threadIdx.x; r < kTcQStep; r += kTcThreads) {
+          const int qi = q0 + r;
+          const long long idx = ((long long)b * Sq + qi) * Hq + h;
+          const bool ok = qi < Sq;
+          tc::cp_async4(sL + buf * kTcQStep + r, ok ? lse + idx : lse,
+                        ok ? 4 : 0);
+          tc::cp_async4(sDelta + buf * kTcQStep + r,
+                        ok ? delta + idx : delta, ok ? 4 : 0);
+        }
+      };
+#pragma unroll
+      for (int i = 0; i < kTcQStages - 1; ++i) {  // K, V join the first
+        if (t_begin + i < t_end) load_step(t_begin + i, i);
+        tc::cp_async_commit();
+      }
+      for (int tq = t_begin; tq < t_end; ++tq) {
+        const int buf = (tq - t_begin) % kTcQStages;
+        tc::cp_async_wait<kTcQStages - 2>();
+        __syncthreads();  // step tq landed; step tq - 1's slot is free
+        const int nx = tq + kTcQStages - 1;
+        if (nx < t_end) load_step(nx, (nx - t_begin) % kTcQStages);
+        tc::cp_async_commit();
+        const bf16* cQ = sQ + buf * kTcQStep * D;
+        const bf16* cdO = sdO + buf * kTcQStep * D;
+        const float* cL = sL + buf * kTcQStep;
+        const float* cDelta = sDelta + buf * kTcQStep;
+
+        // S^T = K Q^T and dP^T = V dO^T: 16 keys x 32 q rows a warp
+        float s[QB][4], dp[QB][4];
+#pragma unroll
+        for (int n = 0; n < QB; ++n)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) s[n][i] = dp[n][i] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          uint32_t ak[4], av[4];
+          tc::load_a<D>(ak, sK, krow, kk * 16);
+          tc::load_a<D>(av, sV, krow, kk * 16);
+#pragma unroll
+          for (int np = 0; np < QB / 2; ++np) {
+            uint32_t bq[4], bo[4];
+            tc::load_b_nk<D>(bq, cQ, np * 16, kk * 16);
+            tc::load_b_nk<D>(bo, cdO, np * 16, kk * 16);
+            tc::mma(s[2 * np], ak, bq[0], bq[1]);
+            tc::mma(s[2 * np + 1], ak, bq[2], bq[3]);
+            tc::mma(dp[2 * np], av, bo[0], bo[1]);
+            tc::mma(dp[2 * np + 1], av, bo[2], bo[3]);
+          }
+        }
+        // P^T and dS^T in f32, in place
+        const int q0 = tq * kTcQStep;
+#pragma unroll
+        for (int n = 0; n < QB; ++n)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int c = n * 8 + 2 * t + (i & 1);
+            const int qi = q0 + c;
+            const int kp = k0 + krow + g + (i >> 1) * 8;
+            const float p =
+                visible(qi, Sq, q_offset + qi, kp, kv_len, causal, window)
+                    ? __expf(s[n][i] * scale - cL[c])
+                    : 0.f;
+            s[n][i] = p;
+            dp[n][i] = p * (dp[n][i] - cDelta[c]);
+          }
+        // dV += P^T dO, dK += dS^T Q (A operands from registers, in bf16)
+#pragma unroll
+        for (int kq = 0; kq < QB / 2; ++kq) {
+          uint32_t ap[4], ads[4];
+          tc::pack_a(ap, s[2 * kq], s[2 * kq + 1]);
+          tc::pack_a(ads, dp[2 * kq], dp[2 * kq + 1]);
+#pragma unroll
+          for (int nd = 0; nd < D / 16; ++nd) {
+            uint32_t bo[4], bq[4];
+            tc::load_b_kn<D>(bo, cdO, kq * 16, nd * 16);
+            tc::load_b_kn<D>(bq, cQ, kq * 16, nd * 16);
+            tc::mma(adv[2 * nd], ap, bo[0], bo[1]);
+            tc::mma(adv[2 * nd + 1], ap, bo[2], bo[3]);
+            tc::mma(adk[2 * nd], ads, bq[0], bq[1]);
+            tc::mma(adk[2 * nd + 1], ads, bq[2], bq[3]);
+          }
+        }
+      }
+      tc::cp_async_wait<0>();
+      __syncthreads();  // the ring is free for the next head
+    }
+  }
+
+  if (C == 1) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int kr = k0 + krow + g + r * 8;
+      if (kr >= Sk) continue;
+      const long long o = (((long long)b * Sk + kr) * Hkv + hk) * D + 2 * t;
+#pragma unroll
+      for (int n = 0; n < NB; ++n) {
+        *reinterpret_cast<uint32_t*>(dk + o + n * 8) = tc::pack_bf16(
+            adk[n][2 * r] * scale, adk[n][2 * r + 1] * scale);
+        *reinterpret_cast<uint32_t*>(dv + o + n * 8) =
+            tc::pack_bf16(adv[n][2 * r], adv[n][2 * r + 1]);
+      }
+    }
+    return;
+  }
+  // The sum over the cluster: this block's f32 dk, dv tile into its own
+  // shared memory (2 x kTcKeys x D, dk first), then each block adds up its
+  // rows of every block's tile.
+  float* red = reinterpret_cast<float*>(smem_raw);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = krow + g + r * 8;
+#pragma unroll
+    for (int n = 0; n < NB; ++n) {
+      const int d = n * 8 + 2 * t;
+      *reinterpret_cast<float2*>(red + row * D + d) =
+          make_float2(adk[n][2 * r] * scale, adk[n][2 * r + 1] * scale);
+      *reinterpret_cast<float2*>(red + (kTcKeys + row) * D + d) =
+          make_float2(adv[n][2 * r], adv[n][2 * r + 1]);
+    }
+  }
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();  // every block's tile is in place
+  const int R = (kTcKeys + C - 1) / C;
+  const int r_end = min(kTcKeys, (j + 1) * R);
+  for (int e = (j * R) * (D / 4) + threadIdx.x; e < r_end * (D / 4);
+       e += kTcThreads) {
+    const int row = e / (D / 4), d = (e % (D / 4)) * 4;
+    float4 sk = make_float4(0.f, 0.f, 0.f, 0.f), sv = sk;
+    for (int rank = 0; rank < C; ++rank) {
+      const float* peer = cluster.map_shared_rank(red, rank);
+      const float4 a = *reinterpret_cast<const float4*>(peer + row * D + d);
+      const float4 c = *reinterpret_cast<const float4*>(
+          peer + (kTcKeys + row) * D + d);
+      sk.x += a.x; sk.y += a.y; sk.z += a.z; sk.w += a.w;
+      sv.x += c.x; sv.y += c.y; sv.z += c.z; sv.w += c.w;
+    }
+    const int kr = k0 + row;
+    if (kr < Sk) {
+      const long long o = (((long long)b * Sk + kr) * Hkv + hk) * D + d;
+      *reinterpret_cast<uint2*>(dk + o) = make_uint2(
+          tc::pack_bf16(sk.x, sk.y), tc::pack_bf16(sk.z, sk.w));
+      *reinterpret_cast<uint2*>(dv + o) = make_uint2(
+          tc::pack_bf16(sv.x, sv.y), tc::pack_bf16(sv.z, sv.w));
+    }
+  }
+  cluster.sync();  // no block leaves while another reads its tile
+}
+
+// dq of one 64-row q tile of one q head: (B, Sq, Hq, D) bf16.
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 2)
+flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v,
+                       const bf16* __restrict__ dout,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta, bf16* __restrict__ dq,
+                       int Sq, int Sk, int G, Strides qs, Strides ks,
+                       Strides vs, Strides dos, float scale, int causal,
+                       int q_offset, int kv_len, int window) {
+  constexpr int NB = D / 8;
+  constexpr int KB = kTcKStep / 8;  // n8 blocks of a key step
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);  // kTcQ x D
+  bf16* sdO = sQ + kTcQ * D;                     // kTcQ x D
+  bf16* sK = sdO + kTcQ * D;                     // ring of kTcKStep x D
+  bf16* sV = sK + kTcKStages * kTcKStep * D;      // ring of kTcKStep x D
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = blockIdx.x * kTcQ, h = blockIdx.y, b = blockIdx.z;
+  const int Hq = gridDim.y, hk = h / G;
+  const bf16* kb = k + b * ks.b + hk * ks.h;
+  const bf16* vb = v + b * vs.b + hk * vs.h;
+  const int qrow = warp * 16;  // this warp's rows in the tile
+
+  float rl[2], rd[2];  // lse, delta of rows g and g + 8
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = q0 + qrow + g + r * 8;
+    const long long idx = ((long long)b * Sq + qi) * Hq + h;
+    rl[r] = qi < Sq ? lse[idx] : 0.f;
+    rd[r] = qi < Sq ? delta[idx] : 0.f;
+  }
+  float adq[NB][4];
+#pragma unroll
+  for (int j = 0; j < NB; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) adq[j][i] = 0.f;
+
+  // Key range any row of this tile can see (as in the forward).
+  const int q_first = q_offset + q0;
+  const int q_last = q_offset + min(q0 + kTcQ, Sq) - 1;
+  int k_end = kv_len;
+  if (causal) k_end = min(k_end, q_last + 1);
+  const int k_begin = window > 0 ? max(0, q_first - window + 1) : 0;
+  const int t_begin = k_begin / kTcKStep;
+  const int t_end = k_end > 0 ? (k_end + kTcKStep - 1) / kTcKStep : 0;
+
+  tc::load_tile_async<kTcQ, D, kTcThreads>(sQ, q + b * qs.b + h * qs.h, qs.s,
+                                           q0, Sq);
+  tc::load_tile_async<kTcQ, D, kTcThreads>(
+      sdO, dout + b * dos.b + h * dos.h, dos.s, q0, Sq);
+  auto load_step = [&](int tk, int buf) {
+    tc::load_tile_async<kTcKStep, D, kTcThreads>(
+        sK + buf * kTcKStep * D, kb, ks.s, tk * kTcKStep, Sk);
+    tc::load_tile_async<kTcKStep, D, kTcThreads>(
+        sV + buf * kTcKStep * D, vb, vs.s, tk * kTcKStep, Sk);
+  };
+#pragma unroll
+  for (int i = 0; i < kTcKStages - 1; ++i) {  // Q and dO join the first
+    if (t_begin + i < t_end) load_step(t_begin + i, i);
+    tc::cp_async_commit();
+  }
+  for (int tk = t_begin; tk < t_end; ++tk) {
+    const int buf = (tk - t_begin) % kTcKStages;
+    tc::cp_async_wait<kTcKStages - 2>();
+    __syncthreads();  // step tk landed; step tk - 1's slot is free
+    const int nx = tk + kTcKStages - 1;
+    if (nx < t_end) load_step(nx, (nx - t_begin) % kTcKStages);
+    tc::cp_async_commit();
+    const bf16* cK = sK + buf * kTcKStep * D;
+    const bf16* cV = sV + buf * kTcKStep * D;
+
+    // S = Q K^T and dP = dO V^T: 16 q rows x 64 keys a warp
+    float s[KB][4], dp[KB][4];
+#pragma unroll
+    for (int j = 0; j < KB; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[j][i] = dp[j][i] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t aq[4], ao[4];
+      tc::load_a<D>(aq, sQ, qrow, kk * 16);
+      tc::load_a<D>(ao, sdO, qrow, kk * 16);
+#pragma unroll
+      for (int np = 0; np < KB / 2; ++np) {
+        uint32_t bk[4], bv[4];
+        tc::load_b_nk<D>(bk, cK, np * 16, kk * 16);
+        tc::load_b_nk<D>(bv, cV, np * 16, kk * 16);
+        tc::mma(s[2 * np], aq, bk[0], bk[1]);
+        tc::mma(s[2 * np + 1], aq, bk[2], bk[3]);
+        tc::mma(dp[2 * np], ao, bv[0], bv[1]);
+        tc::mma(dp[2 * np + 1], ao, bv[2], bv[3]);
+      }
+    }
+    // dS in f32, in place of S
+    const int kbase = tk * kTcKStep;
+#pragma unroll
+    for (int j = 0; j < KB; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int qi = q0 + qrow + g + (i >> 1) * 8;
+        const int kp = kbase + j * 8 + 2 * t + (i & 1);
+        const float p =
+            visible(qi, Sq, q_offset + qi, kp, kv_len, causal, window)
+                ? __expf(s[j][i] * scale - rl[i >> 1])
+                : 0.f;
+        s[j][i] = p * (dp[j][i] - rd[i >> 1]);
+      }
+    // dQ += dS K (A operand from registers, in bf16)
+#pragma unroll
+    for (int kq = 0; kq < KB / 2; ++kq) {
+      uint32_t ads[4];
+      tc::pack_a(ads, s[2 * kq], s[2 * kq + 1]);
+#pragma unroll
+      for (int nd = 0; nd < D / 16; ++nd) {
+        uint32_t bk[4];
+        tc::load_b_kn<D>(bk, cK, kq * 16, nd * 16);
+        tc::mma(adq[2 * nd], ads, bk[0], bk[1]);
+        tc::mma(adq[2 * nd + 1], ads, bk[2], bk[3]);
+      }
+    }
+  }
+  tc::cp_async_wait<0>();  // no copy outlives the block
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = q0 + qrow + g + r * 8;
+    if (qi >= Sq) continue;
+    bf16* o = dq + (((long long)b * Sq + qi) * Hq + h) * D + 2 * t;
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+      *reinterpret_cast<uint32_t*>(o + j * 8) =
+          tc::pack_bf16(adq[j][2 * r] * scale, adq[j][2 * r + 1] * scale);
+  }
+}
+
 template <typename T, int D>
 void launch(const void* q, const void* k, const void* v, void* o,
             float* lse, int B, int Sq, int Sk, int Hq, int Hkv, Strides qs,
@@ -554,28 +970,81 @@ bool allow_smem(K kernel, size_t smem, bool* configured) {
   return true;
 }
 
-template <typename T, int D>
-void launch_bwd(const void* q, const void* k, const void* v, const void* o,
-                const void* dout, const float* lse, float* delta, void* dq,
-                void* dk, void* dv, int B, int Sq, int Sk, int Hq, int Hkv,
-                Strides qs, Strides ks, Strides vs, Strides dos, float scale,
-                int causal, int q_offset, int kv_len, int window,
-                cudaStream_t stream) {
+// Largest divisor of G that is at most 8, the portable cluster size.
+int cluster_size(int G) {
+  for (int c = 8; c > 1; --c)
+    if (G % c == 0) return c;
+  return 1;
+}
+
+// The bf16 backward: delta; dk/dv, one cluster of C blocks per (key tile,
+// kv head, b); dq.
+template <int D>
+void launch_bwd_typed(const bf16* q, const bf16* k, const bf16* v,
+                      const bf16* o, const bf16* dout, const float* lse,
+                      float* delta, bf16* dq, bf16* dk, bf16* dv, int B,
+                      int Sq, int Sk, int Hq, int Hkv, Strides qs,
+                      Strides ks, Strides vs, Strides dos, float scale,
+                      int causal, int q_offset, int kv_len, int window,
+                      cudaStream_t stream) {
+  static bool dkdv_ok = false, dq_ok = false;
+  constexpr size_t smem_dkdv = tc_dkdv_smem<D>();
+  constexpr size_t smem_dq = tc_dq_smem<D>();
+  static_assert(smem_dkdv >= sizeof(float) * 2 * kTcKeys * D,
+                "the dk/dv ring also holds the f32 tile of the cluster sum");
+  if (!allow_smem(flash_bwd_dkdv_tc_kernel<D>, smem_dkdv, &dkdv_ok) ||
+      !allow_smem(flash_bwd_dq_tc_kernel<D>, smem_dq, &dq_ok))
+    return;
+  const long long rows = (long long)B * Sq * Hq;
+  const int warps = kThreads / 32;
+  flash_bwd_delta_kernel<bf16><<<(unsigned)((rows + warps - 1) / warps),
+                                 kThreads, 0, stream>>>(o, dout, delta, rows,
+                                                        D);
+  const int G = Hq / Hkv, C = cluster_size(G);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((Sk + kTcKeys - 1) / kTcKeys, Hkv * C, B);
+  cfg.blockDim = dim3(kTcThreads);
+  cfg.dynamicSmemBytes = smem_dkdv;
+  cfg.stream = stream;
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = 1;
+  cluster.val.clusterDim.y = C;
+  cluster.val.clusterDim.z = 1;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = 1;
+  const float* dl = delta;
+  if (cudaLaunchKernelEx(&cfg, flash_bwd_dkdv_tc_kernel<D>, q, k, v, dout,
+                         lse, dl, dk, dv, Sq, Sk, G, C, qs, ks, vs, dos,
+                         scale, causal, q_offset, kv_len, window) !=
+      cudaSuccess)
+    return;  // the error stays for cudaGetLastError
+  dim3 grid_q((Sq + kTcQ - 1) / kTcQ, Hq, B);
+  flash_bwd_dq_tc_kernel<D><<<grid_q, kTcThreads, smem_dq, stream>>>(
+      q, k, v, dout, lse, delta, dq, Sq, Sk, G, qs, ks, vs, dos, scale,
+      causal, q_offset, kv_len, window);
+}
+
+// The f32 backward on the CUDA cores: delta, dk/dv, dq.
+template <int D>
+void launch_bwd_typed(const float* tq, const float* tk, const float* tv,
+                      const float* o, const float* tdo, const float* lse,
+                      float* delta, float* dq, float* dk, float* dv, int B,
+                    int Sq, int Sk, int Hq, int Hkv, Strides qs, Strides ks,
+                    Strides vs, Strides dos, float scale, int causal,
+                    int q_offset, int kv_len, int window,
+                    cudaStream_t stream) {
+  using T = float;
   static bool dkdv_ok = false, dq_ok = false;
   constexpr size_t smem_dkdv = bwd_smem_bytes<D>(2);
   constexpr size_t smem_dq = bwd_smem_bytes<D>(1);
   if (!allow_smem(flash_bwd_dkdv_kernel<T, D>, smem_dkdv, &dkdv_ok) ||
       !allow_smem(flash_bwd_dq_kernel<T, D>, smem_dq, &dq_ok))
     return;
-  const T* tq = static_cast<const T*>(q);
-  const T* tk = static_cast<const T*>(k);
-  const T* tv = static_cast<const T*>(v);
-  const T* tdo = static_cast<const T*>(dout);
   const long long rows = (long long)B * Sq * Hq;
   const int warps = kThreads / 32;
   flash_bwd_delta_kernel<T><<<(unsigned)((rows + warps - 1) / warps),
-                              kThreads, 0, stream>>>(
-      static_cast<const T*>(o), tdo, delta, rows, D);
+                              kThreads, 0, stream>>>(o, tdo, delta, rows, D);
   const int G = Hq / Hkv;
   dim3 grid_kv((Sk + kBK - 1) / kBK, Hkv, B);
   flash_bwd_dkdv_kernel<T, D><<<grid_kv, kThreads, smem_dkdv, stream>>>(
@@ -586,6 +1055,21 @@ void launch_bwd(const void* q, const void* k, const void* v, const void* o,
   flash_bwd_dq_kernel<T, D><<<grid_q, kThreads, smem_dq, stream>>>(
       tq, tk, tv, tdo, lse, delta, static_cast<T*>(dq), Sq, Sk, G, qs, ks,
       vs, dos, scale, causal, q_offset, kv_len, window);
+}
+
+template <typename T, int D>
+void launch_bwd(const void* q, const void* k, const void* v, const void* o,
+                const void* dout, const float* lse, float* delta,
+                void* dq, void* dk, void* dv, int B, int Sq,
+                int Sk, int Hq, int Hkv, Strides qs, Strides ks, Strides vs,
+                Strides dos, float scale, int causal, int q_offset,
+                int kv_len, int window, cudaStream_t stream) {
+  launch_bwd_typed<D>(static_cast<const T*>(q), static_cast<const T*>(k),
+                      static_cast<const T*>(v), static_cast<const T*>(o),
+                      static_cast<const T*>(dout), lse, delta,
+                      static_cast<T*>(dq), static_cast<T*>(dk),
+                      static_cast<T*>(dv), B, Sq, Sk, Hq, Hkv, qs, ks, vs,
+                      dos, scale, causal, q_offset, kv_len, window, stream);
 }
 
 // Returns false, launching nothing, for a head_dim without an
@@ -629,6 +1113,22 @@ bool dispatch_bwd_d(int D, const void* q, const void* k, const void* v,
   return true;
 }
 
+template <int D>
+bool bwd_info(int idx, const char** name, int* out) {
+  switch (idx) {
+    case 0:
+      *name = "flash_bwd_dkdv_tc_kernel";
+      return tc::kernel_info(flash_bwd_dkdv_tc_kernel<D>, kTcThreads,
+                             tc_dkdv_smem<D>(), out);
+    case 1:
+      *name = "flash_bwd_dq_tc_kernel";
+      return tc::kernel_info(flash_bwd_dq_tc_kernel<D>, kTcThreads,
+                             tc_dq_smem<D>(), out);
+    default:
+      return false;
+  }
+}
+
 }  // namespace
 
 // q: (B, Sq, Hq, D), k/v: (B, Sk, Hkv, D), o: (B, Sq, Hq, D), each with a
@@ -658,7 +1158,8 @@ extern "C" bool repro_flash_fwd(
 
 // Backward.  q: (B, Sq, Hq, D), k/v: (B, Sk, Hkv, D), dout: (B, Sq, Hq, D),
 // each with a contiguous D axis and the given (batch, seq, head) element
-// strides; o: the forward's output and lse its (B, Sq, Hq) f32 statistic,
+// strides (for bf16: 16-byte aligned pointers and strides a multiple of
+// 8); o: the forward's output and lse its (B, Sq, Hq) f32 statistic,
 // both contiguous; delta: (B, Sq, Hq) f32 scratch.  Writes dq
 // (B, Sq, Hq, D) and dk, dv (B, Sk, Hkv, D), all contiguous, in the dtype
 // of q.  Three launches on `stream`; errors are left to cudaGetLastError.
@@ -681,4 +1182,19 @@ extern "C" bool repro_flash_bwd(
   return dispatch_bwd_d<float>(D, q, k, v, o, dout, lse, delta, dq, dk, dv,
                                B, Sq, Sk, Hq, Hkv, qs, ks, vs, dos, scale,
                                causal, q_offset, kv_len, window, s);
+}
+
+// Facts about the bf16 backward kernels at head_dim D, for reports: idx
+// 0 dk/dv, 1 dq.  Writes the kernel's name and
+// out[0..5] (tc::kernel_info).  Returns false past the last kernel, for a
+// D without an instantiation, or on a CUDA error.
+extern "C" bool repro_flash_bwd_info(int idx, int D, const char** name,
+                                     int* out) {
+  switch (D) {
+    case 16: return bwd_info<16>(idx, name, out);
+    case 32: return bwd_info<32>(idx, name, out);
+    case 64: return bwd_info<64>(idx, name, out);
+    case 128: return bwd_info<128>(idx, name, out);
+    default: return false;
+  }
 }

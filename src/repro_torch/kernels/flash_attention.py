@@ -7,17 +7,22 @@ flash_attention_pallas`` (body ``_flash_kernel``); the backward is the twin
 of ``repro/kernels/ref.py::_flash_bwd_inner``, which the JAX package runs
 in jnp.  Bound on the card: the larger of the FLOPs of the visible
 (query, key) pairs over the tensor-core peak and the bytes of the inputs
-and outputs over HBM rate; at the yi-6b shapes the two are close.  These
-first kernels compute in f32 FMAs on the CUDA cores, far from either:
-the forward runs one thread block per (batch, q head, 64-row q tile),
-K/V tiles staged in shared memory, GQA inside the kernel (kv head =
-h // G), tiles that no row can see skipped; the backward runs one block
-per (batch, kv head, 64-key tile) for dk and dv, summed over the G q
-heads inside the block, and one per (batch, q head, q tile) for dq.
+and outputs over HBM rate; at the yi-6b shapes the two are close.  The
+forward computes in f32 FMAs on the CUDA cores: one thread block per
+(batch, q head, 64-row q tile), K/V tiles staged in shared memory, GQA
+inside the kernel (kv head = h // G), tiles that no row can see skipped.
+The bf16 backward runs its five products on the tensor cores
+(``mma.sync`` from swizzled bf16 tiles, f32 sums): for dk and dv a
+cluster of blocks per (batch, kv head, 64-key tile), one block per q
+head where G <= 8, summed through distributed shared memory; for dq one
+block per (batch, q head, 64-row q tile).  The f32 backward runs f32
+FMAs on the CUDA cores (the f32 sweeps' 3e-5 tolerance rules out TF32).
 
 q, k and v keep the JAX layout ``(B, S, H, D)`` and are read through
 their strides (each needs a contiguous D axis), so the caller neither
-transposes nor repeats K/V.
+transposes nor repeats K/V.  The bf16 backward copies its tensors by
+16-byte chunks, so it takes a contiguous copy of any input whose address
+or strides are not a multiple of 16 bytes (the model's never are).
 
 The plain versions are :func:`repro_torch.kernels.ref.
 flash_attention_fwd_ref` and :func:`~repro_torch.kernels.ref.
@@ -36,7 +41,7 @@ from repro_torch.kernels import ref
 
 # kernel launches since the last reset (set to 0 to reset)
 launches = 0  # forward
-bwd_launches = 0  # backward (one count per call of its three kernels)
+bwd_launches = 0  # backward (one count per call of its kernels)
 
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -66,6 +71,16 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, name: str,
         raise ValueError(f"need 0 <= kv_len <= Sk and q_offset >= 0, got "
                          f"kv_len={kv_len}, Sk={Sk}, q_offset={q_offset}")
     return kv_len
+
+
+def _chunk_aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself if its address and its strides but the last are
+    multiples of 16 bytes, else a contiguous copy (which is)."""
+    step = 16 // t.element_size()
+    if t.data_ptr() % 16 == 0 and all(s % step == 0
+                                      for s in t.stride()[:-1]):
+        return t
+    return t.contiguous()
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -124,6 +139,8 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     dv = torch.empty(v.shape, dtype=q.dtype, device=q.device)
     if dq.numel() == 0 or dk.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
+    if q.dtype == torch.bfloat16:
+        q, k, v, dout = (_chunk_aligned(t) for t in (q, k, v, dout))
     delta = torch.empty((B, Sq, Hq), dtype=torch.float32, device=q.device)
     build.extension().flash_bwd(q, k, v, o, lse, dout, delta, dq, dk, dv,
                                 float(scale), bool(causal), q_offset, kv_len,

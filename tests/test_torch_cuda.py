@@ -39,6 +39,20 @@ CASES = [
     (2, 70, 90, 4, 2, 16, True, 0, 0, 60),          # yi-6b-smoke head_dim
 ]
 DTYPES = [torch.float32, torch.bfloat16]
+# The backward's tensor-core tiles (64 keys x 32 q rows for dk/dv, 64 q
+# rows x 64 keys for dq) against ragged Sq and Sk, G in {1, 8}, D in {64,
+# 128}, q_offset with kv_len < Sk, and a sliding window; and the dk/dv
+# cluster sizes (the largest divisor of G up to 8): 6 (slices of 11 rows)
+# and 8 with two q heads a block (G = 16).
+BWD_CASES = CASES + [
+    (1, 203, 203, 8, 1, 128, True, 0, 0, None),     # ragged, G = 8
+    (2, 77, 141, 4, 4, 64, False, 0, 0, None),      # ragged, G = 1
+    (1, 45, 300, 8, 1, 64, True, 0, 230, 275),      # q_offset, kv_len < Sk
+    (1, 150, 150, 8, 1, 128, True, 37, 0, None),    # sliding window, G = 8
+    (2, 129, 97, 2, 2, 128, True, 0, 0, None),      # Sk < Sq, causal
+    (1, 100, 100, 6, 1, 64, True, 0, 0, None),      # G = 6
+    (1, 130, 130, 16, 1, 128, True, 0, 0, None),    # G = 16
+]
 
 
 @pytest.fixture
@@ -164,7 +178,7 @@ def test_rmsnorm_bwd_kernel_matches_plain(cuda, shape, dtype, w_dtype):
                                       (dtype, w_dtype) else dtype))
 
 
-@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("case", BWD_CASES)
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_flash_lse_and_bwd_kernels_match_plain(cuda, case, dtype):
     B, Sq, Sk, Hq, Hkv, D, causal, window, q_off, kv_len = case
@@ -189,8 +203,12 @@ def test_flash_lse_and_bwd_kernels_match_plain(cuda, case, dtype):
                                    **_tol(dtype))
 
 
+# (128 tokens x 256 vocab tiles, 64 deep, in bf16): ragged T, V and D,
+# and a D that is no multiple of 8 (the wrapper pads it)
 @pytest.mark.parametrize("T,D,V", [(37, 48, 1000), (256, 64, 4099),
-                                   (300, 128, 513), (2048, 4096, 64000)])
+                                   (300, 128, 513), (2048, 4096, 64000),
+                                   (300, 136, 4099), (129, 64, 64000),
+                                   (70, 4099, 300)])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_ce_kernel_matches_plain(cuda, T, D, V, dtype):
     g = torch.Generator(device=cuda).manual_seed(6)
@@ -206,6 +224,42 @@ def test_ce_kernel_matches_plain(cuda, T, D, V, dtype):
         dtype)
     torch.testing.assert_close(nll, rnll, **tol)
     torch.testing.assert_close(lse, rlse, **tol)
+
+
+def test_tensor_core_kernels_are_deterministic(cuda):
+    """No atomics: two calls of the bf16 flash backward (G = 8, dk and dv
+    summed over a cluster) and of the bf16 CE forward give the same
+    bits."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    bf = torch.bfloat16
+    q, do = (torch.randn((2, 200, 16, 128), generator=g, device=cuda).to(bf)
+             for _ in range(2))
+    k, v = (torch.randn((2, 200, 2, 128), generator=g, device=cuda).to(bf)
+            for _ in range(2))
+    o, lse = kflash.flash_attention_cuda(q, k, v, return_lse=True)
+    a = kflash.flash_attention_bwd_cuda(q, k, v, o, lse, do)
+    b = kflash.flash_attention_bwd_cuda(q, k, v, o, lse, do)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    h = torch.randn((300, 512), generator=g, device=cuda).to(bf)
+    w = (torch.randn((5000, 512), generator=g, device=cuda) * 0.05).to(bf)
+    t = torch.randint(0, 5000, (300,), generator=g, device=cuda)
+    for x, y in zip(kce.cross_entropy_cuda(h, w, t),
+                    kce.cross_entropy_cuda(h, w, t)):
+        assert torch.equal(x, y)
+
+
+def test_tensor_core_kernels_fit_without_spills(cuda):
+    """Every tensor-core kernel keeps its state in registers (no local
+    memory) and fits at least one block a SM at its launch size."""
+    from repro_torch.kernels import build
+    rows = build.extension().kernel_info()
+    names = [name for name, _ in rows]
+    assert "ce_fwd_wgmma_kernel" in names
+    assert "flash_bwd_dkdv_tc_kernel<128>" in names
+    for name, (regs, local, _, _, _, blocks) in rows:
+        assert local == 0, name
+        assert 0 < regs <= 255 and blocks >= 1, name
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
