@@ -10,7 +10,8 @@ Phases, each of which fails the run (non-zero exit, no final result line):
    one extension module by ``torch.utils.cpp_extension.load``, with its
    time and ptxas' register counts; then the CUDA runtime's registers,
    local (spill) bytes, shared memory and resident blocks a SM of each
-   tensor-core kernel (fails if one uses local memory);
+   redesigned kernel: the tensor-core flash forward and backward and CE
+   forward, the RMSNorm backward (fails if one uses local memory);
 3. kernel against plain: each kernel and its plain version on the same
    inputs, at the main paths' shapes and the sweep of tests/test_kernels.py
    (tolerance 2e-2 in bf16, 3e-5 in f32; the SSD scan 3e-2 and 3e-4), with
@@ -47,8 +48,8 @@ Phases, each of which fails the run (non-zero exit, no final result line):
    counters reset just before and read just after and held against the
    counts the code implies; losses, step time of steps 2-3, tokens/s and
    peak memory; then ``torch.profiler`` over one more (warm) step (with
-   the device time of the flash-backward and CE kernels picked out), and
-   the wall time of each half (gradients, AdamW) of another;
+   the device time of the flash, RMSNorm-backward and CE kernels picked
+   out), and the wall time of each half (gradients, AdamW) of another;
 8. end to end, training, at full width and 2 layers: one
    ``grads_and_metrics`` through the kernels against one through
    ``use_kernels=False``, loss within relative 1e-2 and every gradient leaf
@@ -856,7 +857,8 @@ def phase_training(failures: list) -> dict:
     step_fn = tstep.make_train_step(cfg, run)
     state = res.pop("state")
     row = _profile(lambda: step_fn(state, batch), top=15, ops=True,
-                   pick=("flash_bwd", "ce_fwd", "ce_merge"))
+                   pick=("flash_fwd", "flash_bwd", "rmsnorm_bwd",
+                         "rmsnorm_dw", "ce_fwd", "ce_merge"))
     # the step's two halves, each timed alone (synchronised) in one more
     # warm step
     torch.cuda.synchronize()
@@ -937,7 +939,7 @@ def main() -> int:
     ext = build.extension(verbose=True)
     log(f"build: {time.perf_counter() - t0:.2f} s")
     # registers, spills, shared memory and resident blocks a SM of the
-    # tensor-core kernels, as the CUDA runtime reports them
+    # redesigned kernels, as the CUDA runtime reports them
     kernel_info = [dict(zip(("name", "registers", "local_bytes",
                              "static_smem", "dynamic_smem", "threads",
                              "blocks_per_sm"), [name] + list(vals)))
@@ -946,7 +948,7 @@ def main() -> int:
     failures: list = []
     spilling = [k["name"] for k in kernel_info if k["local_bytes"]]
     if spilling:
-        failures.append(f"tensor-core kernels use local memory: {spilling}")
+        failures.append(f"kernels use local memory: {spilling}")
     gen = torch.Generator(device="cuda").manual_seed(0)
     t0 = time.perf_counter()
     rms_main = phase_rmsnorm(gen, failures)

@@ -23,11 +23,14 @@ extern "C" void repro_rmsnorm_fwd(const void* x, const void* w, void* y,
                                   float* inv, int rows, int D, float eps,
                                   int x_bf16, int w_bf16, int vec,
                                   cudaStream_t s);
-extern "C" int repro_rmsnorm_bwd_parts(int rows);
-extern "C" void repro_rmsnorm_bwd(const void* x, const void* w,
+extern "C" int repro_rmsnorm_bwd_parts(const void* x, const void* w,
+                                       const void* g, const void* dx,
+                                       int rows, int D, int x_bf16);
+extern "C" bool repro_rmsnorm_bwd(const void* x, const void* w,
                                   const float* inv, const void* g, void* dx,
                                   void* dw, float* part, int rows, int D,
                                   int x_bf16, int w_bf16, cudaStream_t s);
+extern "C" bool repro_rmsnorm_info(int idx, const char** name, int* out);
 
 extern "C" bool repro_flash_fwd(
     const void* q, const void* k, const void* v, void* o, float* lse, int B,
@@ -45,6 +48,8 @@ extern "C" bool repro_flash_bwd(
     long long do_sb, long long do_ss, long long do_sh, float scale,
     int causal, int q_offset, int kv_len, int window, int bf16,
     cudaStream_t s);
+extern "C" bool repro_flash_fwd_info(int idx, int D, const char** name,
+                                     int* out);
 extern "C" bool repro_flash_bwd_info(int idx, int D, const char** name,
                                      int* out);
 
@@ -88,22 +93,40 @@ void rmsnorm_fwd(const at::Tensor& x, const at::Tensor& w, at::Tensor y,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
-int64_t rmsnorm_bwd_parts(int64_t rows) {
-  return repro_rmsnorm_bwd_parts(static_cast<int>(rows));
+// Rows of the backward's f32 dw scratch for x, g, dx: (..., D) and w:
+// (D,) on x's device (their addresses pick the kernel, as in
+// rmsnorm_bwd); 0 on a CUDA error.
+int64_t rmsnorm_bwd_parts(const at::Tensor& x, const at::Tensor& w,
+                          const at::Tensor& g, const at::Tensor& dx) {
+  const c10::cuda::CUDAGuard guard(x.device());
+  const int64_t D = x.size(-1);
+  const int n = repro_rmsnorm_bwd_parts(
+      x.data_ptr(), w.data_ptr(), g.data_ptr(), dx.data_ptr(),
+      static_cast<int>(x.numel() / D), static_cast<int>(D), is_bf16(x));
+  C10_CUDA_CHECK(cudaGetLastError());
+  return n;
 }
 
 // x, g, dx: (rows, D) contiguous in x's dtype; w, dw: (D,); inv: (rows,)
-// f32; part: (rmsnorm_bwd_parts(rows), D) f32 scratch.  Writes dx, dw.
+// f32; part: (rmsnorm_bwd_parts(x, w, g, dx), D) f32 scratch.  Writes dx,
+// dw.
 void rmsnorm_bwd(const at::Tensor& x, const at::Tensor& w,
                  const at::Tensor& inv, const at::Tensor& g, at::Tensor dx,
                  at::Tensor dw, at::Tensor part) {
-  const c10::cuda::CUDAGuard guard(x.device());
   const int64_t D = x.size(-1);
-  repro_rmsnorm_bwd(x.data_ptr(), w.data_ptr(), inv.data_ptr<float>(),
-                    g.data_ptr(), dx.data_ptr(), dw.data_ptr(),
-                    part.data_ptr<float>(), static_cast<int>(x.numel() / D),
-                    static_cast<int>(D), is_bf16(x), is_bf16(w),
-                    at::cuda::getCurrentCUDAStream());
+  const int64_t n_part = rmsnorm_bwd_parts(x, w, g, dx);
+  TORCH_CHECK(n_part > 0 && part.dim() == 2 && part.size(0) == n_part &&
+                  part.size(1) == D && part.is_contiguous() &&
+                  part.scalar_type() == at::kFloat,
+              "rmsnorm_bwd: part must be contiguous f32 (", n_part, ", ", D,
+              ")");
+  const c10::cuda::CUDAGuard guard(x.device());
+  const bool launched = repro_rmsnorm_bwd(
+      x.data_ptr(), w.data_ptr(), inv.data_ptr<float>(), g.data_ptr(),
+      dx.data_ptr(), dw.data_ptr(), part.data_ptr<float>(),
+      static_cast<int>(x.numel() / D), static_cast<int>(D), is_bf16(x),
+      is_bf16(w), at::cuda::getCurrentCUDAStream());
+  TORCH_CHECK(launched, "rmsnorm_bwd: no launch (CUDA error) for D ", D);
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
@@ -196,8 +219,9 @@ void ssd_fwd(const at::Tensor& x, const at::Tensor& dt, const at::Tensor& A,
 }
 
 // (name, [registers, local bytes, static smem, dynamic smem, threads,
-// blocks a SM]) of each tensor-core kernel: the flash backward's at every
-// head_dim (name suffix <D>), then the CE forward's.
+// blocks a SM]) of the kernels redesigned for the card: the bf16 flash
+// forward and backward at every head_dim (name suffix <D>), the CE
+// forward, and the RMSNorm backward's two passes at each instantiation.
 std::vector<std::pair<std::string, std::vector<int64_t>>> kernel_info() {
   const c10::cuda::CUDAGuard guard(at::cuda::current_device());
   std::vector<std::pair<std::string, std::vector<int64_t>>> rows;
@@ -206,10 +230,14 @@ std::vector<std::pair<std::string, std::vector<int64_t>>> kernel_info() {
   auto add = [&](const std::string& n) {
     rows.emplace_back(n, std::vector<int64_t>(out, out + 6));
   };
-  for (int D : {16, 32, 64, 128})
+  for (int D : {16, 32, 64, 128}) {
+    for (int idx = 0; repro_flash_fwd_info(idx, D, &name, out); ++idx)
+      add(std::string(name) + "<" + std::to_string(D) + ">");
     for (int idx = 0; repro_flash_bwd_info(idx, D, &name, out); ++idx)
       add(std::string(name) + "<" + std::to_string(D) + ">");
+  }
   for (int idx = 0; repro_ce_info(idx, &name, out); ++idx) add(name);
+  for (int idx = 0; repro_rmsnorm_info(idx, &name, out); ++idx) add(name);
   C10_CUDA_CHECK(cudaGetLastError());
   return rows;
 }
@@ -227,6 +255,6 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("ce_fwd", &ce_fwd, "blockwise cross-entropy forward into nll, lse");
   m.def("ssd_fwd", &ssd_fwd, "Mamba2 SSD chunked scan into y and hout");
   m.def("kernel_info", &kernel_info,
-        "registers, spills, shared memory and occupancy of the tensor-core "
+        "registers, spills, shared memory and occupancy of the redesigned "
         "kernels");
 }

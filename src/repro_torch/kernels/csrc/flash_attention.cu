@@ -1,39 +1,58 @@
 // Flash-attention forward and backward for Hopper (sm_90a).  Plain CUDA
 // with C entry points: bindings.cpp launches them and checks the launches.
 //
-// Replaces the TPU kernel repro/kernels/flash_attention.py::
-// flash_attention_pallas (body _flash_kernel): online-softmax attention
-// with GQA (q head h reads kv head h / G), masks built from indices
-// (k_pos < kv_len, causal k_pos <= q_offset + q_pos, sliding window
-// k_pos > q_pos - window) and out = acc / max(l, 1e-30).
-//
-// Bound on the card.  The work is 4*B*Hq*Sq*Sk_valid*D FLOPs (about half
-// of the full product under a causal mask) against reading q, k, v and
-// writing out once (K and V only over the rows some query can see).  At
-// the yi-6b prefill shape (B=4, Sq=512, kv_len=512, 32/4 heads, D=128)
-// the two bounds are close: 8.6 GFLOP is 8.7 us at the bf16 tensor-core
-// peak and 37.7 MB is 11.3 us at HBM rate.  This first version
-// is a simple, exact one: the products run as f32 FMAs on the CUDA cores
-// (no tensor cores, no TF32), so it is limited by FMA throughput far
-// above either bound; wgmma, TMA and tuning are later work.
-//
-// Design.  The TPU kernel carries (m, l, acc) in VMEM scratch across a
-// sequential KV grid axis; here one thread block owns one (batch, q head,
-// 64-row q tile) and loops over 64-key K/V tiles itself.  q, k and v are
-// read in the (B, S, H, D) layout through strides, so nothing is
-// transposed.  Q (pre-scaled, as the reference scales it) and one K or V
-// tile at a time sit in shared memory as f32 with rows padded to D + 1,
-// which keeps the 16x16 thread layout free of bank conflicts.  Each
-// thread owns a 4x4 block of scores and 4 rows x D/16 columns of the
-// accumulator; row max and row sum are reduced with shuffles over the 16
-// threads of a row.  K tiles wholly beyond kv_len, above the causal
-// diagonal or before the sliding window are skipped: that changes no row
-// with at least one valid key.  A row with no valid key at all comes out
-// as the mean of V over the tiles the block visits (zero if it visits
-// none), where the references average over every cached position.
-// When asked (training), the forward also writes the f32 row statistic
+// Forward: replaces the TPU kernel repro/kernels/flash_attention.py:80
+// flash_attention_pallas (body _flash_kernel, :33): online-softmax
+// attention with GQA (q head h reads kv head h / G), masks built from
+// indices (k_pos < kv_len, causal k_pos <= q_offset + q_pos, sliding
+// window k_pos > q_pos - window) and out = acc / max(l, 1e-30).  When
+// asked (training), it also writes the f32 row statistic
 // lse = m + log(max(l, 1e-30)) as (B, Sq, Hq); serving passes no buffer
 // and pays nothing.
+//
+// Bound on the card.  The work is 4*B*Hq*pairs*D FLOPs over the visible
+// (query, key) pairs (about half the full product under a causal mask)
+// against reading q, k, v and writing out (and lse) once, K and V only
+// over the rows some query can see.  At the three main-path shapes:
+//   yi-6b training, B=4, S=512, 32/4 heads of 128, causal: 8.6 GFLOP
+//     (8.7 us at the bf16 tensor-core peak) vs 38 MB (11.4 us): bytes;
+//   yi-6b prefill, the same over a 552-row cache with kv_len 512: the
+//     same, 11.3 us, bytes;
+//   zamba2-1.2b prefill, B=4, Sq=2048 over a 2088-row cache, kv_len
+//     2048, 32/32 heads of 64: 68.7 GFLOP (69.5 us) vs 134 MB (40 us):
+//     operations.
+// So the forward has to run its products on the tensor cores; on the
+// CUDA cores' f32 FMAs (the f32 kernel below) it runs 40x its bound.
+//
+// bf16 (the main path): tensor cores, FA2-style.  One block of 4 warps
+// per (b, q head, 64-row q tile), heaviest causal tiles launched first;
+// each warp owns 16 q rows.  Q is copied once (cp.async) into a swizzled
+// bf16 tile (tc.cuh) and kept as mma.sync A fragments in registers.  K
+// and V walk a double-buffered cp.async ring of 64-key steps: step t + 1
+// (K and V both) is issued before step t multiplies.  S = Q K^T runs as
+// mma.sync.m16n8k16 (bf16 in, f32 sums) from ldmatrix B fragments of the
+// [key][d] K tile; S is scaled in f32 (q is not pre-scaled in bf16:
+// 128^-0.5 is no power of two) with log2(e) folded in, for ex2.approx.  The
+// online softmax works on the C fragments: row max and the rescale per
+// row (the 4 lanes of a row reduce with shuffles), the row sum kept per
+// lane and reduced once at the end.  P is rounded to bf16 straight from
+// the C fragments into the A fragments of O += P V (tc::pack_a), with V's
+// B fragments read by ldmatrix.trans from the [key][d] tile; O stays in
+// f32 registers (64 a thread at D = 128).  Masks come from indices and
+// are applied only on steps that straddle a boundary for the warp's rows.
+//
+// Skipped steps and fully masked rows.  Key steps that no row of the
+// block can see (wholly beyond kv_len, above the causal diagonal or
+// before the sliding window) are skipped: that changes no row with at
+// least one valid key.  A row with no valid key at all comes out as the
+// mean of V over the steps the block visits (zero if it visits none),
+// where the references average over every cached position; serving and
+// training never make one.
+//
+// f32 (the 3e-5 sweeps, no main path): f32 FMAs on the CUDA cores from
+// f32 tiles padded to D + 1 (TF32 cannot meet 3e-5): Q pre-scaled, one
+// K or V tile at a time in shared memory, each thread a 4x4 block of
+// scores and 4 rows x D/16 columns of the accumulator.
 //
 // Backward: the twin of repro/kernels/ref.py::_flash_bwd_inner (the JAX
 // package has no Pallas backward).  With p = exp(s - lse) recomputed per
@@ -52,11 +71,11 @@
 // ldmatrix from bf16 tiles in shared memory (swizzled, tc.cuh) that
 // cp.async loads through a ring (4 steps deep for dk/dv, lse and delta
 // included; double-buffered for dq), so the next steps load while one
-// multiplies.  S is scaled in f32 (q is not pre-scaled in bf16: 128^-0.5
-// is no power of two); P = exp(S - lse) and dS = P * (dP - delta) are
-// formed in f32 registers and rounded to bf16 only as operands of the
-// dV, dK and dQ products, straight from the C fragments (no trip
-// through shared memory); dK and dQ are scaled in f32 at the end.
+// multiplies.  S is scaled in f32; P = exp(S - lse) and dS = P * (dP -
+// delta) are formed in f32 registers and rounded to bf16 only as
+// operands of the dV, dK and dQ products, straight from the C fragments
+// (no trip through shared memory); dK and dQ are scaled in f32 at the
+// end.
 //   1. delta, one warp per (b, q row, q head);
 //   2. dk, dv: a cluster of C blocks of 4 warps per (64-key tile, kv
 //      head, b), C the largest divisor of G up to 8 (the portable cluster
@@ -75,10 +94,10 @@
 //   3. dq: one block of 4 warps per (64-row q tile, q head, b) walks the
 //      64-key steps its rows can see; each warp owns 16 q rows.
 //
-// f32 (the 3e-5 sweeps, no main path): f32 FMAs on the CUDA cores over
-// f32 tiles padded to D + 1; TF32 cannot meet 3e-5.
-// Three kernels: delta; dk/dv with one block per (key tile, kv head, b)
-// looping over its G q heads; dq as above.
+// f32 backward (the 3e-5 sweeps, no main path): f32 FMAs on the CUDA
+// cores over f32 tiles padded to D + 1.  Three kernels: delta; dk/dv with
+// one block per (key tile, kv head, b) looping over its G q heads; dq as
+// above.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -930,34 +949,217 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <typename T, int D>
-void launch(const void* q, const void* k, const void* v, void* o,
-            float* lse, int B, int Sq, int Sk, int Hq, int Hkv, Strides qs,
-            Strides ks, Strides vs, Strides os, float scale, int causal,
-            int q_offset, int kv_len, int window, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
-  // Raise the dynamic shared-memory limit once per instantiation (a
-  // repeated call would be harmless), so that launches captured into a
-  // CUDA graph make no other API call.  A failure is left to
-  // cudaGetLastError, like a failed launch.
-  static bool configured = false;
-  if (!configured) {
-    if (cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem) != cudaSuccess)
-      return;
-    configured = true;
+// ---------------------------------------------------------------------------
+// Forward on tensor cores (bf16)
+// ---------------------------------------------------------------------------
+
+constexpr int kFwdQ = 64;       // q rows of a block, 16 a warp
+constexpr int kFwdK = 64;       // keys of one step
+constexpr int kFwdStages = 2;   // ring depth of the K/V steps
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+// The masked score in log2 units: kNegInf in natural units, so that the
+// lse of a row with no valid key stays about kNegInf, as the f32 kernel
+// writes it.
+constexpr float kMaskLog2 = kNegInf * kLog2e;
+
+// 2^x by the SFU (ex2.approx: relative error about 2^-22; results below
+// 2^-126 flush to zero, which only ever rounds a vanishing p).
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// A ring of K and V steps; Q is staged in the K slot of the last stage
+// (first filled once Q's fragments are in registers).
+template <int D>
+constexpr size_t tc_fwd_smem() {
+  static_assert(kFwdQ <= kFwdK, "Q fits a K slot");
+  return sizeof(bf16) * (size_t)(2 * kFwdStages * kFwdK * D);
+}
+
+// o (B, Sq, Hq, D) bf16 (4-byte aligned rows) and lse of one 64-row q
+// tile of one q head.
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 2)
+flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, bf16* __restrict__ o,
+                    float* __restrict__ lse, int Sq, int Sk, int G,
+                    Strides qs, Strides ks, Strides vs, Strides os,
+                    float scale, int causal, int q_offset, int kv_len,
+                    int window) {
+  constexpr int NB = D / 8;       // n8 blocks of the output
+  constexpr int KB = kFwdK / 8;   // n8 blocks of a key step
+  constexpr int KD = D / 16;      // k16 steps over D
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  bf16* sK = reinterpret_cast<bf16*>(smem_raw);  // ring of kFwdK x D
+  bf16* sV = sK + kFwdStages * kFwdK * D;        // ring of kFwdK x D
+  bf16* sQ = sK + (kFwdStages - 1) * kFwdK * D;  // last stage's K slot
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  // the q tiles with the most causal key steps start first
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kFwdQ;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int Hq = gridDim.y, hk = h / G;
+  const bf16* kb = k + b * ks.b + hk * ks.h;
+  const bf16* vb = v + b * vs.b + hk * vs.h;
+  const int qrow = warp * 16;                  // this warp's rows
+  const int qw = q_offset + q0 + qrow;         // position of its first
+  const float sl2 = scale * kLog2e;
+
+  // Key range any row of this tile can see (as in the f32 kernel).
+  const int q_first = q_offset + q0;
+  const int q_last = q_offset + min(q0 + kFwdQ, Sq) - 1;
+  int k_end = kv_len;
+  if (causal) k_end = min(k_end, q_last + 1);
+  const int k_begin = window > 0 ? max(0, q_first - window + 1) : 0;
+  const int t_begin = k_begin / kFwdK;
+  const int t_end = k_end > 0 ? (k_end + kFwdK - 1) / kFwdK : 0;
+
+  // rows g and g + 8 of the warp: running max (log2 units), this lane's
+  // share of the row sum, and the f32 output accumulator
+  float m[2] = {kMaskLog2, kMaskLog2}, l[2] = {0.f, 0.f};
+  float acc[NB][4];
+#pragma unroll
+  for (int n = 0; n < NB; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
+  uint32_t qa[KD][4];
+
+  auto load_step = [&](int tk, int buf) {
+    tc::load_tile_async<kFwdK, D, kTcThreads>(sK + buf * kFwdK * D, kb, ks.s,
+                                              tk * kFwdK, Sk);
+    tc::load_tile_async<kFwdK, D, kTcThreads>(sV + buf * kFwdK * D, vb, vs.s,
+                                              tk * kFwdK, Sk);
+  };
+  if (t_begin < t_end)
+    tc::load_tile_async<kFwdQ, D, kTcThreads>(sQ, q + b * qs.b + h * qs.h,
+                                              qs.s, q0, Sq);
+#pragma unroll
+  for (int i = 0; i < kFwdStages - 1; ++i) {  // Q joins the first
+    if (t_begin + i < t_end) load_step(t_begin + i, i);
+    tc::cp_async_commit();
   }
-  dim3 grid((Sq + kBQ - 1) / kBQ, Hq, B);
-  flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, Sq, Sk, Hq / Hkv,
-      qs, ks, vs, os, scale, causal, q_offset, kv_len, window);
+  for (int tk = t_begin; tk < t_end; ++tk) {
+    const int buf = (tk - t_begin) % kFwdStages;
+    tc::cp_async_wait<kFwdStages - 2>();
+    __syncthreads();  // step tk landed; step tk - 1's slot is free
+    if (tk == t_begin) {
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) tc::load_a<D>(qa[kk], sQ, qrow, kk * 16);
+      __syncthreads();  // Q is in registers before a step lands on it
+    }
+    const int nx = tk + kFwdStages - 1;
+    if (nx < t_end) load_step(nx, (nx - t_begin) % kFwdStages);
+    tc::cp_async_commit();
+    const bf16* cK = sK + buf * kFwdK * D;
+    const bf16* cV = sV + buf * kFwdK * D;
+
+    // S = Q K^T: 16 q rows x 64 keys a warp
+    float s[KB][4];
+#pragma unroll
+    for (int j = 0; j < KB; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[j][i] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk)
+#pragma unroll
+      for (int np = 0; np < KB / 2; ++np) {
+        uint32_t bk[4];
+        tc::load_b_nk<D>(bk, cK, np * 16, kk * 16);
+        tc::mma(s[2 * np], qa[kk], bk[0], bk[1]);
+        tc::mma(s[2 * np + 1], qa[kk], bk[2], bk[3]);
+      }
+
+    // scaled to log2 units in f32; the mask only where the step straddles
+    // a boundary of the warp's rows
+    const int kbase = tk * kFwdK;
+    const bool whole = kbase + kFwdK <= kv_len &&
+                       (!causal || kbase + kFwdK - 1 <= qw) &&
+                       (window <= 0 || kbase > qw + 15 - window);
+#pragma unroll
+    for (int j = 0; j < KB; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float x = s[j][i] * sl2;
+        if (!whole) {
+          const int kp = kbase + j * 8 + 2 * t + (i & 1);
+          const int qp = qw + g + (i >> 1) * 8;
+          if (!(kp < kv_len && (!causal || kp <= qp) &&
+                (window <= 0 || kp > qp - window)))
+            x = kMaskLog2;
+        }
+        s[j][i] = x;
+      }
+
+    // online softmax on the C fragments, P in place of S
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = m[r];
+#pragma unroll
+      for (int j = 0; j < KB; ++j)
+        mx = fmaxf(mx, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float alpha = exp2_approx(m[r] - mx);
+      m[r] = mx;
+      float ps = 0.f;
+#pragma unroll
+      for (int j = 0; j < KB; ++j)
+#pragma unroll
+        for (int i = 2 * r; i < 2 * r + 2; ++i) {
+          s[j][i] = exp2_approx(s[j][i] - mx);
+          ps += s[j][i];
+        }
+      l[r] = l[r] * alpha + ps;
+#pragma unroll
+      for (int n = 0; n < NB; ++n) {
+        acc[n][2 * r] *= alpha;
+        acc[n][2 * r + 1] *= alpha;
+      }
+    }
+
+    // O += P V (A operand from registers, in bf16)
+#pragma unroll
+    for (int kq = 0; kq < KB / 2; ++kq) {
+      uint32_t ap[4];
+      tc::pack_a(ap, s[2 * kq], s[2 * kq + 1]);
+#pragma unroll
+      for (int nd = 0; nd < D / 16; ++nd) {
+        uint32_t bv[4];
+        tc::load_b_kn<D>(bv, cV, kq * 16, nd * 16);
+        tc::mma(acc[2 * nd], ap, bv[0], bv[1]);
+        tc::mma(acc[2 * nd + 1], ap, bv[2], bv[3]);
+      }
+    }
+  }
+  tc::cp_async_wait<0>();  // no copy outlives the block
+
+  bf16* ob = o + b * os.b + h * os.h;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float lr = l[r];
+    lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+    lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+    const float den = fmaxf(lr, 1e-30f), rden = 1.f / den;
+    const int qi = q0 + qrow + g + r * 8;
+    if (qi >= Sq) continue;
+    bf16* orow = ob + (long long)qi * os.s + 2 * t;
+#pragma unroll
+    for (int n = 0; n < NB; ++n)
+      *reinterpret_cast<uint32_t*>(orow + n * 8) =
+          tc::pack_bf16(acc[n][2 * r] * rden, acc[n][2 * r + 1] * rden);
+    if (lse != nullptr && t == 0)
+      lse[((long long)b * Sq + qi) * Hq + h] = m[r] * kLn2 + logf(den);
+  }
 }
 
 // Raises a kernel's dynamic shared-memory limit once per instantiation of
-// the caller (see launch above).  Returns false if that failed; the error
-// is left to cudaGetLastError.
+// the caller, so that launches captured into a CUDA graph make no other
+// API call (a repeated call would be harmless).  Returns false if that
+// failed; the error is left to cudaGetLastError, like a failed launch.
 template <typename K>
 bool allow_smem(K kernel, size_t smem, bool* configured) {
   if (!*configured) {
@@ -968,6 +1170,49 @@ bool allow_smem(K kernel, size_t smem, bool* configured) {
     *configured = true;
   }
   return true;
+}
+
+// The bf16 forward: tensor cores.
+template <int D>
+void launch_fwd_typed(const bf16* q, const bf16* k, const bf16* v, bf16* o,
+                      float* lse, int B, int Sq, int Sk, int Hq, int Hkv,
+                      Strides qs, Strides ks, Strides vs, Strides os,
+                      float scale, int causal, int q_offset, int kv_len,
+                      int window, cudaStream_t stream) {
+  static bool configured = false;
+  constexpr size_t smem = tc_fwd_smem<D>();
+  if (!allow_smem(flash_fwd_tc_kernel<D>, smem, &configured)) return;
+  dim3 grid((Sq + kFwdQ - 1) / kFwdQ, Hq, B);
+  flash_fwd_tc_kernel<D><<<grid, kTcThreads, smem, stream>>>(
+      q, k, v, o, lse, Sq, Sk, Hq / Hkv, qs, ks, vs, os, scale, causal,
+      q_offset, kv_len, window);
+}
+
+// The f32 forward on the CUDA cores.
+template <int D>
+void launch_fwd_typed(const float* q, const float* k, const float* v,
+                      float* o, float* lse, int B, int Sq, int Sk, int Hq,
+                      int Hkv, Strides qs, Strides ks, Strides vs,
+                      Strides os, float scale, int causal, int q_offset,
+                      int kv_len, int window, cudaStream_t stream) {
+  static bool configured = false;
+  constexpr size_t smem = smem_bytes<D>();
+  if (!allow_smem(flash_fwd_kernel<float, D>, smem, &configured)) return;
+  dim3 grid((Sq + kBQ - 1) / kBQ, Hq, B);
+  flash_fwd_kernel<float, D><<<grid, kThreads, smem, stream>>>(
+      q, k, v, o, lse, Sq, Sk, Hq / Hkv, qs, ks, vs, os, scale, causal,
+      q_offset, kv_len, window);
+}
+
+template <typename T, int D>
+void launch(const void* q, const void* k, const void* v, void* o,
+            float* lse, int B, int Sq, int Sk, int Hq, int Hkv, Strides qs,
+            Strides ks, Strides vs, Strides os, float scale, int causal,
+            int q_offset, int kv_len, int window, cudaStream_t stream) {
+  launch_fwd_typed<D>(static_cast<const T*>(q), static_cast<const T*>(k),
+                      static_cast<const T*>(v), static_cast<T*>(o), lse, B,
+                      Sq, Sk, Hq, Hkv, qs, ks, vs, os, scale, causal,
+                      q_offset, kv_len, window, stream);
 }
 
 // Largest divisor of G that is at most 8, the portable cluster size.
@@ -1114,6 +1359,14 @@ bool dispatch_bwd_d(int D, const void* q, const void* k, const void* v,
 }
 
 template <int D>
+bool fwd_info(int idx, const char** name, int* out) {
+  if (idx != 0) return false;
+  *name = "flash_fwd_tc_kernel";
+  return tc::kernel_info(flash_fwd_tc_kernel<D>, kTcThreads, tc_fwd_smem<D>(),
+                         out);
+}
+
+template <int D>
 bool bwd_info(int idx, const char** name, int* out) {
   switch (idx) {
     case 0:
@@ -1133,7 +1386,9 @@ bool bwd_info(int idx, const char** name, int* out) {
 
 // q: (B, Sq, Hq, D), k/v: (B, Sk, Hkv, D), o: (B, Sq, Hq, D), each with a
 // contiguous D axis and the given element strides for (batch, seq, head).
-// bf16 != 0 selects bf16 tensors, else f32.  Requires 0 <= kv_len <= Sk.
+// bf16 != 0 selects bf16 tensors, else f32 (bf16: q, k, v 16-byte
+// aligned with strides a multiple of 8, o 4-byte aligned with even
+// strides).  Requires 0 <= kv_len <= Sk.
 // lse: (B, Sq, Hq) f32 contiguous, or null to skip it.  Launches on
 // `stream` and leaves the launch's error to cudaGetLastError; returns
 // false, launching nothing, when D is not 16, 32, 64 or 128.
@@ -1195,6 +1450,21 @@ extern "C" bool repro_flash_bwd_info(int idx, int D, const char** name,
     case 32: return bwd_info<32>(idx, name, out);
     case 64: return bwd_info<64>(idx, name, out);
     case 128: return bwd_info<128>(idx, name, out);
+    default: return false;
+  }
+}
+
+// Facts about the bf16 forward kernel at head_dim D, for reports: idx 0
+// only.  Writes the kernel's name and out[0..5] (tc::kernel_info).
+// Returns false past the last kernel, for a D without an instantiation,
+// or on a CUDA error.
+extern "C" bool repro_flash_fwd_info(int idx, int D, const char** name,
+                                     int* out) {
+  switch (D) {
+    case 16: return fwd_info<16>(idx, name, out);
+    case 32: return fwd_info<32>(idx, name, out);
+    case 64: return fwd_info<64>(idx, name, out);
+    case 128: return fwd_info<128>(idx, name, out);
     default: return false;
   }
 }

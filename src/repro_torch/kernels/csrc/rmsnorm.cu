@@ -4,33 +4,53 @@
 // Forward replaces the TPU kernel repro/kernels/rmsnorm.py::rmsnorm_pallas
 // (body _rmsnorm_kernel): y = x * rsqrt(mean(x^2) + eps) * w, math in
 // f32, output in the input dtype; on request it also writes the per-row
-// f32 inv = rsqrt(mean(x^2) + eps) that the backward reads.
+// f32 inv = rsqrt(mean(x^2) + eps) that the backward reads.  Bound on the
+// card: bytes.  Each row is read and written once (plus the D-wide weight
+// vector, which stays in L1/L2), so the least time is rows * D * (in +
+// out bytes) over HBM bandwidth.  The design keeps to that: one thread
+// block per row, 16-byte vector loads and stores where the row allows
+// them, the f32 sum of squares reduced with warp shuffles and one
+// shared-memory step.  The second read of the row, for the output, hits
+// L1/L2 (a 4096-wide bf16 row is 8 KB).
 //
 // Backward is the twin of repro/kernels/ref.py::_rmsnorm_vjp_bwd (the JAX
 // package has no Pallas backward): with xhat = x * inv,
 //   dx = inv * (g*w - xhat * mean(g*w*xhat))   per row,
 //   dw = sum over rows of g * xhat.
-// It is bound by bytes too: x and g are read once and dx written once.
-// dx is one block per 8 rows; dw, a sum across blocks, is kept as one f32
-// partial row per block in shared memory, written out, and summed over
-// the blocks by a second small kernel, so no float atomics are needed
-// and the result is the same on every run.
-//
-// Bound on the card: bytes.  Each row is read and written once (plus the
-// D-wide weight vector, which stays in L1/L2), so the least time is
-// rows * D * (in + out bytes) over HBM bandwidth.  The design keeps to
-// that: one thread block per row, 16-byte vector loads and stores where
-// the row allows them, the f32 sum of squares reduced with warp shuffles
-// and one shared-memory step.  The second read of the row, for the
-// output, hits L1/L2 (a 4096-wide bf16 row is 8 KB).
+// Bound on the card: bytes, x and g read once and dx written once (at
+// (2048, 4096) bf16: 50 MB, 15.0 us at HBM rate).  Design: a fixed grid
+// of a few blocks a SM (bwd_plan, from the occupancy query and the SM
+// count) walks the rows with a stride of the grid, so no tail wave is
+// half empty.  Where D splits into at most 4 16-byte vectors a thread
+// (bf16 D <= 8192, f32 D <= 4096, every model width) and the operands are
+// 16-byte aligned, a thread keeps its columns of a group of rows in
+// registers and loads the next group while it works on this one; one
+// block reduction per group, then dx from registers: each row is read
+// once.  The thread's columns are fixed, so its share of dw sums in f32
+// registers; each block writes one f32 partial row (grid x D, a few MB,
+// which stay in L2), and a second kernel sums them in a fixed order, a
+// block per 32 columns with its warps splitting the partial rows.  Every
+// other D or alignment takes a scalar path over the same grid, which
+// reads a row twice and sums dw in the block's partial row.  No float
+// atomics: the same bits on every run.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+#include <cstdio>
+#include <type_traits>
+
+#include "tc.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kRowsPerBlock = 8;  // backward: rows per block
+constexpr int kBwdBlocksPerSm = 2;  // backward: most blocks a SM
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -55,20 +75,6 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 // vec != 0: D is a multiple of the 16-byte vector width and x, y are
 // 16-byte aligned (checked by the caller).
-// Sum of v over the block's threads, returned to every thread.  `red`
-// holds kThreads / 32 floats; the call ends with a barrier so `red` may be
-// reused right after.
-__device__ __forceinline__ float block_sum(float v, float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  v = warp_sum(v);
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  float t = lane < kThreads / 32 ? red[lane] : 0.f;
-  t = warp_sum(t);
-  __syncthreads();
-  return t;
-}
-
 template <typename TX, typename TW>
 __global__ void __launch_bounds__(kThreads)
 rmsnorm_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
@@ -127,52 +133,332 @@ rmsnorm_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
   }
 }
 
-// Backward, first pass: one block per kRowsPerBlock rows.  Writes dx
-// (x's dtype) and the block's f32 partial of dw into part[blockIdx.x].
-// Dynamic shared memory: D floats for the dw partial.
-template <typename TX, typename TW>
+// Backward, vector path.  One thread's share of a row: slot j covers
+// columns (j * kThreads + threadIdx.x) * V .. + V - 1, V = 8 bf16 or 4 f32
+// values loaded as one 16-byte vector.
+template <typename TX>
+struct Slot {
+  static constexpr int V = 16 / sizeof(TX);
+  uint4 raw;
+  __device__ __forceinline__ void load(const TX* p) {
+    raw = *reinterpret_cast<const uint4*>(p);
+  }
+  __device__ __forceinline__ float get(int i) const {
+    return to_f32(reinterpret_cast<const TX*>(&raw)[i]);
+  }
+  static __device__ __forceinline__ void store(TX* p, const float (&f)[V]) {
+    uint4 out;
+    TX* e = reinterpret_cast<TX*>(&out);
+#pragma unroll
+    for (int i = 0; i < V; ++i) e[i] = from_f32<TX>(f[i]);
+    *reinterpret_cast<uint4*>(p) = out;
+  }
+};
+
+// V values of w from column c on, as f32: bf16 if w_bf16, else f32; one
+// vector load (through L1, where w stays) when V > 1, which needs w
+// 16-byte aligned.
+template <int V>
+__device__ __forceinline__ void load_w(const void* w, int w_bf16, int c,
+                                       float (&f)[V]) {
+  if (w_bf16) {
+    const __nv_bfloat16* p = static_cast<const __nv_bfloat16*>(w) + c;
+    if constexpr (V == 8) {
+      const uint4 r = __ldg(reinterpret_cast<const uint4*>(p));
+      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&r);
+#pragma unroll
+      for (int i = 0; i < V; ++i) f[i] = to_f32(e[i]);
+    } else if constexpr (V == 4) {
+      const uint2 r = __ldg(reinterpret_cast<const uint2*>(p));
+      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&r);
+#pragma unroll
+      for (int i = 0; i < V; ++i) f[i] = to_f32(e[i]);
+    } else {
+      f[0] = to_f32(p[0]);
+    }
+  } else {
+    const float* p = static_cast<const float*>(w) + c;
+    if constexpr (V % 4 == 0) {
+#pragma unroll
+      for (int i = 0; i < V; i += 4) {
+        const float4 r = __ldg(reinterpret_cast<const float4*>(p + i));
+        f[i] = r.x;
+        f[i + 1] = r.y;
+        f[i + 2] = r.z;
+        f[i + 3] = r.w;
+      }
+    } else {
+      f[0] = p[0];
+    }
+  }
+}
+
+// Sums of v[0..R-1] over the block's threads, returned to every thread
+// (each thread adds the warps' sums in the same order).  `red` holds R x
+// kThreads / 32 floats; the call ends with a barrier, so `red` may be
+// reused right after.
+template <int R>
+__device__ __forceinline__ void block_sums(float (&v)[R],
+                                           float (*red)[kThreads / 32]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const float t = warp_sum(v[r]);
+    if (lane == 0) red[r][warp] = t;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    float t = 0.f;
+#pragma unroll
+    for (int w = 0; w < kThreads / 32; ++w) t += red[r][w];
+    v[r] = t;
+  }
+  __syncthreads();
+}
+
+// Backward, first pass, vector path: D a multiple of V, x, g, dx and w
+// 16-byte aligned, and NV in {1, 2, 4} slots a thread (bf16 D <= 8192,
+// f32 D <= 4096).  A fixed grid of blocks (bwd_plan) walks groups of R =
+// 4 / NV rows, block b taking groups b, b + gridDim.x, ...  Each thread
+// holds its NV slots of the group's R rows in registers (16 of x and g)
+// while the next group's rows load, so x and g are read once; one block
+// reduction gives the R sums of g*w*xhat, then dx is written from
+// registers.  The thread's columns are fixed, so its dw share sums in f32
+// registers; at the end the block writes it as the f32 partial row
+// part[blockIdx.x].  w (bf16 if w_bf16, else f32) is read through L1.
+template <typename TX, int NV>
 __global__ void __launch_bounds__(kThreads)
-rmsnorm_bwd_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
-                   const float* __restrict__ inv, const TX* __restrict__ g,
-                   TX* __restrict__ dx, float* __restrict__ part, int rows,
-                   int D) {
-  extern __shared__ float dw_acc[];
-  __shared__ float red[kThreads / 32];
-  for (int i = threadIdx.x; i < D; i += kThreads) dw_acc[i] = 0.f;
-  const int r0 = blockIdx.x * kRowsPerBlock;
-  const int r1 = min(r0 + kRowsPerBlock, rows);
-  for (int r = r0; r < r1; ++r) {
-    const TX* xr = x + (size_t)r * D;
-    const TX* gr = g + (size_t)r * D;
-    const float iv = inv[r];
-    float s = 0.f;  // sum over the row of g*w*xhat
-    for (int i = threadIdx.x; i < D; i += kThreads)
-      s = fmaf(to_f32(gr[i]) * to_f32(w[i]), to_f32(xr[i]) * iv, s);
-    const float mean = block_sum(s, red) / (float)D;
-    TX* dxr = dx + (size_t)r * D;
-    for (int i = threadIdx.x; i < D; i += kThreads) {
-      const float xh = to_f32(xr[i]) * iv;
-      const float gv = to_f32(gr[i]);
-      dxr[i] = from_f32<TX>(iv * (gv * to_f32(w[i]) - xh * mean));
-      dw_acc[i] = fmaf(gv, xh, dw_acc[i]);  // only this thread's columns
+rmsnorm_bwd_kernel(const TX* __restrict__ x, const void* __restrict__ w,
+                   int w_bf16, const float* __restrict__ inv,
+                   const TX* __restrict__ g, TX* __restrict__ dx,
+                   float* __restrict__ part, int rows, int D) {
+  using S = Slot<TX>;
+  constexpr int V = S::V;
+  constexpr int R = 4 / NV;
+  __shared__ float red[R][kThreads / 32];
+  float dwa[NV][V];
+  bool has[NV];
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    has[j] = (j * kThreads + threadIdx.x) * V < D;
+#pragma unroll
+    for (int i = 0; i < V; ++i) dwa[j][i] = 0.f;
+  }
+  S xs[R][NV], gs[R][NV];
+  float iv[R];
+  auto load_group = [&](int r0, S (&xr)[R][NV], S (&gr)[R][NV],
+                        float (&ir)[R]) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      ir[r] = r0 + r < rows ? inv[r0 + r] : 0.f;
+#pragma unroll
+      for (int j = 0; j < NV; ++j)
+        if (has[j] && r0 + r < rows) {
+          const size_t o =
+              (size_t)(r0 + r) * D + (j * kThreads + threadIdx.x) * V;
+          xr[r][j].load(x + o);
+          gr[r][j].load(g + o);
+        }
+    }
+  };
+  if (blockIdx.x * R < rows) load_group(blockIdx.x * R, xs, gs, iv);
+  for (int r0 = blockIdx.x * R; r0 < rows; r0 += gridDim.x * R) {
+    const int rn = r0 + gridDim.x * R;
+    S xn[R][NV], gn[R][NV];
+    float ivn[R];
+    if (rn < rows) load_group(rn, xn, gn, ivn);  // in flight
+    float s[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) s[r] = 0.f;  // shares of sum(g*w*xhat)
+#pragma unroll
+    for (int j = 0; j < NV; ++j)
+      if (has[j]) {
+        float wv[V];
+        load_w<V>(w, w_bf16, (j * kThreads + threadIdx.x) * V, wv);
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+          if (r0 + r < rows)
+#pragma unroll
+            for (int i = 0; i < V; ++i)
+              s[r] = fmaf(gs[r][j].get(i) * wv[i], xs[r][j].get(i) * iv[r],
+                          s[r]);
+      }
+    block_sums<R>(s, red);
+#pragma unroll
+    for (int j = 0; j < NV; ++j)
+      if (has[j]) {
+        const int c = (j * kThreads + threadIdx.x) * V;
+        float wv[V];
+        load_w<V>(w, w_bf16, c, wv);
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+          if (r0 + r < rows) {
+            const float mean = s[r] / (float)D;
+            float out[V];
+#pragma unroll
+            for (int i = 0; i < V; ++i) {
+              const float xh = xs[r][j].get(i) * iv[r];
+              const float gv = gs[r][j].get(i);
+              out[i] = iv[r] * (gv * wv[i] - xh * mean);
+              dwa[j][i] = fmaf(gv, xh, dwa[j][i]);
+            }
+            S::store(dx + (size_t)(r0 + r) * D + c, out);
+          }
+      }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      iv[r] = ivn[r];
+#pragma unroll
+      for (int j = 0; j < NV; ++j) {
+        xs[r][j] = xn[r][j];
+        gs[r][j] = gn[r][j];
+      }
     }
   }
   float* pr = part + (size_t)blockIdx.x * D;
-  for (int i = threadIdx.x; i < D; i += kThreads) pr[i] = dw_acc[i];
+#pragma unroll
+  for (int j = 0; j < NV; ++j)
+    if (has[j])
+#pragma unroll
+      for (int i = 0; i < V; ++i)
+        pr[(j * kThreads + threadIdx.x) * V + i] = dwa[j][i];
 }
 
-// Backward, second pass: dw[i] = sum over the blocks' partials, in w's
-// dtype.  One thread per column; neighbouring threads read neighbouring
-// columns of each partial row.
+// Backward, first pass, scalar path: any D and any alignment (a D that
+// is no multiple of V or too wide for the vector path's registers, or a
+// misaligned x, g, dx or w).  The same fixed grid walks single rows; a
+// row is read twice, for its sum and for dx (the second read mostly hits
+// L1/L2).  Thread t owns columns t, t + kThreads, ... of every row, so it
+// sums its dw share straight into the block's f32 partial row
+// part[blockIdx.x], which no other thread touches: no atomics.
+template <typename TX>
+__global__ void __launch_bounds__(kThreads)
+rmsnorm_bwd_any_kernel(const TX* __restrict__ x, const void* __restrict__ w,
+                       int w_bf16, const float* __restrict__ inv,
+                       const TX* __restrict__ g, TX* __restrict__ dx,
+                       float* __restrict__ part, int rows, int D) {
+  __shared__ float red[1][kThreads / 32];
+  float* pr = part + (size_t)blockIdx.x * D;
+  for (int c = threadIdx.x; c < D; c += kThreads) pr[c] = 0.f;
+  for (int r = blockIdx.x; r < rows; r += gridDim.x) {
+    const TX* xr = x + (size_t)r * D;
+    const TX* gr = g + (size_t)r * D;
+    const float iv = inv[r];
+    float s[1] = {0.f};  // this thread's share of sum(g*w*xhat)
+    for (int c = threadIdx.x; c < D; c += kThreads) {
+      float wv[1];
+      load_w<1>(w, w_bf16, c, wv);
+      s[0] = fmaf(to_f32(gr[c]) * wv[0], to_f32(xr[c]) * iv, s[0]);
+    }
+    block_sums<1>(s, red);
+    const float mean = s[0] / (float)D;
+    TX* dxr = dx + (size_t)r * D;
+    for (int c = threadIdx.x; c < D; c += kThreads) {
+      float wv[1];
+      load_w<1>(w, w_bf16, c, wv);
+      const float xh = to_f32(xr[c]) * iv;
+      const float gv = to_f32(gr[c]);
+      dxr[c] = from_f32<TX>(iv * (gv * wv[0] - xh * mean));
+      pr[c] = fmaf(gv, xh, pr[c]);
+    }
+  }
+}
+
+// Backward, second pass: dw[c] = the sum over the n_part partial rows, in
+// w's dtype.  A block takes 32 columns (one a lane); its 8 warps take
+// the partial rows in turn, four running sums a lane, and warp 0 adds the
+// warps' sums in order: the same bits on every run.
 template <typename TW>
 __global__ void __launch_bounds__(kThreads)
 rmsnorm_dw_kernel(const float* __restrict__ part, TW* __restrict__ dw,
                   int n_part, int D) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= D) return;
-  float s = 0.f;
-  for (int b = 0; b < n_part; ++b) s += part[(size_t)b * D + i];
-  dw[i] = from_f32<TW>(s);
+  constexpr int W = kThreads / 32;
+  __shared__ float red[W][32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int c = blockIdx.x * 32 + lane;
+  float a[4] = {0.f, 0.f, 0.f, 0.f};
+  if (c < D) {
+    int b = warp;
+    for (; b + 3 * W < n_part; b += 4 * W)
+#pragma unroll
+      for (int u = 0; u < 4; ++u) a[u] += part[(size_t)(b + u * W) * D + c];
+    for (; b < n_part; b += W) a[0] += part[(size_t)b * D + c];
+  }
+  red[warp][lane] = (a[0] + a[1]) + (a[2] + a[3]);
+  __syncthreads();
+  if (warp == 0 && c < D) {
+    float s = 0.f;
+#pragma unroll
+    for (int i = 0; i < W; ++i) s += red[i][lane];
+    dw[c] = from_f32<TW>(s);
+  }
+}
+
+template <typename TX>
+using BwdKernel = void (*)(const TX*, const void*, int, const float*,
+                           const TX*, TX*, float*, int, int);
+
+// The first pass with NV 16-byte slots a thread (NV = 0: the scalar
+// path), and in *per_sm the blocks of it that one SM holds at kThreads
+// threads.  The occupancy query is made once per kernel, so that a launch
+// captured into a CUDA graph makes no other API call; 0 if it failed.
+template <typename TX, int NV>
+BwdKernel<TX> bwd_kernel(int* per_sm) {
+  BwdKernel<TX> k;
+  if constexpr (NV == 0)
+    k = rmsnorm_bwd_any_kernel<TX>;
+  else
+    k = rmsnorm_bwd_kernel<TX, NV>;
+  static int n = -1;
+  if (n < 0 && cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                   &n, k, kThreads, 0) != cudaSuccess)
+    n = 0;
+  *per_sm = n;
+  return k;
+}
+
+// The first pass of one call: its kernel and its grid, which is also the
+// number of partial rows of dw.
+template <typename TX>
+struct BwdPlan {
+  BwdKernel<TX> kernel;  // null on a CUDA error
+  int grid;
+};
+
+// The plan for `rows` rows of width D: the vector path where D splits
+// into at most 4 slots of 16 bytes a thread and x, g, dx and w are
+// 16-byte aligned, else the scalar path.  The grid is the SM count times
+// the blocks a SM holds of that kernel, at most kBwdBlocksPerSm, and at
+// most the groups of rows it takes at once (4 / NV).  The scratch size
+// (repro_rmsnorm_bwd_parts) and the launch both come from here.
+template <typename TX>
+BwdPlan<TX> bwd_plan(const void* x, const void* w, const void* g,
+                     const void* dx, int rows, int D) {
+  constexpr int V = 16 / sizeof(TX);
+  const int nv = (D / V + kThreads - 1) / kThreads;
+  const bool vec = D % V == 0 && nv <= 4 && aligned16(x) && aligned16(w) &&
+                   aligned16(g) && aligned16(dx);
+  int per_sm = 0, at_once = 1;
+  BwdKernel<TX> k;
+  if (!vec) {
+    k = bwd_kernel<TX, 0>(&per_sm);
+  } else if (nv <= 1) {
+    k = bwd_kernel<TX, 1>(&per_sm);
+    at_once = 4;
+  } else if (nv <= 2) {
+    k = bwd_kernel<TX, 2>(&per_sm);
+    at_once = 2;
+  } else {
+    k = bwd_kernel<TX, 4>(&per_sm);
+  }
+  int dev = 0, sms = 0;
+  if (per_sm <= 0 || rows <= 0 || cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    return {nullptr, 0};
+  const int groups = (rows + at_once - 1) / at_once;
+  return {k, std::min(groups, sms * std::min(per_sm, kBwdBlocksPerSm))};
 }
 
 template <typename TX, typename TW>
@@ -184,23 +470,55 @@ void launch(const void* x, const void* w, void* y, float* inv, int rows,
 }
 
 template <typename TX, typename TW>
-void launch_bwd(const void* x, const void* w, const float* inv,
+bool launch_bwd(const void* x, const void* w, const float* inv,
                 const void* g, void* dx, void* dw, float* part, int rows,
                 int D, cudaStream_t stream) {
-  const int n_part = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
-  const size_t smem = sizeof(float) * (size_t)D;
-  // D floats of dynamic shared memory; above 48 KB (D > 12288) the limit
-  // has to be raised first.  A failure is left to cudaGetLastError.
-  if (smem > 48 * 1024 &&
-      cudaFuncSetAttribute(rmsnorm_bwd_kernel<TX, TW>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem) != cudaSuccess)
-    return;
-  rmsnorm_bwd_kernel<TX, TW><<<n_part, kThreads, smem, stream>>>(
-      static_cast<const TX*>(x), static_cast<const TW*>(w), inv,
-      static_cast<const TX*>(g), static_cast<TX*>(dx), part, rows, D);
-  rmsnorm_dw_kernel<TW><<<(D + kThreads - 1) / kThreads, kThreads, 0,
-                          stream>>>(part, static_cast<TW*>(dw), n_part, D);
+  const BwdPlan<TX> plan = bwd_plan<TX>(x, w, g, dx, rows, D);
+  if (plan.kernel == nullptr) return false;
+  plan.kernel<<<plan.grid, kThreads, 0, stream>>>(
+      static_cast<const TX*>(x), w, std::is_same<TW, __nv_bfloat16>::value,
+      inv, static_cast<const TX*>(g), static_cast<TX*>(dx), part, rows, D);
+  rmsnorm_dw_kernel<TW><<<(D + 31) / 32, kThreads, 0, stream>>>(
+      part, static_cast<TW*>(dw), plan.grid, D);
+  return true;
+}
+
+// The first pass's kernels for x's dtype TX, for reports: i = 0, 1, 2 the
+// vector path at NV 1, 2, 4, i = 3 the scalar path.
+template <typename TX>
+bool first_pass_info(int i, const char* dtype, char (&name)[48], int* out) {
+  int per_sm = 0;
+  BwdKernel<TX> k;
+  if (i == 3) {
+    k = bwd_kernel<TX, 0>(&per_sm);
+    snprintf(name, sizeof name, "rmsnorm_bwd_any_kernel<%s>", dtype);
+  } else {
+    k = i == 0 ? bwd_kernel<TX, 1>(&per_sm)
+               : i == 1 ? bwd_kernel<TX, 2>(&per_sm)
+                        : bwd_kernel<TX, 4>(&per_sm);
+    snprintf(name, sizeof name, "rmsnorm_bwd_kernel<%s,%d>", dtype, 1 << i);
+  }
+  return tc::kernel_info(k, kThreads, 0, out);
+}
+
+// The backward's kernels for reports, in a fixed order: the first pass's
+// four (first_pass_info) for bf16 then f32 x, then the second pass for
+// bf16 and f32 w.  *name points into a buffer that the next call reuses.
+bool bwd_info(int idx, const char** name, int* out) {
+  static char buf[48];
+  *name = buf;
+  if (idx < 4) return first_pass_info<__nv_bfloat16>(idx, "bf16", buf, out);
+  if (idx < 8) return first_pass_info<float>(idx - 4, "f32", buf, out);
+  if (idx == 8) {
+    snprintf(buf, sizeof buf, "rmsnorm_dw_kernel<bf16>");
+    return tc::kernel_info(rmsnorm_dw_kernel<__nv_bfloat16>, kThreads, 0,
+                           out);
+  }
+  if (idx == 9) {
+    snprintf(buf, sizeof buf, "rmsnorm_dw_kernel<f32>");
+    return tc::kernel_info(rmsnorm_dw_kernel<float>, kThreads, 0, out);
+  }
+  return false;
 }
 
 }  // namespace
@@ -223,28 +541,41 @@ extern "C" void repro_rmsnorm_fwd(const void* x, const void* w, void* y,
 }
 
 // Number of f32 partial rows of dw (each D wide) that the backward's
-// scratch `part` must hold.
-extern "C" int repro_rmsnorm_bwd_parts(int rows) {
-  return (rows + kRowsPerBlock - 1) / kRowsPerBlock;
+// scratch `part` must hold for these operands (the pointers and D pick
+// the path, as in repro_rmsnorm_bwd): the first pass's grid, from the
+// occupancy query and the SM count.  0 on a CUDA error.
+extern "C" int repro_rmsnorm_bwd_parts(const void* x, const void* w,
+                                       const void* g, const void* dx,
+                                       int rows, int D, int x_bf16) {
+  return x_bf16 ? bwd_plan<__nv_bfloat16>(x, w, g, dx, rows, D).grid
+                : bwd_plan<float>(x, w, g, dx, rows, D).grid;
 }
 
 // x, g, dx: (rows, D) contiguous in x's dtype; w, dw: (D,) in w's dtype;
-// inv: (rows,) f32 from the forward; part: repro_rmsnorm_bwd_parts(rows)
-// x D f32 scratch.  Two launches on `stream`; errors are left to
-// cudaGetLastError.
-extern "C" void repro_rmsnorm_bwd(const void* x, const void* w,
+// inv: (rows,) f32 from the forward; part: repro_rmsnorm_bwd_parts(x, w,
+// g, dx, rows, D, x_bf16) x D f32 scratch.  Two launches on `stream`.
+// Returns false, having launched nothing, on a CUDA error before the
+// launch; a launch's own error is left to cudaGetLastError.
+extern "C" bool repro_rmsnorm_bwd(const void* x, const void* w,
                                   const float* inv, const void* g, void* dx,
                                   void* dw, float* part, int rows, int D,
                                   int x_bf16, int w_bf16, cudaStream_t s) {
   if (x_bf16 && w_bf16)
-    launch_bwd<__nv_bfloat16, __nv_bfloat16>(x, w, inv, g, dx, dw, part,
-                                             rows, D, s);
-  else if (x_bf16)
-    launch_bwd<__nv_bfloat16, float>(x, w, inv, g, dx, dw, part, rows, D,
-                                     s);
-  else if (w_bf16)
-    launch_bwd<float, __nv_bfloat16>(x, w, inv, g, dx, dw, part, rows, D,
-                                     s);
-  else
-    launch_bwd<float, float>(x, w, inv, g, dx, dw, part, rows, D, s);
+    return launch_bwd<__nv_bfloat16, __nv_bfloat16>(x, w, inv, g, dx, dw,
+                                                    part, rows, D, s);
+  if (x_bf16)
+    return launch_bwd<__nv_bfloat16, float>(x, w, inv, g, dx, dw, part,
+                                            rows, D, s);
+  if (w_bf16)
+    return launch_bwd<float, __nv_bfloat16>(x, w, inv, g, dx, dw, part,
+                                            rows, D, s);
+  return launch_bwd<float, float>(x, w, inv, g, dx, dw, part, rows, D, s);
+}
+
+// Facts about the backward's kernels, for reports: idx 0, 1, ... in the
+// order of bwd_info.  Writes the kernel's name and out[0..5]
+// (tc::kernel_info).  Returns false past the last kernel or on a CUDA
+// error.
+extern "C" bool repro_rmsnorm_info(int idx, const char** name, int* out) {
+  return bwd_info(idx, name, out);
 }

@@ -8,20 +8,24 @@ of ``repro/kernels/ref.py::_flash_bwd_inner``, which the JAX package runs
 in jnp.  Bound on the card: the larger of the FLOPs of the visible
 (query, key) pairs over the tensor-core peak and the bytes of the inputs
 and outputs over HBM rate; at the yi-6b shapes the two are close.  The
-forward computes in f32 FMAs on the CUDA cores: one thread block per
-(batch, q head, 64-row q tile), K/V tiles staged in shared memory, GQA
-inside the kernel (kv head = h // G), tiles that no row can see skipped.
-The bf16 backward runs its five products on the tensor cores
-(``mma.sync`` from swizzled bf16 tiles, f32 sums): for dk and dv a
-cluster of blocks per (batch, kv head, 64-key tile), one block per q
-head where G <= 8, summed through distributed shared memory; for dq one
-block per (batch, q head, 64-row q tile).  The f32 backward runs f32
-FMAs on the CUDA cores (the f32 sweeps' 3e-5 tolerance rules out TF32).
+bf16 forward runs S = Q K^T and O += P V on the tensor cores
+(``mma.sync`` from swizzled bf16 tiles that a double-buffered
+``cp.async`` ring fills, the online softmax on the f32 fragments, P
+rounded to bf16 in registers): one block of 4 warps per (batch, q head,
+64-row q tile), GQA inside the kernel (kv head = h // G), key steps that
+no row can see skipped.  The f32 forward computes in f32 FMAs on the
+CUDA cores with the same split.  The bf16 backward runs its five
+products on the tensor cores (``mma.sync`` from swizzled bf16 tiles, f32
+sums): for dk and dv a cluster of blocks per (batch, kv head, 64-key
+tile), one block per q head where G <= 8, summed through distributed
+shared memory; for dq one block per (batch, q head, 64-row q tile).  The
+f32 backward runs f32 FMAs on the CUDA cores (the f32 sweeps' 3e-5
+tolerance rules out TF32).
 
 q, k and v keep the JAX layout ``(B, S, H, D)`` and are read through
 their strides (each needs a contiguous D axis), so the caller neither
-transposes nor repeats K/V.  The bf16 backward copies its tensors by
-16-byte chunks, so it takes a contiguous copy of any input whose address
+transposes nor repeats K/V.  The bf16 kernels copy their tensors by
+16-byte chunks, so they take a contiguous copy of any input whose address
 or strides are not a multiple of 16 bytes (the model's never are).
 
 The plain versions are :func:`repro_torch.kernels.ref.
@@ -75,12 +79,13 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, name: str,
 
 def _chunk_aligned(t: torch.Tensor) -> torch.Tensor:
     """``t`` itself if its address and its strides but the last are
-    multiples of 16 bytes, else a contiguous copy (which is)."""
+    multiples of 16 bytes, else a contiguous copy in new memory (which is:
+    ``contiguous()`` would hand back a contiguous view that is not)."""
     step = 16 // t.element_size()
     if t.data_ptr() % 16 == 0 and all(s % step == 0
                                       for s in t.stride()[:-1]):
         return t
-    return t.contiguous()
+    return t.clone(memory_format=torch.contiguous_format)
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -101,6 +106,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     o = torch.empty((B, Sq, Hq, D), dtype=q.dtype, device=q.device)
     lse = (torch.empty((B, Sq, Hq), dtype=torch.float32, device=q.device)
            if return_lse else None)
+    if q.dtype == torch.bfloat16:
+        q, k, v = (_chunk_aligned(t) for t in (q, k, v))
     if o.numel():
         build.extension().flash_fwd(q, k, v, o, lse, float(scale),
                                     bool(causal), q_offset, kv_len,

@@ -7,9 +7,11 @@ The forward replaces ``repro/kernels/rmsnorm.py::rmsnorm_pallas`` (body
 jnp.  Both are bound by bytes: the least time is the bytes each element
 needs read and written once over HBM bandwidth.  The forward runs one
 thread block per row, with 16-byte vector loads and an f32 sum of squares
-reduced with warp shuffles; the backward one block per 8 rows, with the
-dw sum across blocks written as f32 partials and summed by a second
-kernel (see the source notes).
+reduced with warp shuffles.  The backward runs a fixed grid of a few
+blocks a SM over the rows, each row read once into registers as 16-byte
+vectors (a scalar path takes any other width or alignment), dw summed
+into one f32 partial row a block and the partials summed in a fixed
+order by a second kernel (see the source notes).
 
 The plain versions are :func:`repro_torch.kernels.ref.rmsnorm_fwd_ref`
 and :func:`~repro_torch.kernels.ref.rmsnorm_bwd_ref`; ``kernels/ops.py``
@@ -82,7 +84,7 @@ def rmsnorm_bwd_cuda(x: torch.Tensor, w: torch.Tensor, inv: torch.Tensor,
     if rows == 0:
         return dx, torch.zeros_like(w)
     ext = build.extension()
-    part = torch.empty((ext.rmsnorm_bwd_parts(rows), D),
+    part = torch.empty((ext.rmsnorm_bwd_parts(x, w, g, dx), D),
                        dtype=torch.float32, device=x.device)
     dw = torch.empty_like(w)
     ext.rmsnorm_bwd(x, w, inv, g, dx, dw, part)

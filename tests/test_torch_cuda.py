@@ -117,6 +117,70 @@ def test_flash_kernel_reads_strided_cache_views(cuda):
     torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_flash_fwd_tc_kernel_matches_plain_with_lse(cuda, case):
+    """The bf16 tensor-core forward's output and lse against the plain
+    forward on the backward's ragged cases (G 1 to 16, q_offset with
+    kv_len < Sk, a sliding window, Sk < Sq)."""
+    B, Sq, Sk, Hq, Hkv, D, causal, window, q_off, kv_len = case
+    g = torch.Generator(device=cuda).manual_seed(10)
+    bf = torch.bfloat16
+    q = torch.randn((B, Sq, Hq, D), generator=g, device=cuda).to(bf)
+    k, v = (torch.randn((B, Sk, Hkv, D), generator=g, device=cuda).to(bf)
+            for _ in range(2))
+    kw = dict(causal=causal, sliding_window=window, q_offset=q_off,
+              kv_len=kv_len)
+    n = kflash.launches
+    o, lse = kflash.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert kflash.launches == n + 1
+    o_ref, lse_ref = ref.flash_attention_fwd_ref(q, k, v, **kw)
+    torch.testing.assert_close(o.float(), o_ref.float(), **_tol(bf))
+    torch.testing.assert_close(lse, lse_ref, rtol=3e-5, atol=3e-5)
+
+
+def _off_by_one(t):
+    """The values of t in a contiguous view one element past a 16-byte
+    aligned address."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    return view
+
+
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+def test_flash_fwd_tc_kernel_reads_cache_views_and_copies_misaligned(cuda,
+                                                                     D):
+    """At every head_dim: K/V as a layer's slice of a stacked cache with
+    kv_len < Sk give the bits of contiguous copies; q, k, v (and the
+    backward's dout) one element off 16-byte alignment, which the
+    wrappers copy, give the bits of aligned ones."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    bf = torch.bfloat16
+    cache = torch.randn((3, 2, 150, 2, D), generator=g, device=cuda).to(bf)
+    k, v = cache[1], cache[2]
+    q = torch.randn((2, 70, 8, D), generator=g, device=cuda).to(bf)
+    a = kflash.flash_attention_cuda(q, k, v, kv_len=130, q_offset=60)
+    b = kflash.flash_attention_cuda(q, k.contiguous(), v.contiguous(),
+                                    kv_len=130, q_offset=60)
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+    want = ref.flash_attention_ref(q, k, v, kv_len=130, q_offset=60)
+    torch.testing.assert_close(a.float(), want.float(), **_tol(bf))
+    c = kflash.flash_attention_cuda(_off_by_one(q), _off_by_one(k),
+                                    _off_by_one(v), kv_len=130, q_offset=60)
+    torch.testing.assert_close(c, b, rtol=0, atol=0)
+    # the backward copies misaligned inputs the same way
+    qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
+    o, lse = kflash.flash_attention_cuda(qc, kc, vc, return_lse=True)
+    do = torch.randn(o.shape, generator=g, device=cuda).to(bf)
+    want = kflash.flash_attention_bwd_cuda(qc, kc, vc, o, lse, do)
+    got = kflash.flash_attention_bwd_cuda(
+        *(_off_by_one(t) for t in (qc, kc, vc)), o, lse, _off_by_one(do))
+    for x, y in zip(got, want):
+        torch.testing.assert_close(x, y, rtol=0, atol=0)
+
+
 def test_kernel_wrappers_reject_bad_inputs(cuda):
     x = torch.randn(4, 64, device=cuda)
     with pytest.raises(TypeError):
@@ -178,6 +242,66 @@ def test_rmsnorm_bwd_kernel_matches_plain(cuda, shape, dtype, w_dtype):
                                       (dtype, w_dtype) else dtype))
 
 
+def _bwd_grid(cuda, D, dtype):
+    """The RMSNorm backward's grid (its partial rows) for many rows."""
+    from repro_torch.kernels import build
+    x = torch.empty((1, D), dtype=dtype, device=cuda).expand(1 << 16, D)
+    w = torch.empty((D,), dtype=dtype, device=cuda)
+    return build.extension().rmsnorm_bwd_parts(x, w, x, x)
+
+
+@pytest.mark.parametrize("D", [4096, 2048, 768, 1536, 384, 513])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("rows_of", ["below", "at", "ragged"])
+def test_rmsnorm_bwd_kernel_rows_against_grid(cuda, D, dtype, rows_of):
+    """Row counts below, at and not a multiple of the backward's fixed
+    grid, at the models' widths and two that take the scalar path or
+    leave threads idle: dx and dw against the plain backward."""
+    grid = _bwd_grid(cuda, D, dtype)
+    assert grid > 0
+    rows = {"below": grid // 2 + 1, "at": grid,
+            "ragged": 2 * grid + 37}[rows_of]
+    g = torch.Generator(device=cuda).manual_seed(12)
+    x, dy = (torch.randn((rows, D), generator=g, device=cuda).to(dtype)
+             for _ in range(2))
+    w = torch.randn((D,), generator=g, device=cuda).to(dtype)
+    _, inv = ref.rmsnorm_fwd_ref(x, w, 1e-5)
+    n = krms.bwd_launches
+    dx, dw = krms.rmsnorm_bwd_cuda(x, w, inv, dy)
+    torch.cuda.synchronize()
+    assert krms.bwd_launches == n + 1
+    rdx, rdw = ref.rmsnorm_bwd_ref(x, w, inv, dy)
+    torch.testing.assert_close(dx.float(), rdx.float(), **_tol(dtype))
+    torch.testing.assert_close(dw.float(), rdw.float(), **_tol(dtype))
+
+
+@pytest.mark.parametrize("D", [8192, 16384, 5001])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("misaligned", ["none", "x", "w"])
+def test_rmsnorm_bwd_kernel_any_width_and_alignment(cuda, D, dtype,
+                                                    misaligned):
+    """Widths past the vector path's registers (8192 in f32, 16384), one
+    with no 16-byte vectors (5001) and contiguous x and g, or w, one
+    element off alignment all launch (the scalar path where the vector
+    one does not fit) and agree with the plain backward."""
+    g = torch.Generator(device=cuda).manual_seed(13)
+    x, dy = (torch.randn((300, D), generator=g, device=cuda).to(dtype)
+             for _ in range(2))
+    w = torch.randn((D,), generator=g, device=cuda).to(dtype)
+    _, inv = ref.rmsnorm_fwd_ref(x, w, 1e-5)
+    rdx, rdw = ref.rmsnorm_bwd_ref(x, w, inv, dy)
+    if misaligned == "x":
+        x, dy = _off_by_one(x), _off_by_one(dy)
+    elif misaligned == "w":
+        w = _off_by_one(w)
+    n = krms.bwd_launches
+    dx, dw = krms.rmsnorm_bwd_cuda(x, w, inv, dy)
+    torch.cuda.synchronize()
+    assert krms.bwd_launches == n + 1
+    torch.testing.assert_close(dx.float(), rdx.float(), **_tol(dtype))
+    torch.testing.assert_close(dw.float(), rdw.float(), **_tol(dtype))
+
+
 @pytest.mark.parametrize("case", BWD_CASES)
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_flash_lse_and_bwd_kernels_match_plain(cuda, case, dtype):
@@ -228,8 +352,9 @@ def test_ce_kernel_matches_plain(cuda, T, D, V, dtype):
 
 def test_tensor_core_kernels_are_deterministic(cuda):
     """No atomics: two calls of the bf16 flash backward (G = 8, dk and dv
-    summed over a cluster) and of the bf16 CE forward give the same
-    bits."""
+    summed over a cluster), of the bf16 CE forward, of the bf16 flash
+    forward and of the RMSNorm backward (dw summed over partial rows)
+    give the same bits."""
     g = torch.Generator(device=cuda).manual_seed(9)
     bf = torch.bfloat16
     q, do = (torch.randn((2, 200, 16, 128), generator=g, device=cuda).to(bf)
@@ -247,16 +372,36 @@ def test_tensor_core_kernels_are_deterministic(cuda):
     for x, y in zip(kce.cross_entropy_cuda(h, w, t),
                     kce.cross_entropy_cuda(h, w, t)):
         assert torch.equal(x, y)
+    o2, lse2 = kflash.flash_attention_cuda(q, k, v, return_lse=True)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    # the RMSNorm backward's dw: partial rows summed in a fixed order
+    x, dy = (torch.randn((3000, 4096), generator=g, device=cuda).to(bf)
+             for _ in range(2))
+    w = torch.randn((4096,), generator=g, device=cuda).to(bf)
+    _, inv = krms.rmsnorm_cuda(x, w, 1e-5, return_inv=True)
+    for a, b in zip(krms.rmsnorm_bwd_cuda(x, w, inv, dy),
+                    krms.rmsnorm_bwd_cuda(x, w, inv, dy)):
+        assert torch.equal(a, b)
 
 
 def test_tensor_core_kernels_fit_without_spills(cuda):
-    """Every tensor-core kernel keeps its state in registers (no local
+    """Every redesigned kernel (tensor-core flash forward and backward, CE
+    forward, RMSNorm backward) keeps its state in registers (no local
     memory) and fits at least one block a SM at its launch size."""
     from repro_torch.kernels import build
     rows = build.extension().kernel_info()
     names = [name for name, _ in rows]
     assert "ce_fwd_wgmma_kernel" in names
     assert "flash_bwd_dkdv_tc_kernel<128>" in names
+    for D in (16, 32, 64, 128):
+        assert f"flash_fwd_tc_kernel<{D}>" in names
+    for name in ("rmsnorm_bwd_kernel<bf16,2>", "rmsnorm_bwd_kernel<f32,4>",
+                 "rmsnorm_bwd_any_kernel<bf16>",
+                 "rmsnorm_bwd_any_kernel<f32>",
+                 "rmsnorm_dw_kernel<bf16>", "rmsnorm_dw_kernel<f32>"):
+        assert name in names
+    # the flash forward's design point: two blocks of 4 warps a SM
+    assert dict(rows)["flash_fwd_tc_kernel<128>"][5] >= 2
     for name, (regs, local, _, _, _, blocks) in rows:
         assert local == 0, name
         assert 0 < regs <= 255 and blocks >= 1, name

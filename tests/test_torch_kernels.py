@@ -142,6 +142,24 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     assert (trms.launches, tflash.launches) == (n_rms, n_flash)
 
 
+def test_chunk_aligned_copies_misaligned_views():
+    """The bf16 flash kernels copy 16-byte chunks: an input whose address
+    or strides are not a multiple of 16 bytes is copied to new memory,
+    a contiguous view one element past an aligned address included."""
+    base = torch.randn(2 * 5 * 3 * 16 + 1).bfloat16()
+    off = base[1:].view(2, 5, 3, 16)
+    assert off.is_contiguous() and off.data_ptr() % 16
+    got = tflash._chunk_aligned(off)
+    assert got.data_ptr() % 16 == 0 and torch.equal(got, off)
+    odd = torch.randn(2, 5, 3, 17).bfloat16()[..., :16]  # row stride 17
+    got = tflash._chunk_aligned(odd)
+    assert got.is_contiguous() and torch.equal(got, odd)
+    fine = torch.randn(2, 5, 3, 16).bfloat16()
+    assert tflash._chunk_aligned(fine) is fine
+    view = fine[:, 1:]
+    assert tflash._chunk_aligned(view) is view
+
+
 def _imports(path: Path):
     for node in ast.walk(ast.parse(path.read_text(), str(path))):
         if isinstance(node, ast.Import):
