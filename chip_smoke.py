@@ -10,8 +10,9 @@ Phases, each of which fails the run (non-zero exit, no final result line):
    one extension module by ``torch.utils.cpp_extension.load``, with its
    time and ptxas' register counts; then the CUDA runtime's registers,
    local (spill) bytes, shared memory and resident blocks a SM of each
-   redesigned kernel: the tensor-core flash forward and backward and CE
-   forward, the RMSNorm backward (fails if one uses local memory);
+   redesigned kernel: the tensor-core flash forward and backward, CE
+   forward and SSD scan, the RMSNorm forward and backward (fails if one
+   uses local memory);
 3. kernel against plain: each kernel and its plain version on the same
    inputs, at the main paths' shapes and the sweep of tests/test_kernels.py
    (tolerance 2e-2 in bf16, 3e-5 in f32; the SSD scan 3e-2 and 3e-4), with
@@ -41,15 +42,17 @@ Phases, each of which fails the run (non-zero exit, no final result line):
    against the plain path with the same weights in f32, to show how far
    bf16 rounding alone moves the logits of the random model;
 6. breakdown: ``torch.profiler`` over one warm prefill and four warm decode
-   steps of yi-6b and of zamba2-1.2b (wall time, device time, busy share,
-   top kernels by device time);
+   steps of each model (wall time, device time, busy share, top kernels
+   by device time);
 7. training: ``run_training("yi-6b", smoke=False, steps=3, seq_len=512,
    global_batch=4, carousel=False)`` at full width and depth, launch
    counters reset just before and read just after and held against the
    counts the code implies; losses, step time of steps 2-3, tokens/s and
    peak memory; then ``torch.profiler`` over one more (warm) step (with
    the device time of the flash, RMSNorm-backward and CE kernels picked
-   out), and the wall time of each half (gradients, AdamW) of another;
+   out), and the wall time of each half (gradients, AdamW) of HALF_STEPS
+   more, with the allocator's retries (``num_alloc_retries``) counted
+   through the phase;
 8. end to end, training, at full width and 2 layers: one
    ``grads_and_metrics`` through the kernels against one through
    ``use_kernels=False``, loss within relative 1e-2 and every gradient leaf
@@ -104,6 +107,7 @@ LOSS_TOL = 1e-2
 ARCH, PROMPT, GEN, BATCH = "yi-6b", 512, 32, 4
 SSM_ARCHS, SSM_PROMPT = ("zamba2-1.2b", "mamba2-130m"), 2048
 TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH = 3, 512, 4
+HALF_STEPS = 3  # warm steps whose two halves are timed alone
 E2E_TRAIN_LAYERS = 2
 DEVICE = "cuda"
 
@@ -802,11 +806,14 @@ def phase_training(failures: list) -> dict:
     """The training path at full width and depth, counted and timed; then
     one more step (warm) under the profiler."""
     cfg = get_config(ARCH)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # the allocator's retries (a cudaMalloc that failed, the cache freed,
+    # then retried), cumulative, at the points of this phase
+    retries = {"before": torch.cuda.memory_stats()["num_alloc_retries"]}
     for mod in (krms, kflash, kce):
         mod.launches = 0
     krms.bwd_launches = kflash.bwd_launches = 0
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
     stamps = []
 
     def on_step(i, metrics):
@@ -822,6 +829,8 @@ def phase_training(failures: list) -> dict:
               "flash_attention_bwd": kflash.bwd_launches,
               "cross_entropy": kce.launches}
     peak = torch.cuda.max_memory_allocated()
+    retries["after_run_training"] = torch.cuda.memory_stats()[
+        "num_alloc_retries"]
     # per step, with remat="full": each block's forward runs twice (the
     # forward, then the recompute in the backward); ln_f is outside the
     # checkpointed blocks; one CE call
@@ -859,21 +868,28 @@ def phase_training(failures: list) -> dict:
     row = _profile(lambda: step_fn(state, batch), top=15, ops=True,
                    pick=("flash_fwd", "flash_bwd", "rmsnorm_bwd",
                          "rmsnorm_dw", "ce_fwd", "ce_merge"))
-    # the step's two halves, each timed alone (synchronised) in one more
-    # warm step
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    grads, _ = tstep.grads_and_metrics(state["params"], cfg, run, batch)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    adamw_update(state["params"], grads, state["opt"], lr=run.learning_rate,
-                 weight_decay=run.weight_decay,
-                 max_grad_norm=run.max_grad_norm)
-    torch.cuda.synchronize()
-    row["grads_and_metrics_ms"] = (t1 - t0) * 1e3
-    row["adamw_update_ms"] = (time.perf_counter() - t1) * 1e3
+    retries["after_profiled_step"] = torch.cuda.memory_stats()[
+        "num_alloc_retries"]
+    # the step's two halves, each timed alone (synchronised), in
+    # HALF_STEPS more warm steps
+    row["grads_and_metrics_ms"], row["adamw_update_ms"] = [], []
+    for _ in range(HALF_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grads, _ = tstep.grads_and_metrics(state["params"], cfg, run, batch)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        adamw_update(state["params"], grads, state["opt"],
+                     lr=run.learning_rate, weight_decay=run.weight_decay,
+                     max_grad_norm=run.max_grad_norm)
+        torch.cuda.synchronize()
+        row["grads_and_metrics_ms"].append((t1 - t0) * 1e3)
+        row["adamw_update_ms"].append((time.perf_counter() - t1) * 1e3)
+        del grads
+    retries["after_halves"] = torch.cuda.memory_stats()["num_alloc_retries"]
+    row["num_alloc_retries"] = retries
     log("breakdown_train_step", json.dumps(row))
-    del state, res, batch, grads
+    del state, res, batch
     torch.cuda.empty_cache()
     return counts
 
@@ -974,8 +990,7 @@ def main() -> int:
                                     f"serving_{tag}"))
         params, prompt = phase_end_to_end(failures, arch, SSM_PROMPT,
                                           f"end_to_end_{tag}")
-        if arch == "zamba2-1.2b":
-            phase_breakdown(params, prompt, arch, f"breakdown_{tag}")
+        phase_breakdown(params, prompt, arch, f"breakdown_{tag}")
         del params, prompt
         log(f"{arch} phases: {time.perf_counter() - t0:.2f} s")
     torch.cuda.empty_cache()

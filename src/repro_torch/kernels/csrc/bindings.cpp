@@ -19,10 +19,12 @@
 #include <utility>
 #include <vector>
 
-extern "C" void repro_rmsnorm_fwd(const void* x, const void* w, void* y,
+extern "C" bool repro_rmsnorm_fwd(const void* x, const void* w, void* y,
                                   float* inv, int rows, int D, float eps,
-                                  int x_bf16, int w_bf16, int vec,
-                                  cudaStream_t s);
+                                  int x_bf16, int w_bf16, cudaStream_t s);
+extern "C" bool repro_rmsnorm_fwd_plan(const void* x, const void* w,
+                                       const void* y, int rows, int D,
+                                       int x_bf16, int* out);
 extern "C" int repro_rmsnorm_bwd_parts(const void* x, const void* w,
                                        const void* g, const void* dx,
                                        int rows, int D, int x_bf16);
@@ -68,29 +70,43 @@ extern "C" bool repro_ssd_fwd(
     long long dt_sh, long long b_sb, long long b_ss, long long b_sg,
     long long c_sb, long long c_ss, long long c_sg, long long y_sb,
     long long y_ss, long long y_sh, int bf16, cudaStream_t s);
+extern "C" bool repro_ssd_info(int idx, const char** name, int* out);
 
 namespace {
 
 int is_bf16(const at::Tensor& t) { return t.scalar_type() == at::kBFloat16; }
 
-bool aligned16(const at::Tensor& t) {
-  return reinterpret_cast<std::uintptr_t>(t.data_ptr()) % 16 == 0;
-}
-
 // x, y: (..., D) contiguous, one dtype; w: (D,); inv: (rows,) f32 or
-// None.  Writes y (and inv).
+// None.  Writes y (and inv); the kernel picks its path from D and the
+// addresses.
 void rmsnorm_fwd(const at::Tensor& x, const at::Tensor& w, at::Tensor y,
                  double eps, const c10::optional<at::Tensor>& inv) {
   const c10::cuda::CUDAGuard guard(x.device());
   const int64_t D = x.size(-1);
-  const int vec = D % (16 / x.element_size()) == 0 && aligned16(x) &&
-                  aligned16(y);
-  repro_rmsnorm_fwd(x.data_ptr(), w.data_ptr(), y.data_ptr(),
-                    inv ? inv->data_ptr<float>() : nullptr,
-                    static_cast<int>(x.numel() / D), static_cast<int>(D),
-                    static_cast<float>(eps), is_bf16(x), is_bf16(w), vec,
-                    at::cuda::getCurrentCUDAStream());
+  const bool launched = repro_rmsnorm_fwd(
+      x.data_ptr(), w.data_ptr(), y.data_ptr(),
+      inv ? inv->data_ptr<float>() : nullptr,
+      static_cast<int>(x.numel() / D), static_cast<int>(D),
+      static_cast<float>(eps), is_bf16(x), is_bf16(w),
+      at::cuda::getCurrentCUDAStream());
+  TORCH_CHECK(launched, "rmsnorm_fwd: no launch (CUDA error) for D ", D);
   C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+// The forward's plan for x, y: (rows, D) and w: (D,) on x's device (their
+// addresses pick the kernel, as in rmsnorm_fwd): [threads a row, rows a
+// block takes at once, grid].
+std::vector<int64_t> rmsnorm_fwd_plan(const at::Tensor& x, const at::Tensor& w,
+                                      const at::Tensor& y) {
+  const c10::cuda::CUDAGuard guard(x.device());
+  const int64_t D = x.size(-1);
+  int out[3];
+  const bool ok = repro_rmsnorm_fwd_plan(
+      x.data_ptr(), w.data_ptr(), y.data_ptr(),
+      static_cast<int>(x.numel() / D), static_cast<int>(D), is_bf16(x), out);
+  C10_CUDA_CHECK(cudaGetLastError());
+  TORCH_CHECK(ok, "rmsnorm_fwd_plan: CUDA error");
+  return {out[0], out[1], out[2]};
 }
 
 // Rows of the backward's f32 dw scratch for x, g, dx: (..., D) and w:
@@ -195,19 +211,22 @@ void ce_fwd(const at::Tensor& hidden, const at::Tensor& w,
 }
 
 // x: (B, S, H, P); Bm, Cm: (B, S, G, N), one dtype, last axis contiguous,
-// any other strides; dt: (B, S, H) f32, last axis contiguous; A: (H,) f32;
-// h0: (B, H, P, N) f32 contiguous or None; cb: (B, G, ceil(S / chunk),
-// chunk, chunk) f32 scratch; y: (B, S, H, P) in x's dtype; hout: (B, H,
-// P, N) f32 contiguous.  Writes y and hout.
+// any other strides (bf16: 16-byte aligned, strides and N multiples of 8);
+// dt: (B, S, H) f32, last axis contiguous; A: (H,) f32; h0: (B, H, P, N)
+// f32 contiguous or None; cb: f32 only, (B, G, ceil(S / chunk), chunk,
+// chunk) f32 scratch (None for bf16); y: (B, S, H, P) in x's dtype; hout:
+// (B, H, P, N) f32 contiguous.  Writes y and hout.
 void ssd_fwd(const at::Tensor& x, const at::Tensor& dt, const at::Tensor& A,
              const at::Tensor& Bm, const at::Tensor& Cm,
-             const c10::optional<at::Tensor>& h0, at::Tensor cb, at::Tensor y,
+             const c10::optional<at::Tensor>& h0,
+             const c10::optional<at::Tensor>& cb, at::Tensor y,
              at::Tensor hout, int64_t chunk) {
   const c10::cuda::CUDAGuard guard(x.device());
   const bool launched = repro_ssd_fwd(
       x.data_ptr(), dt.data_ptr<float>(), A.data_ptr<float>(),
       Bm.data_ptr(), Cm.data_ptr(), h0 ? h0->data_ptr<float>() : nullptr,
-      cb.data_ptr<float>(), y.data_ptr(), hout.data_ptr<float>(),
+      cb ? cb->data_ptr<float>() : nullptr, y.data_ptr(),
+      hout.data_ptr<float>(),
       x.size(0), x.size(1), x.size(2), x.size(3), Bm.size(2), Bm.size(3),
       chunk, x.stride(0), x.stride(1), x.stride(2), dt.stride(0),
       dt.stride(1), dt.stride(2), Bm.stride(0), Bm.stride(1), Bm.stride(2),
@@ -221,7 +240,8 @@ void ssd_fwd(const at::Tensor& x, const at::Tensor& dt, const at::Tensor& A,
 // (name, [registers, local bytes, static smem, dynamic smem, threads,
 // blocks a SM]) of the kernels redesigned for the card: the bf16 flash
 // forward and backward at every head_dim (name suffix <D>), the CE
-// forward, and the RMSNorm backward's two passes at each instantiation.
+// forward, the RMSNorm backward's two passes and its forward at each
+// instantiation, and the bf16 SSD scan at each padded N.
 std::vector<std::pair<std::string, std::vector<int64_t>>> kernel_info() {
   const c10::cuda::CUDAGuard guard(at::cuda::current_device());
   std::vector<std::pair<std::string, std::vector<int64_t>>> rows;
@@ -238,6 +258,7 @@ std::vector<std::pair<std::string, std::vector<int64_t>>> kernel_info() {
   }
   for (int idx = 0; repro_ce_info(idx, &name, out); ++idx) add(name);
   for (int idx = 0; repro_rmsnorm_info(idx, &name, out); ++idx) add(name);
+  for (int idx = 0; repro_ssd_info(idx, &name, out); ++idx) add(name);
   C10_CUDA_CHECK(cudaGetLastError());
   return rows;
 }
@@ -246,6 +267,9 @@ std::vector<std::pair<std::string, std::vector<int64_t>>> kernel_info() {
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("rmsnorm_fwd", &rmsnorm_fwd, "row RMSNorm forward into y (and inv)");
+  m.def("rmsnorm_fwd_plan", &rmsnorm_fwd_plan,
+        "threads a row, rows a block at once and grid of the RMSNorm "
+        "forward");
   m.def("rmsnorm_bwd_parts", &rmsnorm_bwd_parts,
         "rows of the RMSNorm backward's f32 dw scratch");
   m.def("rmsnorm_bwd", &rmsnorm_bwd, "RMSNorm backward into dx, dw");

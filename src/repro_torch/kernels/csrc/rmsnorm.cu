@@ -6,12 +6,23 @@
 // f32, output in the input dtype; on request it also writes the per-row
 // f32 inv = rsqrt(mean(x^2) + eps) that the backward reads.  Bound on the
 // card: bytes.  Each row is read and written once (plus the D-wide weight
-// vector, which stays in L1/L2), so the least time is rows * D * (in +
-// out bytes) over HBM bandwidth.  The design keeps to that: one thread
-// block per row, 16-byte vector loads and stores where the row allows
-// them, the f32 sum of squares reduced with warp shuffles and one
-// shared-memory step.  The second read of the row, for the output, hits
-// L1/L2 (a 4096-wide bf16 row is 8 KB).
+// vector), so the least time is rows * D * (in + out bytes) over HBM
+// bandwidth (at (2048, 4096) bf16: 33.6 MB, 10.0 us).  Design, the
+// backward's: a fixed grid (fwd_plan: the SM count times the blocks a SM
+// holds, from the occupancy query) walks groups of rows with a stride of
+// the grid, so no tail wave is half empty.  A team of T threads (32, 64,
+// 128 or 256) takes a row, each thread NV in 1..4 fixed 16-byte vectors
+// of it, chosen so that D splits evenly where it can (bf16 D = 768: 96
+// vectors, 3 a lane of one warp, 8 rows a block; 1536: 64 threads x 3;
+// 2048: 64 x 4; 4096: 128 x 4; 8192: 256 x 4), whatever the number of
+// rows, so a row comes out with the same bits in a call of any batch
+// (decode and prefill agree).  w is loaded once a block
+// into f32 registers; the thread's share of its rows stays in registers
+// while the next group's rows load, so each row is read from device
+// memory once.  The sum of squares is reduced with warp shuffles, plus one
+// shared step where a row spans warps.  Any other D, or a misaligned x, w
+// or y, takes a scalar kernel on the same grid (one row a block, read
+// twice, the second time mostly from L1/L2).  No atomics.
 //
 // Backward is the twin of repro/kernels/ref.py::_rmsnorm_vjp_bwd (the JAX
 // package has no Pallas backward): with xhat = x * inv,
@@ -46,6 +57,7 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kFwdBlocksPerSm = 4;  // forward: most blocks a SM
 constexpr int kBwdBlocksPerSm = 2;  // backward: most blocks a SM
 
 bool aligned16(const void* p) {
@@ -71,66 +83,6 @@ __device__ __forceinline__ float warp_sum(float v) {
   for (int off = 16; off > 0; off >>= 1)
     v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
-}
-
-// vec != 0: D is a multiple of the 16-byte vector width and x, y are
-// 16-byte aligned (checked by the caller).
-template <typename TX, typename TW>
-__global__ void __launch_bounds__(kThreads)
-rmsnorm_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
-               TX* __restrict__ y, float* __restrict__ inv_out, int D,
-               float eps, int vec) {
-  constexpr int V = 16 / sizeof(TX);
-  const TX* xr = x + (size_t)blockIdx.x * D;
-  TX* yr = y + (size_t)blockIdx.x * D;
-
-  float ss = 0.f;
-  if (vec) {
-    for (int i = threadIdx.x; i < D / V; i += kThreads) {
-      uint4 raw = reinterpret_cast<const uint4*>(xr)[i];
-      const TX* e = reinterpret_cast<const TX*>(&raw);
-#pragma unroll
-      for (int j = 0; j < V; ++j) {
-        float f = to_f32(e[j]);
-        ss = fmaf(f, f, ss);
-      }
-    }
-  } else {
-    for (int i = threadIdx.x; i < D; i += kThreads) {
-      float f = to_f32(xr[i]);
-      ss = fmaf(f, f, ss);
-    }
-  }
-
-  __shared__ float red[kThreads / 32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  ss = warp_sum(ss);
-  if (lane == 0) red[warp] = ss;
-  __syncthreads();
-  if (warp == 0) {
-    float t = lane < kThreads / 32 ? red[lane] : 0.f;
-    t = warp_sum(t);
-    if (lane == 0) red[0] = t;
-  }
-  __syncthreads();
-  const float inv = rsqrtf(red[0] / (float)D + eps);
-  if (inv_out != nullptr && threadIdx.x == 0) inv_out[blockIdx.x] = inv;
-
-  if (vec) {
-    for (int i = threadIdx.x; i < D / V; i += kThreads) {
-      uint4 raw = reinterpret_cast<const uint4*>(xr)[i];
-      const TX* e = reinterpret_cast<const TX*>(&raw);
-      uint4 out;
-      TX* o = reinterpret_cast<TX*>(&out);
-#pragma unroll
-      for (int j = 0; j < V; ++j)
-        o[j] = from_f32<TX>(to_f32(e[j]) * inv * to_f32(w[i * V + j]));
-      reinterpret_cast<uint4*>(yr)[i] = out;
-    }
-  } else {
-    for (int i = threadIdx.x; i < D; i += kThreads)
-      yr[i] = from_f32<TX>(to_f32(xr[i]) * inv * to_f32(w[i]));
-  }
 }
 
 // Backward, vector path.  One thread's share of a row: slot j covers
@@ -215,6 +167,133 @@ __device__ __forceinline__ void block_sums(float (&v)[R],
     v[r] = t;
   }
   __syncthreads();
+}
+
+// Forward, vector path: D a multiple of V, x, w and y 16-byte aligned, a
+// team of T threads a row (T a multiple of 32 dividing kThreads) and NV
+// 16-byte slots a thread (slot j of team lane l: vector j * T + l of the
+// row, absent past D).  A team takes rt <= RT = max(1, 4 / NV) rows of
+// each group, so a thread holds at most 4 vectors of a group; the block's
+// group is kThreads / T * rt rows, and block b takes groups b, b +
+// gridDim.x, ...  The next group's vectors load while this group's are
+// reduced and written.  w (bf16 if w_bf16, else f32) sits in f32
+// registers for the whole kernel.  Bounded to two blocks a SM (128
+// registers): without that bound ptxas picks 64 and spills.
+template <typename TX, int NV>
+__global__ void __launch_bounds__(kThreads, 2)
+rmsnorm_fwd_kernel(const TX* __restrict__ x, const void* __restrict__ w,
+                   int w_bf16, TX* __restrict__ y, float* __restrict__ inv_out,
+                   int rows, int D, float eps, int T, int rt) {
+  using S = Slot<TX>;
+  constexpr int V = S::V;
+  constexpr int RT = NV >= 4 ? 1 : 4 / NV;
+  __shared__ float red[2][RT][kThreads / 32];
+  const int team = threadIdx.x / T, l = threadIdx.x % T;
+  const int group = kThreads / T * rt;
+  const int nvec = D / V;
+  float wf[NV][V];
+  bool has[NV];
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    has[j] = j * T + l < nvec;
+    if (has[j]) load_w<V>(w, w_bf16, (j * T + l) * V, wf[j]);
+  }
+  S xs[RT][NV];
+  auto load_group = [&](int r0, S (&xr)[RT][NV]) {
+#pragma unroll
+    for (int k = 0; k < RT; ++k) {
+      const int row = r0 + team * rt + k;
+#pragma unroll
+      for (int j = 0; j < NV; ++j)
+        if (has[j] && k < rt && row < rows)
+          xr[k][j].load(x + (size_t)row * D + (j * T + l) * V);
+    }
+  };
+  if (blockIdx.x * group < rows) load_group(blockIdx.x * group, xs);
+  int it = 0;
+  for (int r0 = blockIdx.x * group; r0 < rows;
+       r0 += gridDim.x * group, ++it) {
+    const int rn = r0 + gridDim.x * group;
+    S xn[RT][NV];
+    if (rn < rows) load_group(rn, xn);  // in flight
+    float ss[RT];
+#pragma unroll
+    for (int k = 0; k < RT; ++k) {
+      ss[k] = 0.f;
+      if (k >= rt) continue;
+#pragma unroll
+      for (int j = 0; j < NV; ++j)
+        if (has[j])
+#pragma unroll
+          for (int i = 0; i < V; ++i) {
+            const float f = xs[k][j].get(i);
+            ss[k] = fmaf(f, f, ss[k]);
+          }
+      ss[k] = warp_sum(ss[k]);
+    }
+    if (T > 32) {  // a row spans T / 32 warps: one shared step, in order
+      const int warp = threadIdx.x >> 5, wpt = T / 32;
+      float (*rd)[kThreads / 32] = red[it & 1];
+      if ((threadIdx.x & 31) == 0)
+#pragma unroll
+        for (int k = 0; k < RT; ++k) rd[k][warp] = ss[k];
+      __syncthreads();
+#pragma unroll
+      for (int k = 0; k < RT; ++k) {
+        float v = 0.f;
+        for (int q = 0; q < wpt; ++q) v += rd[k][team * wpt + q];
+        ss[k] = v;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < RT; ++k) {
+      const int row = r0 + team * rt + k;
+      if (k >= rt || row >= rows) continue;
+      const float inv = rsqrtf(ss[k] / (float)D + eps);
+      if (inv_out != nullptr && l == 0) inv_out[row] = inv;
+#pragma unroll
+      for (int j = 0; j < NV; ++j)
+        if (has[j]) {
+          float o[V];
+#pragma unroll
+          for (int i = 0; i < V; ++i) o[i] = xs[k][j].get(i) * inv * wf[j][i];
+          S::store(y + (size_t)row * D + (j * T + l) * V, o);
+        }
+    }
+#pragma unroll
+    for (int k = 0; k < RT; ++k)
+#pragma unroll
+      for (int j = 0; j < NV; ++j) xs[k][j] = xn[k][j];
+  }
+}
+
+// Forward, scalar path: any D and any alignment.  The same fixed grid
+// walks single rows; a row is read twice, for its sum and for y (the
+// second read mostly hits L1/L2).
+template <typename TX>
+__global__ void __launch_bounds__(kThreads)
+rmsnorm_fwd_any_kernel(const TX* __restrict__ x, const void* __restrict__ w,
+                       int w_bf16, TX* __restrict__ y,
+                       float* __restrict__ inv_out, int rows, int D,
+                       float eps, int /*T*/, int /*rt*/) {
+  __shared__ float red[1][kThreads / 32];
+  for (int r = blockIdx.x; r < rows; r += gridDim.x) {
+    const TX* xr = x + (size_t)r * D;
+    float s[1] = {0.f};
+    for (int c = threadIdx.x; c < D; c += kThreads) {
+      const float f = to_f32(xr[c]);
+      s[0] = fmaf(f, f, s[0]);
+    }
+    block_sums<1>(s, red);
+    const float inv = rsqrtf(s[0] / (float)D + eps);
+    if (inv_out != nullptr && threadIdx.x == 0) inv_out[r] = inv;
+    TX* yr = y + (size_t)r * D;
+    for (int c = threadIdx.x; c < D; c += kThreads) {
+      float wv[1];
+      load_w<1>(w, w_bf16, c, wv);
+      yr[c] = from_f32<TX>(to_f32(xr[c]) * inv * wv[0]);
+    }
+  }
 }
 
 // Backward, first pass, vector path: D a multiple of V, x, g, dx and w
@@ -461,12 +540,89 @@ BwdPlan<TX> bwd_plan(const void* x, const void* w, const void* g,
   return {k, std::min(groups, sms * std::min(per_sm, kBwdBlocksPerSm))};
 }
 
-template <typename TX, typename TW>
-void launch(const void* x, const void* w, void* y, float* inv, int rows,
-            int D, float eps, int vec, cudaStream_t stream) {
-  rmsnorm_kernel<TX, TW><<<rows, kThreads, 0, stream>>>(
-      static_cast<const TX*>(x), static_cast<const TW*>(w),
-      static_cast<TX*>(y), inv, D, eps, vec);
+template <typename TX>
+using FwdKernel = void (*)(const TX*, const void*, int, TX*, float*, int, int,
+                           float, int, int);
+
+// The forward with NV 16-byte slots a thread (NV = 0: the scalar path),
+// and in *per_sm the blocks of it that one SM holds, queried once per
+// kernel as bwd_kernel does; 0 if that failed.
+template <typename TX, int NV>
+FwdKernel<TX> fwd_kernel(int* per_sm) {
+  FwdKernel<TX> k;
+  if constexpr (NV == 0)
+    k = rmsnorm_fwd_any_kernel<TX>;
+  else
+    k = rmsnorm_fwd_kernel<TX, NV>;
+  static int n = -1;
+  if (n < 0 && cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                   &n, k, kThreads, 0) != cudaSuccess)
+    n = 0;
+  *per_sm = n;
+  return k;
+}
+
+// The forward of one call: its kernel, threads a row (T), rows a team
+// takes at once (rt), rows a block takes at once (group) and grid.
+template <typename TX>
+struct FwdPlan {
+  FwdKernel<TX> kernel;  // null on a CUDA error
+  int T, rt, group, grid;
+};
+
+// The plan for `rows` rows of width D.  The vector path where D is a
+// multiple of V, x, w and y are 16-byte aligned and a row takes at most
+// 4 slots a thread of 256: the fewest threads a row (T of 32, 64, 128,
+// 256) that split its nvec vectors evenly into at most 4 a thread, else
+// the fewest that hold them with some lanes idle in the last slot, and
+// max(1, 4 / NV) rows a team; the row count changes only the grid.  Else
+// the scalar path, T = kThreads.  The grid is the SM count
+// times the blocks a SM holds, at most kFwdBlocksPerSm, and at most the
+// groups of rows there are.
+template <typename TX>
+FwdPlan<TX> fwd_plan(const void* x, const void* w, const void* y, int rows,
+                     int D) {
+  constexpr int V = 16 / sizeof(TX);
+  int dev = 0, sms = 0;
+  if (rows <= 0 || cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    return {nullptr, 0, 0, 0, 0};
+  const int nvec = D / V;
+  int T = 0;
+  if (D % V == 0 && aligned16(x) && aligned16(w) && aligned16(y)) {
+    for (int t = 32; t <= kThreads && T == 0; t *= 2)
+      if (nvec % t == 0 && nvec / t <= 4) T = t;
+    for (int t = 32; t <= kThreads && T == 0; t *= 2)
+      if ((nvec + t - 1) / t <= 4) T = t;
+  }
+  const int nv = T ? (nvec + T - 1) / T : 0;
+  int per_sm = 0;
+  FwdKernel<TX> k;
+  switch (nv) {
+    case 1: k = fwd_kernel<TX, 1>(&per_sm); break;
+    case 2: k = fwd_kernel<TX, 2>(&per_sm); break;
+    case 3: k = fwd_kernel<TX, 3>(&per_sm); break;
+    case 4: k = fwd_kernel<TX, 4>(&per_sm); break;
+    default: k = fwd_kernel<TX, 0>(&per_sm); T = kThreads;
+  }
+  if (per_sm <= 0) return {nullptr, 0, 0, 0, 0};
+  const int rt = nv == 0 || nv >= 4 ? 1 : 4 / nv;
+  const int group = nv ? kThreads / T * rt : 1;
+  const int groups = (rows + group - 1) / group;
+  return {k, T, rt, group,
+          std::min(groups, sms * std::min(per_sm, kFwdBlocksPerSm))};
+}
+
+template <typename TX>
+bool launch_fwd(const void* x, const void* w, int w_bf16, void* y,
+                float* inv, int rows, int D, float eps, cudaStream_t stream) {
+  const FwdPlan<TX> plan = fwd_plan<TX>(x, w, y, rows, D);
+  if (plan.kernel == nullptr) return false;
+  plan.kernel<<<plan.grid, kThreads, 0, stream>>>(
+      static_cast<const TX*>(x), w, w_bf16, static_cast<TX*>(y), inv, rows,
+      D, eps, plan.T, plan.rt);
+  return true;
 }
 
 template <typename TX, typename TW>
@@ -501,10 +657,30 @@ bool first_pass_info(int i, const char* dtype, char (&name)[48], int* out) {
   return tc::kernel_info(k, kThreads, 0, out);
 }
 
-// The backward's kernels for reports, in a fixed order: the first pass's
-// four (first_pass_info) for bf16 then f32 x, then the second pass for
-// bf16 and f32 w.  *name points into a buffer that the next call reuses.
-bool bwd_info(int idx, const char** name, int* out) {
+// The forward's kernels for x's dtype TX, for reports: i = 0..3 the vector
+// path at NV 1..4, i = 4 the scalar path.
+template <typename TX>
+bool fwd_info(int i, const char* dtype, char (&name)[48], int* out) {
+  int per_sm = 0;
+  FwdKernel<TX> k;
+  if (i == 4) {
+    k = fwd_kernel<TX, 0>(&per_sm);
+    snprintf(name, sizeof name, "rmsnorm_fwd_any_kernel<%s>", dtype);
+  } else {
+    k = i == 0   ? fwd_kernel<TX, 1>(&per_sm)
+        : i == 1 ? fwd_kernel<TX, 2>(&per_sm)
+        : i == 2 ? fwd_kernel<TX, 3>(&per_sm)
+                 : fwd_kernel<TX, 4>(&per_sm);
+    snprintf(name, sizeof name, "rmsnorm_fwd_kernel<%s,%d>", dtype, i + 1);
+  }
+  return tc::kernel_info(k, kThreads, 0, out);
+}
+
+// The kernels for reports, in a fixed order: the backward's first pass
+// (first_pass_info) for bf16 then f32 x, its second pass for bf16 and f32
+// w, then the forward's five (fwd_info) for bf16 then f32 x.  *name
+// points into a buffer that the next call reuses.
+bool kernels_info(int idx, const char** name, int* out) {
   static char buf[48];
   *name = buf;
   if (idx < 4) return first_pass_info<__nv_bfloat16>(idx, "bf16", buf, out);
@@ -518,26 +694,40 @@ bool bwd_info(int idx, const char** name, int* out) {
     snprintf(buf, sizeof buf, "rmsnorm_dw_kernel<f32>");
     return tc::kernel_info(rmsnorm_dw_kernel<float>, kThreads, 0, out);
   }
+  if (idx < 15) return fwd_info<__nv_bfloat16>(idx - 10, "bf16", buf, out);
+  if (idx < 20) return fwd_info<float>(idx - 15, "f32", buf, out);
   return false;
 }
 
 }  // namespace
 
 // x, y: (rows, D) contiguous; w: (D,).  *_bf16 selects bf16 (1) or f32
-// (0) for each operand.  inv: (rows,) f32, or null to skip it.  Launches
-// on `stream` and leaves the launch's error to cudaGetLastError.
-extern "C" void repro_rmsnorm_fwd(const void* x, const void* w, void* y,
+// (0) for each operand.  inv: (rows,) f32, or null to skip it.  One launch
+// on `stream`.  Returns false, having launched nothing, on a CUDA error
+// before the launch; a launch's own error is left to cudaGetLastError.
+extern "C" bool repro_rmsnorm_fwd(const void* x, const void* w, void* y,
                                   float* inv, int rows, int D, float eps,
-                                  int x_bf16, int w_bf16, int vec,
-                                  cudaStream_t s) {
-  if (x_bf16 && w_bf16)
-    launch<__nv_bfloat16, __nv_bfloat16>(x, w, y, inv, rows, D, eps, vec, s);
-  else if (x_bf16)
-    launch<__nv_bfloat16, float>(x, w, y, inv, rows, D, eps, vec, s);
-  else if (w_bf16)
-    launch<float, __nv_bfloat16>(x, w, y, inv, rows, D, eps, vec, s);
-  else
-    launch<float, float>(x, w, y, inv, rows, D, eps, vec, s);
+                                  int x_bf16, int w_bf16, cudaStream_t s) {
+  if (x_bf16)
+    return launch_fwd<__nv_bfloat16>(x, w, w_bf16, y, inv, rows, D, eps, s);
+  return launch_fwd<float>(x, w, w_bf16, y, inv, rows, D, eps, s);
+}
+
+// The forward's plan for these operands (the pointers and D pick the
+// path, as in repro_rmsnorm_fwd), for tests: out[0] threads a row (T),
+// out[1] rows a block takes at once, out[2] the grid.  False on a CUDA
+// error.
+extern "C" bool repro_rmsnorm_fwd_plan(const void* x, const void* w,
+                                       const void* y, int rows, int D,
+                                       int x_bf16, int* out) {
+  auto put = [&](auto p) {
+    out[0] = p.T;
+    out[1] = p.group;
+    out[2] = p.grid;
+    return p.kernel != nullptr;
+  };
+  return x_bf16 ? put(fwd_plan<__nv_bfloat16>(x, w, y, rows, D))
+                : put(fwd_plan<float>(x, w, y, rows, D));
 }
 
 // Number of f32 partial rows of dw (each D wide) that the backward's
@@ -572,10 +762,10 @@ extern "C" bool repro_rmsnorm_bwd(const void* x, const void* w,
   return launch_bwd<float, float>(x, w, inv, g, dx, dw, part, rows, D, s);
 }
 
-// Facts about the backward's kernels, for reports: idx 0, 1, ... in the
-// order of bwd_info.  Writes the kernel's name and out[0..5]
+// Facts about the forward's and backward's kernels, for reports: idx 0,
+// 1, ... in the order of kernels_info.  Writes the kernel's name and out[0..5]
 // (tc::kernel_info).  Returns false past the last kernel or on a CUDA
 // error.
 extern "C" bool repro_rmsnorm_info(int idx, const char** name, int* out) {
-  return bwd_info(idx, name, out);
+  return kernels_info(idx, name, out);
 }

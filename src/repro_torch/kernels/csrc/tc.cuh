@@ -1,6 +1,6 @@
-// Tensor-core building blocks of flash_attention.cu and cross_entropy.cu
-// (compiled for sm_90a): mma.sync.m16n8k16 with bf16 operands and f32
-// accumulators, ldmatrix fragment loads from shared memory, cp.async
+// Tensor-core building blocks of flash_attention.cu, cross_entropy.cu and
+// ssd_scan.cu (compiled for sm_90a): mma.sync.m16n8k16 with bf16 operands
+// and f32 accumulators, ldmatrix fragment loads from shared memory, cp.async
 // copies with zero fill, a swizzled row-major layout for bf16 tiles, and
 // Hopper's wgmma.m64n256k16 reading that layout through descriptors.
 //
@@ -99,6 +99,14 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
       : "r"(smem_u32(p)));
 }
 
+// Two 8x8 b16 matrices, transposed; lanes 0-15 supply the row addresses.
+__device__ __forceinline__ void ldsm_x2_t(uint32_t (&r)[2], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(smem_u32(p)));
+}
+
 // A fragment (16 x 16) at (m0, k0) of a swizzled row-major [m][k] tile.
 template <int W>
 __device__ __forceinline__ void load_a(uint32_t (&a)[4],
@@ -107,6 +115,18 @@ __device__ __forceinline__ void load_a(uint32_t (&a)[4],
   const int lane = threadIdx.x & 31;
   const int r = m0 + (lane & 15);
   ldsm_x4(a, tile + swz<W>(r, (k0 >> 3) + (lane >> 4)));
+}
+
+// The same A fragment from a swizzled tile stored [k][m] (the transpose
+// of the operand), by ldmatrix.trans: matrices (m, k) = (0, 0), (8, 0),
+// (0, 8), (8, 8) from rows k0 .. k0 + 15, chunks m0 / 8 and m0 / 8 + 1.
+template <int W>
+__device__ __forceinline__ void load_a_km(uint32_t (&a)[4],
+                                          const __nv_bfloat16* tile, int k0,
+                                          int m0) {
+  const int lane = threadIdx.x & 31;
+  const int r = k0 + (lane & 7) + ((lane >> 4) << 3);
+  ldsm_x4_t(a, tile + swz<W>(r, (m0 >> 3) + ((lane >> 3) & 1)));
 }
 
 // B fragments of two n8 blocks (n0 .. n0 + 15) at depth k0 .. k0 + 15,
@@ -129,6 +149,17 @@ __device__ __forceinline__ void load_b_kn(uint32_t (&b)[4],
   const int lane = threadIdx.x & 31;
   const int r = k0 + (lane & 7) + (((lane >> 3) & 1) << 3);
   ldsm_x4_t(b, tile + swz<W>(r, (n0 >> 3) + (lane >> 4)));
+}
+
+// The B fragment of one n8 block (n0 .. n0 + 7) at depth k0 .. k0 + 15
+// from a swizzled tile stored [k][n].
+template <int W>
+__device__ __forceinline__ void load_b_kn1(uint32_t (&b)[2],
+                                           const __nv_bfloat16* tile, int k0,
+                                           int n0) {
+  const int lane = threadIdx.x & 31;
+  const int r = k0 + (lane & 7) + (((lane >> 3) & 1) << 3);
+  ldsm_x2_t(b, tile + swz<W>(r, n0 >> 3));
 }
 
 // c += a * b on one m16n8k16 tile (bf16 in, f32 accumulate).
@@ -154,6 +185,28 @@ __device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (&c0)[4],
   a[1] = pack_bf16(c0[2], c0[3]);
   a[2] = pack_bf16(c1[0], c1[1]);
   a[3] = pack_bf16(c1[2], c1[3]);
+}
+
+// Two f32 values as a pair of bf16 pairs, hi = bf16(v) and lo = bf16(v -
+// hi): hi + lo carries about 16 bits of v, so two products (hi, then lo,
+// into one f32 sum) lose about what an f32 operand would.
+__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(a - hf.x, b - hf.y);
+}
+
+// pack_a with the operand split into hi and lo fragments (split_bf16).
+__device__ __forceinline__ void pack_a_split(uint32_t (&hi)[4],
+                                             uint32_t (&lo)[4],
+                                             const float (&c0)[4],
+                                             const float (&c1)[4]) {
+  split_bf16(c0[0], c0[1], hi[0], lo[0]);
+  split_bf16(c0[2], c0[3], hi[1], lo[1]);
+  split_bf16(c1[0], c1[1], hi[2], lo[2]);
+  split_bf16(c1[2], c1[3], hi[3], lo[3]);
 }
 
 // Facts about a kernel for reports: out[0..5] = registers a thread, local

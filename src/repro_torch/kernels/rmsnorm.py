@@ -5,13 +5,14 @@ The forward replaces ``repro/kernels/rmsnorm.py::rmsnorm_pallas`` (body
 ``_rmsnorm_kernel``); the backward is the twin of
 ``repro/kernels/ref.py::_rmsnorm_vjp_bwd``, which the JAX package runs in
 jnp.  Both are bound by bytes: the least time is the bytes each element
-needs read and written once over HBM bandwidth.  The forward runs one
-thread block per row, with 16-byte vector loads and an f32 sum of squares
-reduced with warp shuffles.  The backward runs a fixed grid of a few
-blocks a SM over the rows, each row read once into registers as 16-byte
-vectors (a scalar path takes any other width or alignment), dw summed
-into one f32 partial row a block and the partials summed in a fixed
-order by a second kernel (see the source notes).
+needs read and written once over HBM bandwidth.  Both run a fixed grid
+of a few blocks a SM over the rows, each row read once into registers
+as 16-byte vectors, the next rows loading while one is reduced (a
+scalar path takes any other width or alignment).  The forward splits a
+row evenly over a team of threads sized to D and keeps w in f32
+registers; the backward sums dw into one f32 partial row a block and
+the partials in a fixed order by a second kernel (see the source
+notes).
 
 The plain versions are :func:`repro_torch.kernels.ref.rmsnorm_fwd_ref`
 and :func:`~repro_torch.kernels.ref.rmsnorm_bwd_ref`; ``kernels/ops.py``

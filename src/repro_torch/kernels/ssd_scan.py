@@ -3,15 +3,20 @@
 
 It replaces ``repro/kernels/ssd_scan.py::ssd_pallas`` (body
 ``_ssd_kernel``).  Bound on the card: bytes (x, dt, B and C read once, y
-and the final state written once); this first version computes in f32
-FMAs on the CUDA cores, so it is bound by that arithmetic instead (see
-the source notes).  One block owns a (batch, head, P-tile) and walks the
-chunks in order, holding its slice of the (P, N) state; a small first
-kernel computes C Bᵀ once per (batch, group, chunk).
+and the final state written once).  One block owns a (batch, head,
+P-tile) and walks the chunks in order, holding its slice of the (P, N)
+f32 state in registers.  bf16 (the models' path) runs its four products
+on the tensor cores (``mma.sync``), with the next chunk loading while
+one computes and C Bᵀ recomputed in the block: one launch.  f32 runs on
+the CUDA cores, with a first small kernel computing C Bᵀ once per
+(batch, group, chunk) into an f32 scratch (see the source notes).
 
 x, B and C keep the JAX layout and are read through their strides (the
 last axis contiguous), so the model's ``xh`` view of (B, S, H * P) is not
-copied.  The tail past S is masked, not padded.
+copied.  The bf16 kernel copies 16-byte chunks, so an x, B or C whose
+address or strides are not a multiple of 16 bytes is copied to new
+memory first, and a state size N that is no multiple of 8 is zero-padded
+(the model's never are).  The tail past S is masked, not padded.
 
 The plain version is :func:`repro_torch.kernels.ref.ssd_ref`;
 ``kernels/ops.py`` sends CPU tensors there.  The JAX package has no SSD
@@ -26,6 +31,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.flash_attention import _chunk_aligned
 
 # kernel launches since the last reset (set to 0 to reset)
 launches = 0
@@ -72,7 +78,7 @@ def ssd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              Bm: torch.Tensor, Cm: torch.Tensor, *, chunk: int = 128,
              init_state: Optional[torch.Tensor] = None,
              return_state: bool = False):
-    """Launches the SSD kernels.  x: (B, S, H, P); dt: (B, S, H) f32
+    """Launches the SSD kernel.  x: (B, S, H, P); dt: (B, S, H) f32
     (post-softplus); A: (H,) f32 (negative); Bm, Cm: (B, S, G, N); x, Bm,
     Cm one dtype (bf16 or f32) on one CUDA device; init_state: (B, H, P,
     N) f32 or None (zeros).  Returns y (B, S, H, P) in x's dtype and, with
@@ -83,11 +89,23 @@ def ssd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     B_, S, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
     y = torch.empty((B_, S, H, P), dtype=x.dtype, device=x.device)
-    h_out = torch.empty((B_, H, P, N), dtype=torch.float32, device=x.device)
-    n_c = -(-S // chunk)
-    cb = torch.empty((B_, G, n_c, chunk, chunk), dtype=torch.float32,
-                     device=x.device)
+    cb = None
+    pad = 0
+    if x.dtype == torch.bfloat16:
+        pad = -N % 8
+        if pad:  # zero columns of B, C and the state add nothing
+            Bm, Cm = (torch.nn.functional.pad(t, (0, pad)) for t in (Bm, Cm))
+            if init_state is not None:
+                init_state = torch.nn.functional.pad(init_state, (0, pad))
+        x, Bm, Cm = (_chunk_aligned(t) for t in (x, Bm, Cm))
+    else:
+        cb = torch.empty((B_, G, -(-S // chunk), chunk, chunk),
+                         dtype=torch.float32, device=x.device)
+    h_out = torch.empty((B_, H, P, N + pad), dtype=torch.float32,
+                        device=x.device)
     build.extension().ssd_fwd(x, dt, A, Bm, Cm, init_state, cb, y, h_out,
                               chunk)
     launches += 1
+    if pad:
+        h_out = h_out[..., :N].contiguous()
     return (y, h_out) if return_state else y

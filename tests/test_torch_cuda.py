@@ -302,6 +302,104 @@ def test_rmsnorm_bwd_kernel_any_width_and_alignment(cuda, D, dtype,
     torch.testing.assert_close(dw.float(), rdw.float(), **_tol(dtype))
 
 
+RMS_FWD_WIDTHS = [384, 513, 768, 1536, 2048, 4096, 8192, 16384]
+
+
+def _fwd_plan(cuda, D, dtype, w_dtype=None):
+    """(threads a row, rows a block takes at once, grid) of the forward
+    for aligned (rows, D) operands, with rows enough to fill the grid."""
+    from repro_torch.kernels import build
+    x = torch.empty((1 << 16, D), dtype=dtype, device=cuda)
+    w = torch.empty((D,), dtype=w_dtype or dtype, device=cuda)
+    return build.extension().rmsnorm_fwd_plan(x, w, x)
+
+
+@pytest.mark.parametrize("D", RMS_FWD_WIDTHS)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("w_dtype", DTYPES)
+@pytest.mark.parametrize("rows_of", ["below", "at", "ragged"])
+def test_rmsnorm_fwd_kernel_rows_against_grid(cuda, D, dtype, w_dtype,
+                                              rows_of):
+    """Row counts below, at and not a multiple of the forward's fixed
+    grid (times the rows a block takes at once), at the models' widths
+    and at widths that leave lanes idle (384), take the scalar path (513,
+    16384; 8192 in f32): y and inv against the plain forward."""
+    _, group, grid = _fwd_plan(cuda, D, dtype, w_dtype)
+    assert grid > 0 and group > 0
+    rows = {"below": grid * group // 2 + 1, "at": grid * group,
+            "ragged": 2 * grid * group + 37}[rows_of]
+    g = torch.Generator(device=cuda).manual_seed(14)
+    x = torch.randn((rows, D), generator=g, device=cuda).to(dtype)
+    w = torch.randn((D,), generator=g, device=cuda).to(w_dtype)
+    n = krms.launches
+    y, inv = krms.rmsnorm_cuda(x, w, 1e-5, return_inv=True)
+    torch.cuda.synchronize()
+    assert krms.launches == n + 1 and y.dtype == dtype
+    ry, rinv = ref.rmsnorm_fwd_ref(x, w, 1e-5)
+    torch.testing.assert_close(y.float(), ry.float(), **_tol(dtype))
+    torch.testing.assert_close(inv, rinv, rtol=3e-5, atol=3e-5)
+
+
+def test_rmsnorm_fwd_splits_rows_evenly(cuda):
+    """The vector path's threads a row at the models' widths: D = 768 in
+    bf16 is 96 vectors, 3 a lane of one warp (8 rows a block); 1536,
+    2048, 4096 and 8192 fill 64, 64, 128 and 256 threads."""
+    bf = torch.bfloat16
+    for D, T in ((768, 32), (1536, 64), (2048, 64), (4096, 128),
+                 (8192, 256)):
+        assert _fwd_plan(cuda, D, bf)[0] == T, D
+    assert _fwd_plan(cuda, 768, bf)[1] == 8
+
+
+@pytest.mark.parametrize("D", [768, 1536, 2048, 4096, 8192])
+@pytest.mark.parametrize("rows", [1, 4, 77])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_rmsnorm_fwd_kernel_few_rows(cuda, D, rows, dtype):
+    """Fewer rows than SMs (decode): the same threads a row and rows a
+    block as a full batch, so the rows come out with the bits they have
+    inside a call of 8192 rows; y and inv against the plain forward."""
+    from repro_torch.kernels import build
+    g = torch.Generator(device=cuda).manual_seed(16)
+    big = torch.randn((8192, D), generator=g, device=cuda).to(dtype)
+    x = big[:rows].clone()
+    w = torch.randn((D,), generator=g, device=cuda).to(dtype)
+    plan = build.extension().rmsnorm_fwd_plan
+    assert plan(x, w, x)[:2] == plan(big, w, big)[:2]
+    y, inv = krms.rmsnorm_cuda(x, w, 1e-5, return_inv=True)
+    y_big, inv_big = krms.rmsnorm_cuda(big, w, 1e-5, return_inv=True)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y_big[:rows]) and torch.equal(inv, inv_big[:rows])
+    ry, rinv = ref.rmsnorm_fwd_ref(x, w, 1e-5)
+    torch.testing.assert_close(y.float(), ry.float(), **_tol(dtype))
+    torch.testing.assert_close(inv, rinv, rtol=3e-5, atol=3e-5)
+
+
+@pytest.mark.parametrize("D", [768, 4096, 5001])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("misaligned", ["x", "y", "w"])
+def test_rmsnorm_fwd_kernel_takes_misaligned_operands(cuda, D, dtype,
+                                                      misaligned):
+    """x, y or w one element off a 16-byte aligned address: the forward
+    takes its scalar path and agrees with the plain forward."""
+    from repro_torch.kernels import build
+    g = torch.Generator(device=cuda).manual_seed(15)
+    x = torch.randn((300, D), generator=g, device=cuda).to(dtype)
+    w = torch.randn((D,), generator=g, device=cuda).to(dtype)
+    ry, rinv = ref.rmsnorm_fwd_ref(x, w, 1e-5)
+    y = torch.empty_like(x)
+    if misaligned == "x":
+        x = _off_by_one(x)
+    elif misaligned == "w":
+        w = _off_by_one(w)
+    else:
+        y = _off_by_one(y)
+    inv = torch.empty((300,), device=cuda)
+    build.extension().rmsnorm_fwd(x, w, y, 1e-5, inv)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y.float(), ry.float(), **_tol(dtype))
+    torch.testing.assert_close(inv, rinv, rtol=3e-5, atol=3e-5)
+
+
 @pytest.mark.parametrize("case", BWD_CASES)
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_flash_lse_and_bwd_kernels_match_plain(cuda, case, dtype):
@@ -353,8 +451,8 @@ def test_ce_kernel_matches_plain(cuda, T, D, V, dtype):
 def test_tensor_core_kernels_are_deterministic(cuda):
     """No atomics: two calls of the bf16 flash backward (G = 8, dk and dv
     summed over a cluster), of the bf16 CE forward, of the bf16 flash
-    forward and of the RMSNorm backward (dw summed over partial rows)
-    give the same bits."""
+    forward, of the RMSNorm backward (dw summed over partial rows) and
+    forward, and of the bf16 SSD scan give the same bits."""
     g = torch.Generator(device=cuda).manual_seed(9)
     bf = torch.bfloat16
     q, do = (torch.randn((2, 200, 16, 128), generator=g, device=cuda).to(bf)
@@ -382,12 +480,29 @@ def test_tensor_core_kernels_are_deterministic(cuda):
     for a, b in zip(krms.rmsnorm_bwd_cuda(x, w, inv, dy),
                     krms.rmsnorm_bwd_cuda(x, w, inv, dy)):
         assert torch.equal(a, b)
+    # the RMSNorm forward: rows spanning warps (4096) and a warp a row
+    # (768)
+    for D in (4096, 768):
+        xr = torch.randn((3000, D), generator=g, device=cuda).to(bf)
+        wr = torch.randn((D,), generator=g, device=cuda).to(bf)
+        for a, b in zip(krms.rmsnorm_cuda(xr, wr, 1e-5, return_inv=True),
+                        krms.rmsnorm_cuda(xr, wr, 1e-5, return_inv=True)):
+            assert torch.equal(a, b)
+    # the bf16 SSD scan (tensor cores), with an initial state
+    xs, dt, A, Bm, Cm, h0 = _ssd_inputs((2, 300, 8, 64, 1, 128, 128), bf,
+                                        cuda, seed=9, state=True)
+    for a, b in zip(kssd.ssd_cuda(xs, dt, A, Bm, Cm, init_state=h0,
+                                  return_state=True),
+                    kssd.ssd_cuda(xs, dt, A, Bm, Cm, init_state=h0,
+                                  return_state=True)):
+        assert torch.equal(a, b)
 
 
 def test_tensor_core_kernels_fit_without_spills(cuda):
     """Every redesigned kernel (tensor-core flash forward and backward, CE
-    forward, RMSNorm backward) keeps its state in registers (no local
-    memory) and fits at least one block a SM at its launch size."""
+    forward, RMSNorm backward and forward, tensor-core SSD scan) keeps its
+    state in registers (no local memory) and fits at least one block a SM
+    at its launch size."""
     from repro_torch.kernels import build
     rows = build.extension().kernel_info()
     names = [name for name, _ in rows]
@@ -400,6 +515,14 @@ def test_tensor_core_kernels_fit_without_spills(cuda):
                  "rmsnorm_bwd_any_kernel<f32>",
                  "rmsnorm_dw_kernel<bf16>", "rmsnorm_dw_kernel<f32>"):
         assert name in names
+    for dtype in ("bf16", "f32"):
+        assert f"rmsnorm_fwd_any_kernel<{dtype}>" in names
+        for nv in (1, 2, 3, 4):
+            assert f"rmsnorm_fwd_kernel<{dtype},{nv}>" in names
+    for n in (32, 64, 128):
+        assert f"ssd_scan_tc_kernel<{n}>" in names
+    # the SSD scan's design point at zamba2-1.2b's shape: two blocks a SM
+    assert dict(rows)["ssd_scan_tc_kernel<64>"][5] >= 2
     # the flash forward's design point: two blocks of 4 warps a SM
     assert dict(rows)["flash_fwd_tc_kernel<128>"][5] >= 2
     for name, (regs, local, _, _, _, blocks) in rows:
@@ -562,6 +685,79 @@ def test_ssd_kernel_rejects_bad_inputs_and_gradients(cuda):
                       A, Bm, Cm, chunk=8)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ops.ssd(x.requires_grad_(), dt, A, Bm, Cm, chunk=8)
+
+
+# The bf16 tensor-core scan: N = 128 with P = 64 (mamba2-130m's head),
+# ragged S over several chunks, G > 1, N no multiple of 8 (padded by the
+# wrapper), and P narrower than the 64-column P-tile.
+SSD_TC_CASES = [
+    (2, 300, 4, 64, 1, 128, 128),
+    (1, 517, 6, 64, 2, 64, 128),
+    (2, 333, 4, 32, 1, 20, 64),
+    (1, 200, 3, 24, 1, 48, 96),
+    (1, 9, 2, 8, 1, 8, 16),
+]
+
+
+@pytest.mark.parametrize("case", SSD_TC_CASES)
+def test_ssd_tc_kernel_matches_plain(cuda, case):
+    x, dt, A, Bm, Cm, h0 = _ssd_inputs(case, torch.bfloat16, cuda, seed=7,
+                                       state=True)
+    chunk = case[-1]
+    n = kssd.launches
+    y, h = kssd.ssd_cuda(x, dt, A, Bm, Cm, chunk=chunk, init_state=h0,
+                         return_state=True)
+    torch.cuda.synchronize()
+    assert kssd.launches == n + 1 and h.shape == h0.shape
+    ry, rh = ref.ssd_ref(x, dt, A, Bm, Cm, chunk=chunk, init_state=h0,
+                         return_state=True)
+    torch.testing.assert_close(y.float(), ry.float(),
+                               **_ssd_tol(torch.bfloat16))
+    torch.testing.assert_close(h, rh, **_ssd_tol(torch.bfloat16))
+
+
+def test_ssd_tc_kernel_reads_views_and_copies_misaligned(cuda):
+    """x as the model's view of (B, S, H * P) and B/C as slices of one
+    (B, S, 2N) tensor are read in place; B and C one element off a
+    16-byte boundary, and x with a row stride that is no multiple of 8,
+    are copied to new memory: all give the bits of contiguous inputs."""
+    B, S, H, P, N, Q = 2, 260, 4, 64, 64, 128
+    bf = torch.bfloat16
+    g = torch.Generator(device=cuda).manual_seed(8)
+    xs = (torch.randn((B, S, H * P + 8), generator=g, device=cuda)
+          * 0.5).to(bf)
+    bc = (torch.randn((B, S, 2 * N + 1), generator=g, device=cuda)
+          * 0.3).to(bf)
+    dt = torch.nn.functional.softplus(
+        torch.randn((B, S, H), generator=g, device=cuda))
+    A = -torch.exp(torch.randn((H,), generator=g, device=cuda) * 0.3)
+    x = xs[..., :H * P].reshape(B, S, H, P)
+    Bm, Cm = bc[..., :N].unsqueeze(2), bc[..., N:2 * N].unsqueeze(2)
+    want = kssd.ssd_cuda(x.contiguous(), dt, A, Bm.contiguous(),
+                         Cm.contiguous(), chunk=Q, return_state=True)
+    got = kssd.ssd_cuda(x, dt, A, Bm, Cm, chunk=Q, return_state=True)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    # B, C one element past an aligned address: a misaligned view
+    Bo, Co = bc[..., 1:N + 1].unsqueeze(2), bc[..., N + 1:].unsqueeze(2)
+    assert Bo.data_ptr() % 16 and Co.data_ptr() % 16
+    want = kssd.ssd_cuda(x, dt, A, Bo.contiguous(), Co.contiguous(),
+                         chunk=Q, return_state=True)
+    got = kssd.ssd_cuda(x, dt, A, Bo, Co, chunk=Q, return_state=True)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    # x with a row stride of H * P + 1 elements
+    xo = (torch.randn((B, S, H * P + 1), generator=g, device=cuda)
+          * 0.5).to(bf)[..., :H * P].reshape(B, S, H, P)
+    want = kssd.ssd_cuda(xo.contiguous(), dt, A, Bm, Cm, chunk=Q,
+                         return_state=True)
+    got = kssd.ssd_cuda(xo, dt, A, Bm, Cm, chunk=Q, return_state=True)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    ry, rh = ref.ssd_ref(xo, dt, A, Bm, Cm, chunk=Q, return_state=True)
+    torch.testing.assert_close(got[0].float(), ry.float(),
+                               **_ssd_tol(bf))
+    torch.testing.assert_close(got[1], rh, **_ssd_tol(bf))
 
 
 @pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-1.2b"])
