@@ -56,14 +56,39 @@ Phases, each of which fails the run (non-zero exit, no final result line):
 8. end to end, training, at full width and 2 layers: one
    ``grads_and_metrics`` through the kernels against one through
    ``use_kernels=False``, loss within relative 1e-2 and every gradient leaf
-   within relative L2 5e-2.
+   within relative L2 5e-2;
+9. training_carousel: ``run_training`` on the Data Carousel, as its
+   defaults run it (8 shards, 4 drives, 1 ms a tape read, fault rate
+   0.02), at full width and depth, 3 steps of 4 x 512 tokens; launches
+   held against the training formula; time to the first batch by the
+   delivery's clock and by ``run_training``'s, each step's wait in
+   ``next()``, the tape's reads and failed reads, hedges, rows delivered
+   and received, step times beside phase 7's, tokens/s, peak memory;
+10. carousel_fine_vs_coarse: full width, 2 layers, 6 steps, one tape
+   drive at 0.4 s a shard, fine delivery then coarse: coarse's first
+   batch must come more than 1.5 s after fine's;
+11. checkpoint_resume: full width, 2 layers (8.7 GB of state): 4 steps
+   saving every 2 into a temporary directory, the newest checkpoint
+   loaded onto the card equal leaf by leaf (``torch.equal``) to the state
+   it saved, one step from each on one batch, then a resume of 2 steps to
+   step 6; bytes, host-copy, writer and load times;
+12. remat_dots: full width, 2 layers, ``grads_and_metrics`` with
+   ``remat="dots"`` through the kernels against the plain path (loss 1e-2,
+   leaves relative L2 5e-2) and against "full" (printed), launches equal to
+   "full"'s; then step time, peak memory and allocator retries of "full"
+   and "dots" at REMAT_LAYERS layers, and one more step of each under
+   ``torch.profiler`` (wall, device time, busy share).
+
+Phases 9-11 drive the entry point; each of their runs has its launch
+counters reset just before it and read just after.
 
 It prints a ``{"kernel_info": [...]}`` line, a ``{"kernels": [...]}`` line
 and, last, ``{"ok": true, ...}``.
 A kernel's ``launches`` there is the sum of its counts over the three
-serving runs and the training run; ``ssd_scan``'s row is the zamba2-1.2b
-prefill shape.  Weights are random, made on the card from a seed;
-nothing is downloaded.
+serving runs, the training run and the runs of phases 9-11 (``ssd_scan``:
+the serving runs only); ``ssd_scan``'s row is the zamba2-1.2b prefill
+shape.  Weights are random, made on the card from a seed; data is
+synthetic, from a seed; nothing is downloaded.
 """
 from __future__ import annotations
 
@@ -109,6 +134,16 @@ SSM_ARCHS, SSM_PROMPT = ("zamba2-1.2b", "mamba2-130m"), 2048
 TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH = 3, 512, 4
 HALF_STEPS = 3  # warm steps whose two halves are timed alone
 E2E_TRAIN_LAYERS = 2
+# the carousel's fine vs coarse delivery: one tape drive, 0.4 s a shard
+FINE_COARSE = dict(steps=6, tape_latency=0.4, drives=1)
+FINE_COARSE_GAP_S = 1.5  # coarse's first batch this much later at least
+# checkpoints: CKPT_STEPS steps saved every CKPT_EVERY, then a resume
+CKPT_STEPS, CKPT_EVERY, CKPT_RESUME_STEPS = 4, 2, 2
+# remat "dots" at full depth: it keeps q, k, v, o, gate, up and down,
+# (4096 + 2 x 512 + 4096 + 3 x 11008) x 2 B = 145 MB a layer at 2048
+# tokens, 4.6 GB over 32 layers, on top of "full"'s 75.1 GB peak: 79.7 GB
+# of the card's 85.0 GB, so the whole model
+REMAT_LAYERS, REMAT_STEPS = 32, 3
 DEVICE = "cuda"
 
 # B, Sq, Sk, Hq, Hkv, D, causal, window, q_off, kv_len: the six CASES of
@@ -802,7 +837,62 @@ def phase_breakdown(params, prompt: torch.Tensor, arch: str = ARCH,
         log(label + "_decode4", json.dumps(_profile(decode4)))
 
 
-def phase_training(failures: list) -> dict:
+TRAIN_KERNELS = ("rmsnorm", "rmsnorm_bwd", "flash_attention",
+                 "flash_attention_bwd", "cross_entropy")
+
+
+def training_launches(layers: int, steps: int) -> dict:
+    """Kernel launches of ``steps`` training steps: per step, with remat
+    "full" or "dots", each block's forward runs twice (the forward, then
+    the recompute in the backward); ln_f is outside the checkpointed
+    blocks; one CE call."""
+    L = layers
+    return {k: n * steps for k, n in zip(TRAIN_KERNELS, (
+        2 * L + 1 + 2 * L, 2 * L + 1, 2 * L, L, 1))}
+
+
+def reset_launches() -> None:
+    for mod in (krms, kflash, kce, kssd):
+        mod.launches = 0
+    krms.bwd_launches = kflash.bwd_launches = 0
+
+
+def read_launches() -> dict:
+    return {"rmsnorm": krms.launches, "rmsnorm_bwd": krms.bwd_launches,
+            "flash_attention": kflash.launches,
+            "flash_attention_bwd": kflash.bwd_launches,
+            "cross_entropy": kce.launches}
+
+
+def _timed_run(failures: list, label: str, layers: int, steps: int,
+               **kw) -> tuple:
+    """One ``run_training`` at full width and ``layers`` layers, counted
+    (launch counters reset just before, read just after, held against
+    ``training_launches``), its losses checked finite, and timed through
+    ``on_step``.  Returns (result, launches, step stamps, start time)."""
+    stamps = []
+
+    def on_step(i, metrics):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    reset_launches()
+    t0 = time.perf_counter()
+    res = train.run_training(
+        ARCH, smoke=False, num_layers=layers, steps=steps, seq_len=TRAIN_SEQ,
+        global_batch=TRAIN_BATCH, device=DEVICE, on_step=on_step, **kw)
+    counts = read_launches()
+    want = training_launches(layers, res["steps"])
+    if counts != want:
+        failures.append(f"{label} launch counts {counts} != {want}")
+    if res["steps"] != steps or not all(
+            torch.isfinite(torch.tensor(res["losses"]))):
+        failures.append(f"{label}: {res['steps']} steps, losses "
+                        f"{res['losses']}")
+    return res, counts, stamps, t0
+
+
+def phase_training(failures: list) -> tuple:
     """The training path at full width and depth, counted and timed; then
     one more step (warm) under the profiler."""
     cfg = get_config(ARCH)
@@ -811,52 +901,25 @@ def phase_training(failures: list) -> dict:
     # the allocator's retries (a cudaMalloc that failed, the cache freed,
     # then retried), cumulative, at the points of this phase
     retries = {"before": torch.cuda.memory_stats()["num_alloc_retries"]}
-    for mod in (krms, kflash, kce):
-        mod.launches = 0
-    krms.bwd_launches = kflash.bwd_launches = 0
-    stamps = []
-
-    def on_step(i, metrics):
-        torch.cuda.synchronize()
-        stamps.append(time.perf_counter())
-
-    t0 = time.perf_counter()
-    res = train.run_training(ARCH, smoke=False, steps=TRAIN_STEPS,
-                             seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
-                             carousel=False, device=DEVICE, on_step=on_step)
-    counts = {"rmsnorm": krms.launches, "rmsnorm_bwd": krms.bwd_launches,
-              "flash_attention": kflash.launches,
-              "flash_attention_bwd": kflash.bwd_launches,
-              "cross_entropy": kce.launches}
+    L = cfg.num_layers
+    res, counts, stamps, t0 = _timed_run(failures, "training", L,
+                                         TRAIN_STEPS, carousel=False)
     peak = torch.cuda.max_memory_allocated()
     retries["after_run_training"] = torch.cuda.memory_stats()[
         "num_alloc_retries"]
-    # per step, with remat="full": each block's forward runs twice (the
-    # forward, then the recompute in the backward); ln_f is outside the
-    # checkpointed blocks; one CE call
-    L = cfg.num_layers
-    want = {k: n * TRAIN_STEPS for k, n in (
-        ("rmsnorm", 2 * L + 1 + 2 * L), ("rmsnorm_bwd", 2 * L + 1),
-        ("flash_attention", 2 * L), ("flash_attention_bwd", L),
-        ("cross_entropy", 1))}
     steps_s = [b - a for a, b in zip(stamps, stamps[1:])]
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    losses = res["losses"]
     log("training", json.dumps({
         "arch": ARCH, "layers": L, "steps": res["steps"],
-        "tokens_per_step": tokens, "losses": losses,
+        "tokens_per_step": tokens, "losses": res["losses"],
         "first_step_s": stamps[0] - t0 if stamps else None,
         "step_s_2_3": steps_s,
         "tokens_per_s": tokens / statistics.mean(steps_s),
         "wall_s": res["wall_s"], "peak_mem_bytes": peak,
         "opt_state_dtype": train.default_run_config(
             cfg, TRAIN_STEPS).opt_state_dtype,
-        "launches": counts, "expected_launches": want}))
-    if counts != want:
-        failures.append(f"training launch counts {counts} != {want}")
-    if len(losses) != TRAIN_STEPS or not all(
-            torch.isfinite(torch.tensor(losses))):
-        failures.append(f"training losses {losses}")
+        "launches": counts,
+        "expected_launches": training_launches(L, TRAIN_STEPS)}))
 
     run = train.default_run_config(cfg, TRAIN_STEPS)
     batch = registry.synth_inputs(
@@ -891,7 +954,7 @@ def phase_training(failures: list) -> dict:
     log("breakdown_train_step", json.dumps(row))
     del state, res, batch
     torch.cuda.empty_cache()
-    return counts
+    return counts, steps_s
 
 
 def _tree_items(tree, prefix=""):
@@ -933,6 +996,241 @@ def phase_training_end_to_end(failures: list) -> None:
                         f"finite={finite}")
     del params, gk, gp
     torch.cuda.empty_cache()
+
+
+def _carousel_row(res: dict) -> dict:
+    car = res["carousel"]
+    return {"time_to_first_batch_s": res["time_to_first_batch_s"],
+            "delivery_first_batch_s": car["time_to_first_batch_s"],
+            "next_wait_s": car["next_wait_s"], "reads": car["reads"],
+            "failed_reads": car["failed_reads"], "hedges": car["hedges"],
+            "shards_landed": car["shards_landed"],
+            "rows_delivered": car["rows_delivered"],
+            "rows_received": car["rows_received"],
+            "skipped_shards": car["skipped_shards"]}
+
+
+def phase_training_carousel(failures: list, training_steps_s: list) -> list:
+    """``run_training`` as its default runs it, on the carousel (8 shards,
+    4 drives, 1 ms a tape read, fault rate 0.02), at full width and depth:
+    counted and timed as phase "training" is."""
+    cfg = get_config(ARCH)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res, counts, stamps, t0 = _timed_run(
+        failures, "training_carousel", cfg.num_layers, TRAIN_STEPS,
+        carousel=True)
+    peak = torch.cuda.max_memory_allocated()
+    steps_s = [b - a for a, b in zip(stamps, stamps[1:])]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    row = dict(_carousel_row(res), arch=ARCH, layers=cfg.num_layers,
+               steps=res["steps"], losses=res["losses"],
+               first_step_s=stamps[0] - t0, step_s_2_3=steps_s,
+               training_step_s_2_3=training_steps_s,
+               tokens_per_s=tokens / statistics.mean(steps_s),
+               wall_s=res["wall_s"], peak_mem_bytes=peak, launches=counts,
+               expected_launches=training_launches(cfg.num_layers,
+                                                   TRAIN_STEPS))
+    log("training_carousel", json.dumps(row))
+    if row["rows_delivered"] < TRAIN_STEPS * TRAIN_BATCH or \
+            row["rows_received"] < row["rows_delivered"]:
+        failures.append(f"training_carousel rows: delivered "
+                        f"{row['rows_delivered']}, received "
+                        f"{row['rows_received']}")
+    del res
+    torch.cuda.empty_cache()
+    return [counts]
+
+
+def phase_carousel_fine_vs_coarse(failures: list) -> list:
+    """Time to the first batch with fine delivery against coarse, the
+    tape slow (one drive, 0.4 s a shard): coarse waits for all 8 shards.
+    Full width, E2E_TRAIN_LAYERS layers."""
+    out, all_counts = {}, []
+    for coarse in (False, True):
+        mode = "coarse" if coarse else "fine"
+        res, counts, stamps, t0 = _timed_run(
+            failures, f"carousel_{mode}", E2E_TRAIN_LAYERS,
+            FINE_COARSE["steps"], carousel=True, coarse=coarse,
+            tape_latency=FINE_COARSE["tape_latency"],
+            drives=FINE_COARSE["drives"])
+        out[mode] = dict(_carousel_row(res), losses=res["losses"],
+                         step_s=[b - a for a, b in zip(stamps, stamps[1:])])
+        all_counts.append(counts)
+        del res
+    gap = (out["coarse"]["time_to_first_batch_s"]
+           - out["fine"]["time_to_first_batch_s"])
+    log("carousel_fine_vs_coarse", json.dumps(dict(
+        out, layers=E2E_TRAIN_LAYERS, **FINE_COARSE, gap_s=gap,
+        min_gap_s=FINE_COARSE_GAP_S)))
+    if not gap > FINE_COARSE_GAP_S:
+        failures.append(f"coarse's first batch only {gap} s after fine's")
+    torch.cuda.empty_cache()
+    return all_counts
+
+
+def _tree_equal(a, b) -> bool:
+    if isinstance(a, dict):
+        return set(a) == set(b) and all(_tree_equal(a[k], b[k]) for k in a)
+    if isinstance(a, int):
+        return a == int(b)
+    return a.dtype == b.dtype and torch.equal(a, b)
+
+
+def phase_checkpoint_resume(failures: list) -> list:
+    """CKPT_STEPS carousel-fed steps saving every CKPT_EVERY into a
+    temporary directory, then a resume for CKPT_RESUME_STEPS more; the
+    newest checkpoint of the first run, loaded onto the card, against the
+    state it saved; one step from each on the same batch.  Full width,
+    E2E_TRAIN_LAYERS layers."""
+    import tempfile
+
+    from repro_torch.ckpt import latest_step, load_checkpoint
+
+    cfg = get_config(ARCH).replace(num_layers=E2E_TRAIN_LAYERS)
+    run = train.default_run_config(cfg, CKPT_STEPS)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as out:
+        r1, c1, _, _ = _timed_run(failures, "checkpoint_run", cfg.num_layers,
+                                  CKPT_STEPS, out_dir=out,
+                                  ckpt_every=CKPT_EVERY)
+        state = r1.pop("state")
+        newest = latest_step(out)
+        step_dir = Path(out) / f"step_{newest:08d}"
+        disk_bytes = sum(f.stat().st_size for f in step_dir.iterdir())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loaded, meta = load_checkpoint(out, device=DEVICE)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        equal = _tree_equal(state, loaded)
+        # one step from the loaded state and one from the state in memory
+        loaded["opt"]["step"] = int(loaded["opt"]["step"])
+        batch = registry.synth_inputs(
+            torch.Generator(device=DEVICE).manual_seed(21), cfg,
+            ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train"), "train",
+            device=DEVICE)
+        step_fn = tstep.make_train_step(cfg, run)
+        _, m_loaded = step_fn(loaded, batch)
+        _, m_mem = step_fn(state, batch)
+        loss_diff = float(m_loaded["loss"]) - float(m_mem["loss"])
+        del loaded, state, batch
+        torch.cuda.empty_cache()
+        r2, c2, _, _ = _timed_run(failures, "checkpoint_resume",
+                                  cfg.num_layers, CKPT_RESUME_STEPS,
+                                  out_dir=out, ckpt_every=CKPT_EVERY,
+                                  resume=True)
+        del r2["state"]
+        kept = sorted(p.name for p in Path(out).iterdir())
+    ck = r1["checkpoint"]
+    log("checkpoint_resume", json.dumps({
+        "layers": cfg.num_layers, "steps": CKPT_STEPS,
+        "ckpt_every": CKPT_EVERY, "newest_step": newest,
+        "meta_step": meta["step"], "leaves_equal": equal,
+        "loss_loaded_minus_in_memory": loss_diff,
+        "bytes_on_disk": disk_bytes, "bytes_written": ck["bytes_written"],
+        "saves": len(ck["copy_s"]), "host_copy_s": ck["copy_s"],
+        "writer_s": ck["write_s"], "load_s": load_s,
+        "resume_final_step": r2["final_step"],
+        "resume_losses": r2["losses"],
+        "resume_host_copy_s": r2["checkpoint"]["copy_s"],
+        "resume_writer_s": r2["checkpoint"]["write_s"],
+        "kept_after_resume": kept}))
+    if newest != CKPT_STEPS or meta["step"] != CKPT_STEPS:
+        failures.append(f"checkpoint: newest step {newest}, meta "
+                        f"{meta['step']}")
+    if not equal:
+        failures.append("checkpoint: loaded leaves differ from the state "
+                        "at the save")
+    if r2["final_step"] != CKPT_STEPS + CKPT_RESUME_STEPS:
+        failures.append(f"resume: final step {r2['final_step']}")
+    torch.cuda.empty_cache()
+    return [c1, c2]
+
+
+def phase_remat_dots(failures: list) -> list:
+    """``remat="dots"`` at full width and E2E_TRAIN_LAYERS layers: one
+    ``grads_and_metrics`` through the kernels against the plain path and
+    against "full" through the kernels, launches equal to "full"'s; then
+    step time, peak memory and allocator retries of "full" and "dots" at
+    REMAT_LAYERS, and one profiled step of each."""
+    cfg = get_config(ARCH).replace(num_layers=E2E_TRAIN_LAYERS)
+    dev = torch.device(DEVICE)
+    params = serve.init_params(cfg, 13, dev)
+    batch = registry.synth_inputs(
+        torch.Generator(device=dev).manual_seed(14), cfg,
+        ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train"), "train",
+        device=dev)
+    run = train.default_run_config(cfg, TRAIN_STEPS)
+    out, counts = {}, {}
+    for key, r in (("dots", run.replace(remat="dots")),
+                   ("full", run.replace(remat="full")),
+                   ("dots_plain", run.replace(remat="dots",
+                                              use_kernels=False))):
+        reset_launches()
+        out[key] = tstep.grads_and_metrics(params, cfg, r, batch)
+        counts[key] = read_launches()
+    (gd, md), (gf, mf), (gp, mp) = out["dots"], out["full"], out["dots_plain"]
+    ld, lf, lp = float(md["loss"]), float(mf["loss"]), float(mp["loss"])
+    rel_plain = {n: _rel_l2(a, b) for (n, a), (_, b) in
+                 zip(_tree_items(gd), _tree_items(gp))}
+    rel_full = {n: _rel_l2(a, b) for (n, a), (_, b) in
+                zip(_tree_items(gd), _tree_items(gf))}
+    finite = all(bool(torch.isfinite(g).all()) for g in P.tree_leaves(gd))
+    want = training_launches(E2E_TRAIN_LAYERS, 1)
+    row = {"layers": E2E_TRAIN_LAYERS, "loss_dots": ld, "loss_full": lf,
+           "loss_dots_plain": lp, "loss_rel_plain": abs(ld - lp) / abs(lp),
+           "loss_tol": LOSS_TOL, "grad_rel_l2_plain": rel_plain,
+           "grad_tol": E2E_TOL, "grad_rel_l2_full": rel_full,
+           "loss_dots_minus_full": ld - lf, "grads_finite": finite,
+           "launches_dots": counts["dots"], "launches_full": counts["full"],
+           "expected_launches": want}
+    del params, batch, out, gd, gf, gp
+    torch.cuda.empty_cache()
+    if not row["loss_rel_plain"] <= LOSS_TOL:
+        failures.append(f"remat dots loss kernels {ld} vs plain {lp}")
+    bad = {k: r for k, r in rel_plain.items() if not r <= E2E_TOL}
+    if bad or not finite:
+        failures.append(f"remat dots grads rel L2 > {E2E_TOL}: {bad}, "
+                        f"finite={finite}")
+    if not counts["dots"] == counts["full"] == want:
+        failures.append(f"remat dots launches {counts['dots']}, full "
+                        f"{counts['full']}, expected {want}")
+
+    # step time and peak memory, one state for both
+    cfg = get_config(ARCH).replace(num_layers=REMAT_LAYERS)
+    run = train.default_run_config(cfg, REMAT_STEPS)
+    state = tstep.init_state(
+        torch.Generator(device=dev).manual_seed(run.seed), cfg, run)
+    batch = registry.synth_inputs(
+        torch.Generator(device=dev).manual_seed(15), cfg,
+        ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train"), "train",
+        device=dev)
+    for remat in ("full", "dots"):
+        step_fn = tstep.make_train_step(cfg, run.replace(remat=remat))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        retries = torch.cuda.memory_stats()["num_alloc_retries"]
+        times, losses = [], []
+        for _ in range(REMAT_STEPS):
+            t0 = time.perf_counter()
+            _, m = step_fn(state, batch)
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        row[f"{remat}_step_s"] = times
+        row[f"{remat}_losses"] = losses
+        row[f"{remat}_peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+        row[f"{remat}_alloc_retries"] = torch.cuda.memory_stats()[
+            "num_alloc_retries"] - retries
+        # one more step under the profiler: wall against device time
+        prof = _profile(lambda: step_fn(state, batch), top=4)
+        row[f"{remat}_profiled"] = {k: prof[k] for k in (
+            "wall_ms", "device_ms", "busy_share", "top")}
+    row["timed_layers"] = REMAT_LAYERS
+    log("remat_dots", json.dumps(row))
+    del state, batch
+    torch.cuda.empty_cache()
+    return []  # its launches are comparisons, not the main path's
 
 
 def main() -> int:
@@ -995,11 +1293,19 @@ def main() -> int:
         log(f"{arch} phases: {time.perf_counter() - t0:.2f} s")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    train_counts = phase_training(failures)
+    train_counts, train_steps_s = phase_training(failures)
     log(f"training phase: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     phase_training_end_to_end(failures)
     log(f"end-to-end training phase: {time.perf_counter() - t0:.2f} s")
+    for name, phase, args in (
+            ("training_carousel", phase_training_carousel, (train_steps_s,)),
+            ("carousel_fine_vs_coarse", phase_carousel_fine_vs_coarse, ()),
+            ("checkpoint_resume", phase_checkpoint_resume, ()),
+            ("remat_dots", phase_remat_dots, ())):
+        t0 = time.perf_counter()
+        counts += phase(failures, *args)
+        log(f"{name} phase: {time.perf_counter() - t0:.2f} s")
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

@@ -2,8 +2,14 @@
 ``repro/models/transformer.py``.
 
 Layers are stacked on a leading L axis as in the JAX tree; a Python loop
-over layers takes the place of ``lax.scan``, and ``run.remat="full"``
-wraps each block in ``torch.utils.checkpoint`` as ``jax.checkpoint`` does.
+over layers takes the place of ``lax.scan``.  ``run.remat="full"`` wraps
+each block in ``torch.utils.checkpoint`` as ``jax.checkpoint`` does;
+``"dots"`` checkpoints it selectively, saving the outputs of the 2-D
+products with no batch dims (the projections ``x @ W``: ``aten.mm`` and
+``aten.addmm``) and recomputing everything else, as
+``jax.checkpoint_policies.dots_with_no_batch_dims_saveable`` does.
+Attention's batched products (``bmm``) and the kernels' outputs are
+recomputed.
 ``params["blocks"]`` may also be a list of per-layer trees (views into the
 stacks): the training step passes that, so that autograd takes each
 layer's gradient on its own view instead of on the whole stack.
@@ -13,7 +19,8 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.models import layers as L
@@ -54,21 +61,37 @@ def _block(p_l: Params, cfg: ModelConfig, run: RunConfig, x: torch.Tensor,
     return x + L.mlp(p_l["mlp"], cfg, run, h)
 
 
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
 def _run_blocks(params: Params, cfg: ModelConfig, run: RunConfig,
                 x: torch.Tensor, pos: int, cache: Optional[Params] = None,
                 kv_len: Optional[int] = None,
-                remat: bool = False) -> torch.Tensor:
+                remat: str = "none") -> torch.Tensor:
     """Runs every block, then ``ln_f``.  A given cache is updated in place
-    (each layer's slice is a view into the stack).  ``remat`` (with grad
-    mode on) keeps only each block's input for the backward and runs the
-    block again there."""
+    (each layer's slice is a view into the stack).  With grad mode on,
+    ``remat="full"`` keeps only each block's input for the backward and
+    runs the block again there; ``"dots"`` keeps the projections' outputs
+    too and runs the rest of the block again."""
+    if remat not in ("none", "full", "dots"):
+        raise ValueError(f"unknown remat {remat!r}")
     blocks = params["blocks"]
     for i in range(cfg.num_layers):
         p_l = blocks[i] if isinstance(blocks, list) else P.layer(blocks, i)
         c_l = None if cache is None else P.layer(cache, i)
-        if remat and torch.is_grad_enabled():
+        if remat != "none" and torch.is_grad_enabled():
+            ctx = {"context_fn": _dots_context} if remat == "dots" else {}
             x = checkpoint(_block, p_l, cfg, run, x, pos, c_l, kv_len,
-                           use_reentrant=False)
+                           use_reentrant=False, **ctx)
         else:
             x = _block(p_l, cfg, run, x, pos, c_l, kv_len)
     return L.rmsnorm(params["ln_f"], x, cfg, run)
@@ -78,12 +101,8 @@ def forward(params: Params, cfg: ModelConfig, run: RunConfig,
             batch: Dict[str, Any]) -> torch.Tensor:
     """Forward over a (B, S) batch -> final hidden states (B, S, d)."""
     _check_family(cfg)
-    if run.remat not in ("none", "full"):
-        raise NotImplementedError(
-            f"remat {run.remat!r} is not ported yet (ROADMAP A4); use "
-            "'full' or 'none'")
     x = L.embed(params["embed"], batch["tokens"])
-    return _run_blocks(params, cfg, run, x, 0, remat=run.remat == "full")
+    return _run_blocks(params, cfg, run, x, 0, remat=run.remat)
 
 
 def cache_defs(cfg: ModelConfig, batch: int, max_len: int) -> Params:

@@ -9,9 +9,12 @@ PyTorch:
 Tolerances are those of tests/test_kernels.py: 2e-2 in bf16, 3e-5 in f32
 (the SSD scan: 3e-2 in bf16, 3e-4 in f32).
 """
+import numpy as np
 import pytest
 import torch
 
+from repro_torch.carousel.delivery import device_put
+from repro_torch.ckpt import AsyncCheckpointer, load_checkpoint
 from repro_torch.configs.base import RunConfig, ShapeConfig, get_smoke_config
 from repro_torch.kernels import cross_entropy as kce
 from repro_torch.kernels import flash_attention as kflash
@@ -586,6 +589,85 @@ def test_smoke_training_on_card(cuda):
     for a, b in zip(tree_leaves(gk), tree_leaves(gp)):
         assert float((a.float() - b.float()).norm()
                      / b.float().norm()) <= 5e-2
+
+
+def test_smoke_carousel_training_and_remat_dots_on_card(cuda):
+    """Carousel-fed smoke training on the card launches the kernels as
+    synthetic batches do; remat "dots" launches them as "full" does and
+    gives its gradients."""
+    def reset():
+        for mod in (krms, kflash, kce):
+            mod.launches = 0
+        krms.bwd_launches = kflash.bwd_launches = 0
+
+    def counts():
+        return (krms.launches, krms.bwd_launches, kflash.launches,
+                kflash.bwd_launches, kce.launches)
+
+    cfg = get_smoke_config("yi-6b")
+    L = cfg.num_layers
+    reset()
+    res = train.run_training("yi-6b", smoke=True, steps=3, seq_len=64,
+                             global_batch=2, device="cuda")
+    assert res["steps"] == 3 and res["carousel"]["rows_delivered"] >= 6
+    assert all(torch.isfinite(torch.tensor(res["losses"])))
+    assert counts() == (3 * (4 * L + 1), 3 * (2 * L + 1), 3 * 2 * L, 3 * L,
+                        3)
+
+    params = serve.init_params(cfg, 1, cuda)
+    batch = registry.synth_inputs(torch.Generator(device=cuda).manual_seed(
+        9), cfg, ShapeConfig("t", 64, 2, "train"), device=cuda)
+    out = {}
+    for remat in ("full", "dots"):
+        reset()
+        out[remat] = tstep.grads_and_metrics(
+            params, cfg, RunConfig(ce_block_v=64, remat=remat), batch)
+        out[remat + "_launches"] = counts()
+    assert out["dots_launches"] == out["full_launches"] == (
+        4 * L + 1, 2 * L + 1, 2 * L, L, 1)
+    (gd, md), (gf, mf) = out["dots"], out["full"]
+    torch.testing.assert_close(md["loss"], mf["loss"], rtol=1e-6, atol=0)
+    for a, b in zip(tree_leaves(gd), tree_leaves(gf)):
+        assert float((a.float() - b.float()).norm()
+                     / b.float().norm()) <= 1e-6
+
+
+def test_device_put_pinned_copies_survive_queued_work(cuda):
+    """``device_put`` copies from pinned staging buffers with
+    ``non_blocking``; with the copies queued behind device work, the host
+    drops each buffer and pins the next batch at once: none of the
+    buffers may be reused before its copy has run."""
+    x = torch.randn((4096, 4096), device=cuda)
+    for _ in range(30):  # tens of ms of queued work ahead of the copies
+        x = torch.tanh(x @ x)
+    got = [device_put({"t": np.full((256, 1024), i, np.int32),
+                       "m": np.full((256,), i, np.float32)}, cuda)
+           for i in range(64)]
+    torch.cuda.synchronize()
+    for i, b in enumerate(got):
+        assert b["t"].dtype == torch.int32 and b["m"].dtype == torch.float32
+        assert bool((b["t"] == i).all()) and bool((b["m"] == i).all()), i
+
+
+def test_async_save_of_cuda_tensors_updated_in_place(cuda, tmp_path):
+    """The train step updates the state in place right after a save: the
+    checkpoint holds the leaves as they were at the save, bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    tree = {"p": torch.randn((4096, 4096), generator=g,
+                             device=cuda).bfloat16(),
+            "m": torch.randn((4096, 4096), generator=g, device=cuda),
+            "step": 7}
+    want = {k: v.cpu() for k, v in tree.items() if k != "step"}
+    ck = AsyncCheckpointer(str(tmp_path))
+    ck.save(tree, 7)
+    # queued right behind the copy, as the next train step's update is
+    tree["p"].add_(1.0)
+    tree["m"].mul_(-3.0)
+    ck.close()
+    got, meta = load_checkpoint(str(tmp_path), device=cuda)
+    assert meta["step"] == 7 and int(got["step"]) == 7
+    for k, v in want.items():
+        assert got[k].is_cuda and torch.equal(got[k].cpu(), v), k
 
 
 # ---------------------------------------------------------------------------

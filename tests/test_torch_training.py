@@ -11,7 +11,12 @@ port's plain paths, which are what the port runs on CPU tensors:
 - ``adamw_update`` against the JAX ``adamw_update``;
 - ``grads_and_metrics`` and one and three ``train_step``s on yi-6b-smoke
   against ``jax.jit(make_train_step)`` (called outside ``use_rules``: the
-  JAX launch code fails on jax 0.9, ROADMAP C1).
+  JAX launch code fails on jax 0.9, ROADMAP C1), on seeded batches and on
+  batches recorded from the port's carousel;
+- ``remat="dots"`` against "none", "full" and the JAX package's "dots";
+- the entry point ``run_training``, synthetic and carousel-fed, with
+  checkpoints and resume: twins of tests/test_integration.py's
+  training tests, on the CPU.
 
 Tolerances, with their reasons:
 
@@ -25,6 +30,8 @@ Tolerances, with their reasons:
   moves its parameter about 2 lr apart; the bound is 2 lr summed over the
   steps, plus one bf16 ulp (2^-7 relative) with bf16 params.
 """
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -45,8 +52,10 @@ from repro.train.step import make_train_step as j_make_train_step
 from repro_torch.configs.base import RunConfig, get_smoke_config
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+from repro_torch.carousel.delivery import device_put
 from repro_torch.launch import train as ttrain
 from repro_torch.models import params as TP
+from repro_torch.models import registry as treg
 from repro_torch.optim import adamw_init, adamw_update
 from repro_torch.optim import cosine_schedule
 from repro_torch.train import loss as tloss
@@ -358,8 +367,62 @@ def test_remat_none_and_full_give_the_same_grads(jax_params):
     assert float(mf["loss"]) == float(mn["loss"])
     for a, b in zip(TP.tree_leaves(gf), TP.tree_leaves(gn)):
         torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        tstep.grads_and_metrics(tp, cfg, RunConfig(remat="dots"), tb)
+
+
+def test_remat_dots_matches_none_full_and_jax(jax_params):
+    """``remat="dots"`` (selective checkpointing that keeps the
+    projections' outputs) gives the gradients of "none" and "full", and
+    those of the JAX package's ``dots_with_no_batch_dims_saveable``."""
+    jcfg, cfg = j_smoke(ARCH), get_smoke_config(ARCH)
+    jp = JP.cast_tree(jax_params, jnp.float32)
+    tp = TP.from_jax_params(jax.tree.map(np.asarray, jp), device="cpu")
+    jb, tb = _batch(2)
+    gd, md = tstep.grads_and_metrics(tp, cfg, RunConfig(remat="dots"), tb)
+    for other in ("none", "full"):
+        go, mo = tstep.grads_and_metrics(tp, cfg, RunConfig(remat=other), tb)
+        assert float(md["loss"]) == float(mo["loss"]), other
+        for a, b in zip(TP.tree_leaves(gd), TP.tree_leaves(go)):
+            torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
+    jg, jm = jax.jit(lambda p, b: j_grads(p, jcfg, JRunConfig(remat="dots"),
+                                          b))(jp, jb)
+    np.testing.assert_allclose(float(md["loss"]), float(jm["loss"]),
+                               rtol=1e-4)
+    for name, a, t in _leaf_pairs(jg, gd):
+        assert _rel_l2(t, a) <= 1e-4, (name, _rel_l2(t, a))
+
+
+def test_remat_dots_keeps_the_projections_and_recomputes_the_rest():
+    """Under "dots" the backward runs no projection again (as many
+    ``aten.mm`` calls as "none") but runs the norms and attention's
+    batched products again (as many as "full")."""
+    from collections import Counter
+
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = Counter()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops[func] += 1
+            return func(*args, **(kwargs or {}))
+
+    cfg = get_smoke_config(ARCH)
+    params = TP.cast_tree(TP.materialize(
+        treg.param_defs(cfg), torch.Generator().manual_seed(0), "cpu"),
+        torch.float32)
+    _, tb = _batch(0)
+    seen = {}
+    for remat in ("none", "full", "dots"):
+        with Count() as c:
+            tstep.grads_and_metrics(params, cfg, RunConfig(remat=remat), tb)
+        seen[remat] = c.ops
+    aten = torch.ops.aten
+    assert seen["dots"][aten.mm.default] == seen["none"][aten.mm.default]
+    assert seen["full"][aten.mm.default] > seen["none"][aten.mm.default]
+    for op in (aten.rsqrt.default, aten.bmm.default):
+        assert seen["dots"][op] == seen["full"][op] > seen["none"][op], op
 
 
 # ---------------------------------------------------------------------------
@@ -387,17 +450,120 @@ def test_run_training_on_cpu():
     assert again["losses"] == res["losses"]  # seeded batches and weights
 
 
-def test_unported_training_options_raise(monkeypatch):
-    for kw in (dict(carousel=True), dict(carousel=False, out_dir="x"),
-               dict(carousel=False, resume=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-            ttrain.run_training(ARCH, smoke=True, steps=1, device="cpu",
-                                **kw)
+def test_run_training_without_cuda_raises(monkeypatch):
+    """The entry point never moves to the CPU unasked."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        ttrain.run_training(ARCH, smoke=True, steps=1, carousel=False)
+    for kw in (dict(carousel=False), dict(carousel=True)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            ttrain.run_training(ARCH, smoke=True, steps=1, **kw)
 
 
+CAROUSEL_KEYS = {"time_to_first_batch_s", "next_wait_s", "reads",
+                 "failed_reads", "hedges", "shards_landed", "rows_delivered",
+                 "rows_received", "skipped_shards"}
+
+
+def test_training_loss_decreases_with_carousel():
+    """Twin of tests/test_integration.py's, on the CPU."""
+    res = ttrain.run_training(ARCH, smoke=True, steps=30, seq_len=32,
+                              global_batch=4, carousel=True, device="cpu")
+    assert set(res) == RESULT_KEYS | {"carousel"}
+    assert res["steps"] == res["final_step"] == 30
+    first = np.mean(res["losses"][:5])
+    last = np.mean(res["losses"][-5:])
+    assert last < first, (first, last)
+    car = res["carousel"]
+    assert set(car) == CAROUSEL_KEYS
+    assert len(car["next_wait_s"]) == 30
+    assert car["rows_delivered"] >= 30 * 4
+    assert car["rows_received"] >= car["rows_delivered"]
+    assert car["reads"] >= car["shards_landed"] >= 1
+    assert 0 <= car["time_to_first_batch_s"] <= res["time_to_first_batch_s"]
+
+
+def test_training_fine_starts_before_coarse():
+    """With a slow single-drive tape, fine granularity trains on shard 1
+    while shards 2..8 are still staging; coarse waits for all of them.
+    (The JAX twin trains qwen1.5-4b, which the port does not have yet.)"""
+    kw = dict(smoke=True, steps=6, seq_len=32, global_batch=2,
+              carousel=True, tape_latency=0.4, drives=1, device="cpu",
+              num_layers=1)
+    # the process's first checkpointed step imports parts of torch for
+    # seconds; pay that before the clocks that are compared start
+    ttrain.run_training(ARCH, steps=1, carousel=False, device="cpu",
+                        num_layers=1)
+    fine = ttrain.run_training(ARCH, coarse=False, **kw)
+    coarse = ttrain.run_training(ARCH, coarse=True, **kw)
+    assert fine["steps"] == coarse["steps"] == 6
+    assert fine["state"]["params"]["blocks"]["ln1"].shape[0] == 1
+    # 8 shards x 0.4 s on one drive: coarse waits ~2.8 s longer
+    assert (coarse["time_to_first_batch_s"]
+            > fine["time_to_first_batch_s"] + 1.5)
+    assert (coarse["carousel"]["time_to_first_batch_s"]
+            > fine["carousel"]["time_to_first_batch_s"] + 1.5)
+
+
+def test_resume_continues_from_checkpoint(tmp_path):
+    """Twin of tests/test_integration.py's (which trains mamba2-130m; SSM
+    training on the card is not ported yet, so yi-6b here)."""
+    from repro_torch.ckpt import latest_step, load_checkpoint
+
+    out = str(tmp_path / "run")
+    kw = dict(smoke=True, seq_len=32, global_batch=2, out_dir=out,
+              ckpt_every=5, device="cpu")
+    r1 = ttrain.run_training(ARCH, steps=10, **kw)
+    assert set(r1) == RESULT_KEYS | {"carousel", "checkpoint"}
+    assert r1["final_step"] == 10 and latest_step(out) == 10
+    # saves at 5 and 10, and the last save after the loop rewrites 10
+    ck = r1["checkpoint"]
+    assert len(ck["copy_s"]) == len(ck["write_s"]) == 3
+    assert ck["bytes_written"] > 3 * sum(
+        t.numel() * t.element_size()
+        for t in TP.tree_leaves(r1["state"]["params"]))
+    saved, meta = load_checkpoint(out)
+    assert meta["step"] == 10 and int(saved["opt"]["step"]) == 10
+    for a, b in zip(TP.tree_leaves(saved["params"]),
+                    TP.tree_leaves(r1["state"]["params"])):
+        assert torch.equal(a, b)
+    r2 = ttrain.run_training(ARCH, steps=5, resume=True, **kw)
+    assert r2["final_step"] == 15 and r2["steps"] == 5
+    assert r2["state"]["opt"]["step"] == 15
+    assert sorted(os.listdir(out)) == [f"step_{s:08d}" for s in (5, 10, 15)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_carousel_fed_steps_match_jax(jax_params, dtype):
+    """Three steps of the port and of ``jax.jit(make_train_step)`` (outside
+    ``use_rules``, ROADMAP C1) on the same carousel batches, recorded once
+    from the port's pipeline (the stager's threads make the shard order
+    differ from run to run)."""
+    jcfg, cfg = j_smoke(ARCH), get_smoke_config(ARCH)
+    stager, delivery = ttrain.make_carousel_pipeline(
+        cfg, seq_len=S, batch_rows=B, n_shards=8)
+    batches = []
+    for b in delivery:
+        batches.append(b)
+        if len(batches) == 3:
+            break
+    stager.shutdown()
+    assert all(b["tokens"].shape == (B, S) for b in batches)
+    assert all(b["tokens"].dtype == np.int32 for b in batches)
+    run = ttrain.default_run_config(cfg, 3)
+    jrun = JRunConfig(total_steps=run.total_steps,
+                      warmup_steps=run.warmup_steps,
+                      ce_block_v=run.ce_block_v)
+    jp = JP.cast_tree(jax_params, getattr(jnp, dtype))
+    tp = TP.from_jax_params(jax.tree.map(np.asarray, jp), device="cpu")
+    jstate = {"params": jp, "opt": j_adamw_init(jp)}
+    tstate = {"params": tp, "opt": adamw_init(tp)}
+    j_fn = jax.jit(j_make_train_step(jcfg, jrun))
+    t_fn = tstep.make_train_step(cfg, run)
+    for b in batches:
+        jstate, jm = j_fn(jstate, {k: jnp.asarray(v) for k, v in b.items()})
+        tstate, tm = t_fn(tstate, device_put(b, torch.device("cpu")))
+        np.testing.assert_allclose(
+            float(tm["loss"]), float(jm["loss"]),
+            rtol=1e-4 if dtype == "float32" else 1e-3)
 def test_idds_orchestrated_hpo_over_port_training():
     """The iDDS HPO service driving the port's trainer as its payload,
     as tests/test_integration.py does with the JAX trainer."""
