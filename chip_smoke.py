@@ -21,7 +21,9 @@ Phases, each of which fails the run (non-zero exit, no final result line):
    shapes, cold (inputs rotated past L2), and the bound of the work the
    call needs.  Forward kernels (RMSNorm, flash attention, cross entropy;
    RMSNorm and flash also at the zamba2-1.2b / mamba2-130m prefill
-   shapes) and, for training, the RMSNorm and flash-attention backward
+   shapes and at the prefills of SERVE_ARCHS: RMSNorm at D 2560, 5120,
+   6144; flash at G 1, 12, 16 and mixtral's 4608 queries, window 4096)
+   and, for training, the RMSNorm and flash-attention backward
    kernels (the latter's device time split by kernel under the
    profiler) and the flash forward's ``lse``; then the SSD chunked scan
    (phase "ssd": ``y`` and the final state against ``ssd_ref`` on the
@@ -32,18 +34,34 @@ Phases, each of which fails the run (non-zero exit, no final result line):
 4. serving: ``run_serving(arch, smoke=False, prompt_len=P, gen=32,
    batch=4)`` at full width and depth for yi-6b (P = 512), zamba2-1.2b
    and mamba2-130m (P = 2048; phases "serving_zamba2", "serving_mamba2"),
-   launch counters reset just before each and read just after, and held
-   against the counts the code implies;
-5. end to end at full width and depth, each model: (a) prefill logits
-   through the kernels against ``use_kernels=False``; (b) decode at
-   position S after a prefill of S tokens against a prefill of S + 1
-   tokens (for the SSM models S + 1 = 2049, one past a chunk boundary);
-   both at relative L2 <= 5e-2.  Beside (a), not checked: both paths
-   against the plain path with the same weights in f32, to show how far
-   bf16 rounding alone moves the logits of the random model;
+   then at full width for SERVE_ARCHS (phases "serving_qwen1_5_4b",
+   "serving_starcoder2_15b", "serving_qwen1_5_32b", "serving_mixtral_8x7b",
+   "serving_qwen3_moe"): qwen1.5-4b
+   (int8 KV cache) and starcoder2-15b at full depth, qwen1.5-32b (int8)
+   at 32 of 64 layers, mixtral-8x7b at 12 of 32 (batch 1, P = 4608) and
+   qwen3-moe-235b-a22b at 6 of 94 through ``num_layers`` (their bf16
+   weights and the f32 temporaries of their initialisation would not fit
+   the card); launch counters reset just before each and read just
+   after, and held against the counts the code implies;
+5. end to end, each model as it was served: (a) prefill logits through
+   the kernels against ``use_kernels=False``; (b) decode at position S
+   after a prefill of S tokens against a prefill of S + 1 tokens (for
+   the SSM models S + 1 = 2049, one past a chunk boundary; for the MoE
+   models at capacity factor E / K, where nothing drops: a longer
+   prefill may drop its last token from a full expert, decode never
+   does); both at relative L2 <= 5e-2.  MoE rows also log the share of
+   (token, expert) pairs (a)'s prefill dropped and the top-K choices
+   that differ between its two paths.  Beside (a), not checked: both
+   paths against the plain path with the same weights in f32, to show
+   how far bf16 rounding alone moves the logits of the random model,
+   where that copy fits on the card (skipped, and logged so, where not);
 6. breakdown: ``torch.profiler`` over one warm prefill and four warm decode
    steps of each model (wall time, device time, busy share, top kernels
-   by device time);
+   by device time; for SERVE_ARCHS the top operators too); then, for
+   the MoE and int8-cache models, phase "parts_*": the routing, the
+   expert products (with their bound) and the whole MoE block at the
+   prefill's and a decode step's tokens, and the int8 quantisation and
+   dequantisation of one layer's K, each timed alone (CUDA events);
 7. training: ``run_training("yi-6b", smoke=False, steps=3, seq_len=512,
    global_batch=4, carousel=False)`` at full width and depth, launch
    counters reset just before and read just after and held against the
@@ -84,7 +102,7 @@ counters reset just before it and read just after.
 
 It prints a ``{"kernel_info": [...]}`` line, a ``{"kernels": [...]}`` line
 and, last, ``{"ok": true, ...}``.
-A kernel's ``launches`` there is the sum of its counts over the three
+A kernel's ``launches`` there is the sum of its counts over the eight
 serving runs, the training run and the runs of phases 9-11 (``ssd_scan``:
 the serving runs only); ``ssd_scan``'s row is the zamba2-1.2b prefill
 shape.  Weights are random, made on the card from a seed; data is
@@ -92,6 +110,7 @@ synthetic, from a seed; nothing is downloaded.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -115,6 +134,7 @@ from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import rmsnorm as krms  # noqa: E402
 from repro_torch.kernels import ssd_scan as kssd  # noqa: E402
 from repro_torch.launch import serve, train  # noqa: E402
+from repro_torch.models import layers  # noqa: E402
 from repro_torch.models import params as P  # noqa: E402
 from repro_torch.models import registry  # noqa: E402
 from repro_torch.optim import adamw_update  # noqa: E402
@@ -128,9 +148,21 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.bfloat16: 2e-2, torch.float32: 3e-5}
 SSD_TOL = {torch.bfloat16: 3e-2, torch.float32: 3e-4}
 E2E_TOL = 5e-2
+# the f32 yardstick of phase 5 runs where its copy of the weights fits
+# with this much to spare
+F32_MARGIN_BYTES = 8e9
 LOSS_TOL = 1e-2
 ARCH, PROMPT, GEN, BATCH = "yi-6b", 512, 32, 4
 SSM_ARCHS, SSM_PROMPT = ("zamba2-1.2b", "mamba2-130m"), 2048
+# the other dense archs and the MoE archs at full width: arch, layers
+# (None: full depth; a cut where the bf16 weights and the f32 temporaries
+# of their initialisation would not fit the card), batch, prompt
+MIXTRAL_PROMPT = 4608  # the 4096-token window bites on the last 512
+SERVE_ARCHS = [("qwen1.5-4b", None, BATCH, PROMPT),
+               ("starcoder2-15b", None, BATCH, PROMPT),
+               ("qwen1.5-32b", 32, BATCH, PROMPT),
+               ("mixtral-8x7b", 12, 1, MIXTRAL_PROMPT),
+               ("qwen3-moe-235b-a22b", 6, BATCH, PROMPT)]
 TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH = 3, 512, 4
 HALF_STEPS = 3  # warm steps whose two halves are timed alone
 E2E_TRAIN_LAYERS = 2
@@ -161,15 +193,25 @@ FLASH_MAIN = (BATCH, PROMPT, PROMPT + GEN + 8, 32, 4, 128, True, 0, 0,
 # zamba2-1.2b prefill: 32/32 heads of 64 over a cache of SSM_PROMPT + GEN + 8
 FLASH_ZAMBA2 = (BATCH, SSM_PROMPT, SSM_PROMPT + GEN + 8, 32, 32, 64, True,
                 0, 0, SSM_PROMPT)
+# the prefills of SERVE_ARCHS: starcoder2-15b (48/4 heads), qwen1.5-4b
+# (20/20), qwen1.5-32b (40/40), qwen3-moe (64/4), and mixtral (1 x 4608,
+# 32/8 heads, window 4096)
+FLASH_SERVE = [(BATCH, PROMPT, PROMPT + GEN + 8, hq, hkv, 128, True, 0, 0,
+                PROMPT) for hq, hkv in ((48, 4), (20, 20), (40, 40),
+                                        (64, 4))] + [
+    (1, MIXTRAL_PROMPT, MIXTRAL_PROMPT + GEN + 8, 32, 8, 128, True, 4096, 0,
+     MIXTRAL_PROMPT)]
 # the yi-6b training shape: self-attention over TRAIN_SEQ, causal
 FLASH_TRAIN = (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 32, 4, 128, True, 0, 0,
                None)
 RMS_MAIN = (BATCH * PROMPT, 4096)  # also the training shape (4 x 512 rows)
 # the zamba2-1.2b / mamba2-130m prefill norms: d_model and the gated norm
 RMS_SSM = [(BATCH * SSM_PROMPT, d) for d in (2048, 4096, 768, 1536)]
+# the qwen1.5-4b, qwen1.5-32b and starcoder2-15b prefill norms
+RMS_SERVE = [(BATCH * PROMPT, d) for d in (2560, 5120, 6144)]
 # the backward's sweep: the training shape and the small ragged cases
 RMS_TRAIN_SHAPES = [RMS_MAIN, (BATCH, 4096), (8, 128), (3, 7, 384), (1, 513)]
-RMS_SHAPES = RMS_TRAIN_SHAPES + RMS_SSM
+RMS_SHAPES = RMS_TRAIN_SHAPES + RMS_SSM + RMS_SERVE
 # B, S, H, P, G, N, chunk: the SSD_CASES of tests/test_kernels.py, S <
 # chunk, then the zamba2-1.2b and mamba2-130m prefill shapes
 SSD_ZAMBA2 = (BATCH, SSM_PROMPT, 64, 64, 1, 64, 128)
@@ -302,8 +344,8 @@ def phase_rmsnorm(gen: torch.Generator, failures: list) -> dict:
             worst = max(worst, err)
             n_bytes = 2 * x.numel() * x.element_size() + D * w.element_size()
             is_main = tuple(shape) == RMS_MAIN and dtype == torch.bfloat16
-            cold = dtype == torch.bfloat16 and (is_main
-                                                or tuple(shape) in RMS_SSM)
+            cold = dtype == torch.bfloat16 and (
+                is_main or tuple(shape) in RMS_SSM + RMS_SERVE)
             sets = [(x, w)] + ([(x.clone(), w.clone()) for _ in
                                range(cold_sets(n_bytes) - 1)]
                                if cold else [])
@@ -346,7 +388,7 @@ def _sdpa_inputs(q, k, v):
 def phase_flash(gen: torch.Generator, failures: list) -> dict:
     main = None
     worst = 0.0
-    for case in FLASH_CASES + [FLASH_MAIN, FLASH_ZAMBA2]:
+    for case in FLASH_CASES + [FLASH_MAIN, FLASH_ZAMBA2] + FLASH_SERVE:
         B, Sq, Sk, Hq, Hkv, D, causal, window, q_off, kv_len = case
         kw = dict(causal=causal, sliding_window=window, q_offset=q_off,
                   kv_len=kv_len)
@@ -367,8 +409,8 @@ def phase_flash(gen: torch.Generator, failures: list) -> dict:
             n_bytes = (2 * q.numel() + 2 * B * keys * Hkv * D) \
                 * q.element_size()
             is_main = case == FLASH_MAIN and dtype == torch.bfloat16
-            cold = dtype == torch.bfloat16 and case in (FLASH_MAIN,
-                                                        FLASH_ZAMBA2)
+            cold = dtype == torch.bfloat16 and case in [
+                FLASH_MAIN, FLASH_ZAMBA2] + FLASH_SERVE
             sets = [(q, k, v)] + ([tuple(t.clone() for t in (q, k, v))
                                    for _ in range(cold_sets(n_bytes) - 1)]
                                   if cold else [])
@@ -692,33 +734,40 @@ def serving_launches(cfg, gen: int) -> dict:
     attention and the SSD scan in the prefill only (decode runs the plain
     ``_attention_kvseq`` and ``ssd_decode``)."""
     L = cfg.num_layers
-    attn = {"dense": L, "ssm": 0,
+    attn = {"dense": L, "moe": L, "ssm": 0,
             "hybrid": L // max(cfg.attn_every, 1)}[cfg.family]
-    ssd = 0 if cfg.family == "dense" else L
-    # dense: ln1, ln2 a block; mamba: ln and the gated norm a block; the
-    # shared block: ln1, ln2 an application; ln_f
+    ssd = 0 if cfg.family in ("dense", "moe") else L
+    # dense and moe: ln1, ln2 a block; mamba: ln and the gated norm a
+    # block; the shared block: ln1, ln2 an application; ln_f
     norms = 2 * L + (2 * attn if cfg.family == "hybrid" else 0) + 1
     return {"rmsnorm": norms * gen, "flash_attention": attn,
             "ssd_scan": ssd}
 
 
+def _config(arch: str, layers=None):
+    cfg = get_config(arch)
+    return cfg if layers is None else cfg.replace(num_layers=layers)
+
+
 def phase_serving(failures: list, arch: str = ARCH, prompt: int = PROMPT,
-                  label: str = "serving") -> dict:
+                  label: str = "serving", layers=None,
+                  batch: int = BATCH) -> dict:
     krms.launches = kflash.launches = kssd.launches = 0
     res = serve.run_serving(arch, smoke=False, prompt_len=prompt, gen=GEN,
-                            batch=BATCH, device=DEVICE)
+                            batch=batch, device=DEVICE, num_layers=layers)
     counts = {"rmsnorm": krms.launches, "flash_attention": kflash.launches,
               "ssd_scan": kssd.launches}
-    cfg = get_config(arch)
+    cfg = _config(arch, layers)
     want = serving_launches(cfg, GEN)
     tok = res.pop("tokens")
     in_range = bool(((tok >= 0) & (tok < cfg.vocab_size)).all())
-    log(label, json.dumps(dict(res, layers=cfg.num_layers, prompt=prompt,
+    log(label, json.dumps(dict(res, prompt=prompt, batch=batch,
+                               kv_cache_dtype=cfg.kv_cache_dtype,
                                launches=counts, expected_launches=want,
                                tokens_in_range=in_range)))
     if counts != want:
         failures.append(f"{arch} launch counts {counts} != expected {want}")
-    if not in_range or tuple(tok.shape) != (BATCH, GEN):
+    if not in_range or tuple(tok.shape) != (batch, GEN):
         failures.append(f"{arch} bad tokens: shape {tuple(tok.shape)}")
     return counts
 
@@ -728,42 +777,105 @@ def _rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a - b).norm() / b.norm())
 
 
+@contextlib.contextmanager
+def _recording_routes(routes: list):
+    """Records each ``layers.moe_block`` call's routing (experts, kept
+    pairs) into ``routes`` while the block runs as it would."""
+    block = layers.moe_block
+
+    def recorded(p, cfg, run, x):
+        r = layers.moe_route(p, cfg, x)
+        routes.append((r.experts, r.keep))
+        return block(p, cfg, run, x)
+
+    layers.moe_block = recorded
+    try:
+        yield routes
+    finally:
+        layers.moe_block = block
+
+
 def phase_end_to_end(failures: list, arch: str = ARCH, prompt: int = PROMPT,
-                     label: str = "end_to_end"):
-    cfg = get_config(arch)
+                     label: str = "end_to_end", layers=None,
+                     batch: int = BATCH):
+    """(a) prefill logits through the kernels against the plain versions;
+    (b) decode at position S against a prefill of S + 1.  For an MoE
+    arch, (a) runs at the config's capacity factor (the share of (token,
+    expert) pairs it drops and the top-K choices that differ between the
+    two paths are logged) and (b) at E / K, where C >= S and nothing
+    drops: a longer prefill can drop its last token from an overflowing
+    expert, decode (C = 1 a row) never does."""
+    cfg = _config(arch, layers)
+    moe = cfg.family == "moe"
+    cfg_d = (cfg.replace(moe_capacity_factor=cfg.num_experts
+                         / cfg.num_experts_per_tok) if moe else cfg)
     dev = torch.device(DEVICE)
+    torch.cuda.reset_peak_memory_stats()
     params = serve.init_params(cfg, 1, dev)
     g = torch.Generator(device=dev).manual_seed(7)
-    toks = torch.randint(0, cfg.vocab_size, (BATCH, prompt + 1),
+    toks = torch.randint(0, cfg.vocab_size, (batch, prompt + 1),
                          generator=g, device=dev)
     max_len = prompt + GEN + 8
     kern, plain = RunConfig(), RunConfig(use_kernels=False)
+    routes_k, routes_p = [], []
     with torch.inference_mode():
-        cache = engine.init_cache(cfg, BATCH, max_len, dev)
-        lk, cache = registry.prefill(params, cfg, kern,
-                                     {"tokens": toks[:, :prompt]}, cache)
-        lp, _ = registry.prefill(params, cfg, plain,
-                                 {"tokens": toks[:, :prompt]},
-                                 engine.init_cache(cfg, BATCH, max_len, dev))
-        ld, _ = registry.decode(params, cfg, kern, toks[:, prompt:], cache,
+        cache = engine.init_cache(cfg, batch, max_len, dev)
+        with _recording_routes(routes_k):
+            lk, cache = registry.prefill(params, cfg, kern,
+                                         {"tokens": toks[:, :prompt]}, cache)
+        with _recording_routes(routes_p):
+            lp, _ = registry.prefill(params, cfg, plain,
+                                     {"tokens": toks[:, :prompt]},
+                                     engine.init_cache(cfg, batch, max_len,
+                                                       dev))
+        if moe:
+            _, cache = registry.prefill(
+                params, cfg_d, kern, {"tokens": toks[:, :prompt]},
+                engine.init_cache(cfg, batch, max_len, dev))
+        ld, _ = registry.decode(params, cfg_d, kern, toks[:, prompt:], cache,
                                 prompt)
-        ll, _ = registry.prefill(params, cfg, kern, {"tokens": toks},
-                                 engine.init_cache(cfg, BATCH, max_len, dev))
+        ll, _ = registry.prefill(params, cfg_d, kern, {"tokens": toks},
+                                 engine.init_cache(cfg, batch, max_len, dev))
+        del cache
         # a yardstick for (a), not a check: the plain path with the same
-        # weights in f32 (f32 activations; the KV cache stays bf16)
-        lf, _ = registry.prefill(P.cast_tree(params, torch.float32), cfg,
-                                 plain, {"tokens": toks[:, :prompt]},
-                                 engine.init_cache(cfg, BATCH, max_len, dev))
+        # weights in f32 (f32 activations; the KV cache as configured),
+        # where the f32 copy fits beside the bf16 weights
+        f32_bytes = sum(4 * t.numel() for t in P.tree_leaves(params))
+        free = torch.cuda.mem_get_info()[0]
+        lf = None
+        if f32_bytes + F32_MARGIN_BYTES <= free:
+            lf, _ = registry.prefill(
+                P.cast_tree(params, torch.float32), cfg, plain,
+                {"tokens": toks[:, :prompt]},
+                engine.init_cache(cfg, batch, max_len, dev))
     finite = all(bool(torch.isfinite(t).all()) for t in (lk, lp, ld, ll))
     a = _rel_l2(lk[:, -1], lp[:, -1])
     b = _rel_l2(ld[:, -1], ll[:, -1])
-    log(label, json.dumps({
-        "arch": arch, "layers": cfg.num_layers, "prompt": prompt,
-        "kernel_vs_plain_prefill_rel_l2": a,
-        "decode_vs_longer_prefill_rel_l2": b, "logits_finite": finite,
-        "tol": E2E_TOL,
-        "kernel_vs_f32_plain_rel_l2": _rel_l2(lk[:, -1], lf[:, -1]),
-        "plain_vs_f32_plain_rel_l2": _rel_l2(lp[:, -1], lf[:, -1])}))
+    row = {"arch": arch, "layers": cfg.num_layers, "batch": batch,
+           "prompt": prompt, "kv_cache_dtype": cfg.kv_cache_dtype,
+           "kernel_vs_plain_prefill_rel_l2": a,
+           "decode_vs_longer_prefill_rel_l2": b, "logits_finite": finite,
+           "tol": E2E_TOL}
+    if lf is None:
+        row["f32_yardstick"] = (f"skipped: the f32 copy needs {f32_bytes} B, "
+                                f"{free} B free")
+    else:
+        row["kernel_vs_f32_plain_rel_l2"] = _rel_l2(lk[:, -1], lf[:, -1])
+        row["plain_vs_f32_plain_rel_l2"] = _rel_l2(lp[:, -1], lf[:, -1])
+    if moe:
+        kept = sum(int(k.sum()) for _, k in routes_k)
+        pairs = sum(k.numel() for _, k in routes_k)
+        row.update(
+            capacity_factor=cfg.moe_capacity_factor,
+            decode_check_capacity_factor=cfg_d.moe_capacity_factor,
+            prefill_dropped_pair_share=1 - kept / pairs,
+            routing_flips_kernel_vs_plain=sum(
+                int((ek != ep).any(-1).sum())
+                for (ek, _), (ep, _) in zip(routes_k, routes_p)),
+            routed_tokens=sum(ek.shape[0] * ek.shape[1]
+                              for ek, _ in routes_k))
+    row["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    log(label, json.dumps(row))
     if not finite:
         failures.append(f"{arch}: non-finite logits")
     if not a <= E2E_TOL:
@@ -811,16 +923,17 @@ def _profile(fn, top: int = 8, ops: bool = False, pick=()) -> dict:
 
 
 def phase_breakdown(params, prompt: torch.Tensor, arch: str = ARCH,
-                    label: str = "breakdown") -> None:
+                    label: str = "breakdown", layers=None,
+                    ops: bool = False) -> None:
     """Where the time goes in one warm prefill and four warm decode steps
     on the kernel path (torch.profiler; the shapes ran before, so cuBLAS
-    and the allocator are warm)."""
-    cfg = get_config(arch)
+    and the allocator are warm); with ``ops`` the top operators too."""
+    cfg = _config(arch, layers)
     run = RunConfig()
-    S = prompt.shape[1]
+    B, S = prompt.shape
     max_len = S + GEN + 8
     with torch.inference_mode():
-        cache = engine.init_cache(cfg, BATCH, max_len, torch.device(DEVICE))
+        cache = engine.init_cache(cfg, B, max_len, torch.device(DEVICE))
         box = {}
 
         def prefill():
@@ -833,8 +946,80 @@ def phase_breakdown(params, prompt: torch.Tensor, arch: str = ARCH,
                 tok, _ = engine.decode_step(params, tok, cache, S + i,
                                             cfg=cfg, run=run)
 
-        log(label + "_prefill", json.dumps(_profile(prefill)))
-        log(label + "_decode4", json.dumps(_profile(decode4)))
+        log(label + "_prefill", json.dumps(_profile(prefill, ops=ops)))
+        log(label + "_decode4", json.dumps(_profile(decode4, ops=ops)))
+
+
+def _eager_ms(fn, reps: int = 5) -> float:
+    """Time of one call of ``fn`` as the serving loop runs it (eager, the
+    host's launches included): CUDA events around ``reps`` calls after a
+    warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    for _ in range(reps):
+        fn()
+    e.record()
+    torch.cuda.synchronize()
+    return s.elapsed_time(e) / reps
+
+
+def phase_serving_parts(params, cfg, batch: int, prompt: int,
+                        label: str) -> None:
+    """The parts of a layer that no kernel of the port computes, timed
+    alone on layer 0's weights (plain torch, as the JAX package computes
+    them in jnp): for an MoE arch the routing, the three expert products
+    and the whole block, at the prefill's (batch, prompt) tokens and a
+    decode step's (batch, 1), with the expert products' bound; for an
+    int8 cache a quantisation of one layer's new K (prefill, decode) and
+    a dequantisation of one layer's whole K cache."""
+    g = torch.Generator(device=DEVICE).manual_seed(17)
+    row = {"arch": cfg.name, "layers": cfg.num_layers}
+    with torch.inference_mode():
+        if cfg.family == "moe":
+            p = P.layer(params["blocks"]["moe"], 0)
+            E, d, f = cfg.num_experts, cfg.d_model, cfg.d_ff
+            act = layers.act_fn(cfg.act)
+            for tag, S in (("prefill", prompt), ("decode", 1)):
+                x = torch.randn((batch, S, d), generator=g, device=DEVICE,
+                                dtype=torch.bfloat16)
+                C = layers.moe_route(p, cfg, x).capacity
+                xe = torch.randn((E, batch * C, d), generator=g,
+                                 device=DEVICE, dtype=torch.bfloat16)
+
+                def experts():
+                    h = act(torch.bmm(xe, p["w_gate"])) * torch.bmm(
+                        xe, p["w_up"])
+                    return torch.bmm(h, p["w_down"])
+
+                n_bytes = 2 * (3 * E * d * f + 2 * E * batch * C * d)
+                bound, by = _bound(n_bytes, 6.0 * E * batch * C * d * f,
+                                   torch.bfloat16)
+                row[tag] = {
+                    "tokens": batch * S, "capacity": C,
+                    "route_ms": _eager_ms(
+                        lambda: layers.moe_route(p, cfg, x)),
+                    "experts_ms": _eager_ms(experts),
+                    "experts_bound_ms": bound, "experts_bound_by": by,
+                    "block_ms": _eager_ms(
+                        lambda: layers.moe_block(p, cfg, RunConfig(), x))}
+        if cfg.kv_cache_dtype == "int8":
+            shp = (batch, prompt + GEN + 8, cfg.num_kv_heads, cfg.head_dim)
+            cache = layers.quantize_kv(torch.randn(
+                shp, generator=g, device=DEVICE, dtype=torch.bfloat16))
+            k_new = torch.randn((batch, prompt) + shp[2:], generator=g,
+                                device=DEVICE, dtype=torch.bfloat16)
+            row["int8"] = {
+                "quantize_prefill_k_ms": _eager_ms(
+                    lambda: layers.quantize_kv(k_new)),
+                "quantize_decode_k_ms": _eager_ms(
+                    lambda: layers.quantize_kv(k_new[:, :1])),
+                "dequantize_cache_k_ms": _eager_ms(
+                    lambda: layers.dequantize_kv(*cache)),
+                "cache_shape": list(shp)}
+    log(label, json.dumps(row))
 
 
 TRAIN_KERNELS = ("rmsnorm", "rmsnorm_bwd", "flash_attention",
@@ -1289,6 +1474,21 @@ def main() -> int:
         params, prompt = phase_end_to_end(failures, arch, SSM_PROMPT,
                                           f"end_to_end_{tag}")
         phase_breakdown(params, prompt, arch, f"breakdown_{tag}")
+        del params, prompt
+        log(f"{arch} phases: {time.perf_counter() - t0:.2f} s")
+    for arch, n_layers, batch, prompt_len in SERVE_ARCHS:
+        tag = "_".join(arch.split("-")[:2]).replace(".", "_")
+        kw = dict(layers=n_layers, batch=batch)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        counts.append(phase_serving(failures, arch, prompt_len,
+                                    f"serving_{tag}", **kw))
+        params, prompt = phase_end_to_end(failures, arch, prompt_len,
+                                          f"end_to_end_{tag}", **kw)
+        phase_breakdown(params, prompt, arch, f"breakdown_{tag}",
+                        layers=n_layers, ops=True)
+        phase_serving_parts(params, _config(arch, n_layers), batch,
+                            prompt_len, f"parts_{tag}")
         del params, prompt
         log(f"{arch} phases: {time.perf_counter() - t0:.2f} s")
     torch.cuda.empty_cache()

@@ -1,15 +1,19 @@
 """Batched serving driver: prefill a batch of prompts, decode greedily.
 
 The PyTorch twin of ``repro/launch/serve.py::run_serving``, for every
-ported family: dense (yi-6b, KV cache), ssm (mamba2-130m, conv tails and
-SSM state) and hybrid (zamba2-1.2b, both).  One card holds the model, so
-there is no mesh and there are no sharding rules.  Weights are random,
-drawn on the device from a seeded generator.
+ported family: dense (yi-6b, qwen1.5-4b, qwen1.5-32b, starcoder2-15b; a
+bf16 or int8 KV cache), moe (mixtral-8x7b, qwen3-moe-235b-a22b), ssm
+(mamba2-130m, conv tails and SSM state) and hybrid (zamba2-1.2b, both).
+One card holds the model, so there is no mesh and there are no sharding
+rules; ``--layers`` cuts the depth of an arch too deep for the card.
+Weights are random, drawn on the device from a seeded generator.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --full \
         --prompt-len 512 --gen 32 --batch 4
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \
         --full --prompt-len 2048 --gen 32 --batch 4
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch qwen3-moe-235b-a22b --full --layers 6 --prompt-len 512
 """
 from __future__ import annotations
 
@@ -48,12 +52,15 @@ def init_params(cfg, seed: int, device: torch.device):
 
 def run_serving(arch: str, *, smoke: bool = True, prompt_len: int = 32,
                 gen: int = 16, batch: int = 4, device: str = "cuda",
-                run: Optional[RunConfig] = None,
-                seed: int = 0) -> Dict[str, Any]:
+                run: Optional[RunConfig] = None, seed: int = 0,
+                num_layers: Optional[int] = None) -> Dict[str, Any]:
     """Prefills ``batch`` random prompts of ``prompt_len`` tokens, then
     decodes ``gen - 1`` more tokens greedily.  Prompts come from ``seed``
-    and weights from ``seed + 1``."""
+    and weights from ``seed + 1``.  ``num_layers`` cuts the depth (the
+    width stays)."""
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
+    if num_layers is not None:
+        cfg = cfg.replace(num_layers=num_layers)
     run = run or RunConfig()
     dev = resolve_device(device)
     if dev.type == "cuda":
@@ -85,6 +92,7 @@ def run_serving(arch: str, *, smoke: bool = True, prompt_len: int = 32,
     seq = torch.cat(out_tokens, dim=1)
     res = {
         "arch": arch,
+        "layers": cfg.num_layers,
         "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                    else "cpu"),
         "generated": tuple(seq.shape),
@@ -108,10 +116,13 @@ def main(argv=None) -> int:
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many layers")
     args = ap.parse_args(argv)
     res = run_serving(args.arch, smoke=args.smoke,
                       prompt_len=args.prompt_len, gen=args.gen,
-                      batch=args.batch, device=args.device, seed=args.seed)
+                      batch=args.batch, device=args.device, seed=args.seed,
+                      num_layers=args.layers)
     res.pop("tokens")
     print(res)
     return 0

@@ -1,7 +1,7 @@
 """Model registry: family -> module dispatch, and input synthesis.
 
-Ported from ``repro/models/registry.py`` for the dense, ssm (mamba2) and
-hybrid (zamba2) families; every model module exposes ``param_defs``, ``forward``, ``cache_defs``,
+Ported from ``repro/models/registry.py`` for the dense, moe, ssm
+(mamba2) and hybrid (zamba2) families; every model module exposes ``param_defs``, ``forward``, ``cache_defs``,
 ``prefill`` and ``decode`` with the signatures of the JAX package (``pos``
 is a Python int).
 """
@@ -19,6 +19,7 @@ Params = Dict[str, Any]
 
 _FAMILY_MODULES: Dict[str, ModuleType] = {
     "dense": transformer,
+    "moe": transformer,
     "ssm": mamba2,
     "hybrid": hybrid,
 }

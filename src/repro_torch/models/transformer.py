@@ -1,5 +1,6 @@
-"""Decoder-only transformer, dense family, ported from
-``repro/models/transformer.py``.
+"""Decoder-only transformer, dense and MoE families, ported from
+``repro/models/transformer.py``.  An MoE block has ``block["moe"]`` (top-k
+experts, ``layers.moe_block``) where a dense one has ``block["mlp"]``.
 
 Layers are stacked on a leading L axis as in the JAX tree; a Python loop
 over layers takes the place of ``lax.scan``.  ``run.remat="full"`` wraps
@@ -30,22 +31,26 @@ Params = Dict[str, Any]
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (dense only)")
+            f"family {cfg.family!r} is not ported yet (dense and moe only)")
 
 
 def param_defs(cfg: ModelConfig) -> Params:
     _check_family(cfg)
     n = cfg.num_layers
+    block: Params = {
+        "ln1": L.norm_defs(n, cfg.d_model),
+        "attn": L.attention_defs(cfg, n),
+        "ln2": L.norm_defs(n, cfg.d_model),
+    }
+    if cfg.family == "moe":
+        block["moe"] = L.moe_defs(cfg, n)
+    else:
+        block["mlp"] = L.mlp_defs(cfg, n)
     return {
         "embed": L.embed_defs(cfg),
-        "blocks": {
-            "ln1": L.norm_defs(n, cfg.d_model),
-            "attn": L.attention_defs(cfg, n),
-            "ln2": L.norm_defs(n, cfg.d_model),
-            "mlp": L.mlp_defs(cfg, n),
-        },
+        "blocks": block,
         "ln_f": L.norm_defs(0, cfg.d_model),
     }
 
@@ -58,6 +63,8 @@ def _block(p_l: Params, cfg: ModelConfig, run: RunConfig, x: torch.Tensor,
                        kv_len=kv_len)
     x = x + h
     h = L.rmsnorm(p_l["ln2"], x, cfg, run)
+    if cfg.family == "moe":
+        return x + L.moe_block(p_l["moe"], cfg, run, h)
     return x + L.mlp(p_l["mlp"], cfg, run, h)
 
 

@@ -15,7 +15,8 @@ import torch
 
 from repro_torch.carousel.delivery import device_put
 from repro_torch.ckpt import AsyncCheckpointer, load_checkpoint
-from repro_torch.configs.base import RunConfig, ShapeConfig, get_smoke_config
+from repro_torch.configs.base import (RunConfig, ShapeConfig, get_config,
+                                      get_smoke_config)
 from repro_torch.kernels import cross_entropy as kce
 from repro_torch.kernels import flash_attention as kflash
 from repro_torch.kernels import ops, ref
@@ -214,6 +215,52 @@ def test_smoke_serving_kernels_match_plain(cuda):
         out[name] = (lp, ld)
     for a, b in zip(out["kernel"], out["plain"]):
         torch.testing.assert_close(a, b, rtol=3e-2, atol=3e-2)
+
+
+@pytest.mark.parametrize("arch,kv", [
+    ("qwen1.5-4b", "int8"), ("qwen1.5-32b", None), ("starcoder2-15b", None),
+    ("mixtral-8x7b", None), ("qwen3-moe-235b-a22b", None)])
+def test_smoke_dense_and_moe_serving_kernels_match_plain(cuda, arch, kv):
+    """A prefill past mixtral-smoke's window of 64, then a decode step,
+    through the kernels against the plain versions (qwen1.5-4b with the
+    int8 cache of its full config)."""
+    cfg = get_smoke_config(arch)
+    if kv:
+        cfg = cfg.replace(kv_cache_dtype=kv)
+    params = serve.init_params(cfg, 1, cuda)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    toks = torch.randint(0, cfg.vocab_size, (2, 81), generator=g,
+                         device=cuda)
+    out = {}
+    for name, run in (("kernel", RunConfig()),
+                      ("plain", RunConfig(use_kernels=False))):
+        cache = engine.init_cache(cfg, 2, 96, cuda)
+        lp, cache = registry.prefill(params, cfg, run,
+                                     {"tokens": toks[:, :80]}, cache)
+        ld, _ = registry.decode(params, cfg, run, toks[:, 80:], cache, 80)
+        out[name] = (lp, ld)
+    for a, b in zip(out["kernel"], out["plain"]):
+        torch.testing.assert_close(a, b, rtol=3e-2, atol=3e-2)
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "qwen3-moe-235b-a22b"])
+@pytest.mark.parametrize("S", [1, 300])
+def test_moe_block_is_bit_equal_across_runs(cuda, arch, S):
+    """The MoE block at full width (one layer's experts) gives the same
+    bits twice: no atomics in the dispatch or the combine."""
+    from repro_torch.models import layers
+    from repro_torch.models import params as P
+
+    cfg = get_config(arch).replace(num_layers=1)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    p = P.layer(P.materialize(layers.moe_defs(cfg, 1), g, cuda), 0)
+    x = torch.randn((2, S, cfg.d_model), generator=g, device=cuda,
+                    dtype=torch.bfloat16)
+    with torch.inference_mode():
+        a = layers.moe_block(p, cfg, RunConfig(), x)
+        b = layers.moe_block(p, cfg, RunConfig(), x)
+    assert a.shape == x.shape and bool(torch.isfinite(a).all())
+    assert torch.equal(a.view(torch.int16), b.view(torch.int16))
 
 
 # ---------------------------------------------------------------------------

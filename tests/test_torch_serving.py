@@ -1,4 +1,5 @@
-"""The port's yi-6b serving slice against the JAX reference, on the CPU.
+"""The port's yi-6b serving slice against the JAX reference, on the CPU
+(the other dense and the MoE archs: tests/test_torch_serving_archs.py).
 
 JAX weights from ``repro.models.params.materialize`` are carried over with
 ``from_jax_params``; the same numpy prompt and decode tokens go through
@@ -148,12 +149,25 @@ def test_default_device_without_cuda_raises(monkeypatch):
 
 
 def test_unported_configs_raise():
+    """The families still to port (encoder-decoder, VLM) raise; a cache
+    dtype other than bf16 and int8 raises; an int8 cache has the JAX
+    structure (int8 K/V, f32 scales per (token, head))."""
     cfg = get_smoke_config(ARCH)
+    for family in ("encdec", "vlm"):
+        with pytest.raises(NotImplementedError):
+            treg.param_defs(cfg.replace(family=family))
     with pytest.raises(NotImplementedError):
-        treg.param_defs(cfg.replace(family="moe"))
-    with pytest.raises(NotImplementedError):
-        tengine.init_cache(cfg.replace(kv_cache_dtype="int8"), 1, 4,
+        tengine.init_cache(cfg.replace(kv_cache_dtype="float8"), 1, 4,
                            device="cpu")
+    int8 = cfg.replace(kv_cache_dtype="int8")
+    got = tengine.init_cache(int8, 1, 4, device="cpu")
+    want = jengine.init_cache(j_smoke(ARCH).replace(kv_cache_dtype="int8"),
+                              1, 4)
+    assert set(got) == set(want) == {"k", "v", "k_scale", "v_scale"}
+    for name, leaf in want.items():
+        assert tuple(got[name].shape) == leaf.shape
+        assert str(got[name].dtype)[6:] == jnp.dtype(leaf.dtype).name
+        assert not bool(got[name].any())
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
