@@ -19,18 +19,29 @@ Phases, each of which fails the run (non-zero exit, no final result line):
    the kernel's time, the plain version's time and one library call's time
    (CUDA graph + events, median), warm (inputs in L2) and, at the models'
    shapes, cold (inputs rotated past L2), and the bound of the work the
-   call needs.  Forward kernels (RMSNorm, flash attention, cross entropy;
+   call needs; each phase's seconds logged.  Forward kernels (RMSNorm,
+   flash attention, cross entropy; cross entropy also at the SSM models'
+   loss heads, T 8192 x D 768 x V 50280 and T 8192 x D 2048 x V 32000;
    RMSNorm and flash also at the zamba2-1.2b / mamba2-130m prefill
    shapes and at the prefills of SERVE_ARCHS: RMSNorm at D 2560, 5120,
    6144; flash at G 1, 12, 16 and mixtral's 4608 queries, window 4096)
    and, for training, the RMSNorm and flash-attention backward
    kernels (the latter's device time split by kernel under the
-   profiler) and the flash forward's ``lse``; then the SSD chunked scan
+   profiler) and the flash forward's ``lse``, also at the SSM models'
+   training shapes (RMSNorm backward at D 768, 1536, 2048, 4096 over
+   8192 rows; flash forward with ``lse`` and backward at zamba2's 4 x
+   2048, 32/32 heads of 64), the f32 RMSNorm backward held against
+   ``rmsnorm_bwd_ref`` evaluated in f64; then the SSD chunked scan
    (phase "ssd": ``y`` and the final state against ``ssd_ref`` on the
-   SSD_CASES of tests/test_kernels.py, S < chunk, an ``init_state`` chain
-   of two calls against one, and both models' prefill shapes; no library
-   call computes it).  The library yardstick of a backward is the library
-   forward plus backward less the forward;
+   SSD_CASES of tests/test_kernels.py, S < chunk, an ``init_state``
+   chain of two calls against one, and both models' prefill shapes; no
+   library call computes it) and its backward (phase "ssd_bwd": dx, ddt,
+   dB, dC and d_init elementwise, dA at relative L2, against
+   ``ssd_bwd_ref`` on the same cases with an initial state and a
+   final-state cotangent, the f32 rows against it evaluated in f64; both
+   models' training shapes timed).
+   The library yardstick of a backward is the library forward plus
+   backward less the forward;
 4. serving: ``run_serving(arch, smoke=False, prompt_len=P, gen=32,
    batch=4)`` at full width and depth for yi-6b (P = 512), zamba2-1.2b
    and mamba2-130m (P = 2048; phases "serving_zamba2", "serving_mamba2"),
@@ -74,7 +85,14 @@ Phases, each of which fails the run (non-zero exit, no final result line):
 8. end to end, training, at full width and 2 layers: one
    ``grads_and_metrics`` through the kernels against one through
    ``use_kernels=False``, loss within relative 1e-2 and every gradient leaf
-   within relative L2 5e-2;
+   within relative L2 5e-2, its launches held against the formula; then,
+   for mamba2-130m and zamba2-1.2b, phase "training_<arch>": 3 steps of
+   ``run_training(arch, smoke=False, seq_len=2048, global_batch=4,
+   carousel=False)`` at full width and depth, counted, timed and peak
+   memory as phase 7, with one more step under the profiler (the SSD
+   kernels picked out), and "end_to_end_training_<arch>" as above at 4 x
+   2048 tokens (mamba2 at 2 layers, zamba2 at 7: one application of the
+   shared block and a mamba block after it);
 9. training_carousel: ``run_training`` on the Data Carousel, as its
    defaults run it (8 shards, 4 drives, 1 ms a tape read, fault rate
    0.02), at full width and depth, 3 steps of 4 x 512 tokens; launches
@@ -103,10 +121,11 @@ counters reset just before it and read just after.
 It prints a ``{"kernel_info": [...]}`` line, a ``{"kernels": [...]}`` line
 and, last, ``{"ok": true, ...}``.
 A kernel's ``launches`` there is the sum of its counts over the eight
-serving runs, the training run and the runs of phases 9-11 (``ssd_scan``:
-the serving runs only); ``ssd_scan``'s row is the zamba2-1.2b prefill
-shape.  Weights are random, made on the card from a seed; data is
-synthetic, from a seed; nothing is downloaded.
+serving runs, the three training runs of phases 7 and 8 and the runs of
+phases 9-11; ``ssd_scan``'s row is the zamba2-1.2b prefill shape,
+``ssd_scan_bwd``'s zamba2-1.2b's training shape.  Weights are random,
+made on the card from a seed; data is synthetic, from a seed; nothing is
+downloaded.
 """
 from __future__ import annotations
 
@@ -166,6 +185,12 @@ SERVE_ARCHS = [("qwen1.5-4b", None, BATCH, PROMPT),
 TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH = 3, 512, 4
 HALF_STEPS = 3  # warm steps whose two halves are timed alone
 E2E_TRAIN_LAYERS = 2
+# SSM / hybrid training at full width and depth, 4 x 2048 tokens a step;
+# the end-to-end gradient checks at a cut depth (zamba2 at 7 layers: one
+# application of the shared block, attn_every 6, and a mamba block after
+# it)
+SSM_TRAIN_SEQ = 2048
+SSM_E2E_LAYERS = {"mamba2-130m": 2, "zamba2-1.2b": 7}
 # the carousel's fine vs coarse delivery: one tape drive, 0.4 s a shard
 FINE_COARSE = dict(steps=6, tape_latency=0.4, drives=1)
 FINE_COARSE_GAP_S = 1.5  # coarse's first batch this much later at least
@@ -204,24 +229,33 @@ FLASH_SERVE = [(BATCH, PROMPT, PROMPT + GEN + 8, hq, hkv, 128, True, 0, 0,
 # the yi-6b training shape: self-attention over TRAIN_SEQ, causal
 FLASH_TRAIN = (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 32, 4, 128, True, 0, 0,
                None)
+# zamba2-1.2b's shared block in training: 4 x 2048, 32/32 heads of 64
+FLASH_TRAIN_ZAMBA2 = (TRAIN_BATCH, SSM_TRAIN_SEQ, SSM_TRAIN_SEQ, 32, 32, 64,
+                      True, 0, 0, None)
 RMS_MAIN = (BATCH * PROMPT, 4096)  # also the training shape (4 x 512 rows)
 # the zamba2-1.2b / mamba2-130m prefill norms: d_model and the gated norm
 RMS_SSM = [(BATCH * SSM_PROMPT, d) for d in (2048, 4096, 768, 1536)]
 # the qwen1.5-4b, qwen1.5-32b and starcoder2-15b prefill norms
 RMS_SERVE = [(BATCH * PROMPT, d) for d in (2560, 5120, 6144)]
 # the backward's sweep: the training shape and the small ragged cases
+# (then the SSM models' training norms, RMS_SSM)
 RMS_TRAIN_SHAPES = [RMS_MAIN, (BATCH, 4096), (8, 128), (3, 7, 384), (1, 513)]
 RMS_SHAPES = RMS_TRAIN_SHAPES + RMS_SSM + RMS_SERVE
 # B, S, H, P, G, N, chunk: the SSD_CASES of tests/test_kernels.py, S <
-# chunk, then the zamba2-1.2b and mamba2-130m prefill shapes
+# chunk, then the zamba2-1.2b and mamba2-130m prefill shapes (also their
+# training shapes, 4 x 2048)
 SSD_ZAMBA2 = (BATCH, SSM_PROMPT, 64, 64, 1, 64, 128)
 SSD_MAMBA2 = (BATCH, SSM_PROMPT, 24, 64, 1, 128, 128)
 SSD_CASES = [(2, 96, 4, 16, 1, 32, 32), (1, 130, 6, 32, 2, 16, 64),
              (2, 64, 2, 64, 1, 128, 32), (2, 50, 4, 64, 1, 64, 128),
              SSD_ZAMBA2, SSD_MAMBA2]
-# T, D, V: the yi-6b loss head (4 x 512 tokens), then small ragged cases
+# T, D, V: the yi-6b loss head (4 x 512 tokens), the mamba2-130m (tied
+# embeddings) and zamba2-1.2b loss heads (4 x 2048), then small ragged cases
 CE_MAIN = (TRAIN_BATCH * TRAIN_SEQ, 4096, 64000)
-CE_SHAPES = [CE_MAIN, (37, 48, 1000), (256, 64, 4099), (300, 128, 513)]
+CE_SSM = [(TRAIN_BATCH * SSM_TRAIN_SEQ, 768, 50280),
+          (TRAIN_BATCH * SSM_TRAIN_SEQ, 2048, 32000)]
+CE_SHAPES = [CE_MAIN] + CE_SSM + [(37, 48, 1000), (256, 64, 4099),
+                                  (300, 128, 513)]
 
 
 def log(*a) -> None:
@@ -315,7 +349,7 @@ def _time_row(row: dict, fns: dict, sets: list, calls: int = 10) -> None:
 
 
 def _grad_ms(row: dict, key: str, fwd, inputs: list, grad_out,
-             sets: list) -> None:
+             sets: list, calls: int = 10) -> None:
     """Library yardstick of a backward: the time of ``fwd`` plus its
     backward (``torch.autograd.grad`` w.r.t. ``inputs``) less that of
     ``fwd`` alone, warm and cold as ``_time_row`` does.  ``fwd`` and
@@ -323,7 +357,7 @@ def _grad_ms(row: dict, key: str, fwd, inputs: list, grad_out,
     both = {}
     _time_row(both, {
         "fb": lambda *s: torch.autograd.grad(fwd(*s), inputs(*s), grad_out),
-        "f": lambda *s: fwd(*s)}, sets)
+        "f": lambda *s: fwd(*s)}, sets, calls)
     row[key + "_warm"] = both["fb_warm"] - both["f_warm"]
     row[key] = both["fb"] - both["f"]
 
@@ -441,63 +475,81 @@ def phase_flash(gen: torch.Generator, failures: list) -> dict:
 
 def phase_rmsnorm_bwd(gen: torch.Generator, failures: list) -> dict:
     """The backward kernel (dx, dw) against the plain backward, both fed
-    the plain forward's ``inv``; the forward's ``inv`` checked too."""
+    the plain forward's ``inv``; the forward's ``inv`` checked too.  The
+    f32 kernel is held against ``rmsnorm_bwd_ref`` evaluated in f64: dw
+    sums up to 8192 rows, and the f32 kernel and the f32 plain version,
+    each within 3e-5 of that sum, can lie more than 3e-5 apart; the f32
+    plain version's own distance from it is logged beside."""
     main = None
     worst = 0.0
     eps = 1e-5
-    for shape in RMS_TRAIN_SHAPES:
-        for dtype in (torch.bfloat16, torch.float32):
-            D = shape[-1]
-            x, g = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
-                    for _ in range(2))
-            w = torch.randn((D,), generator=gen, device="cuda").to(dtype)
-            _, inv = krms.rmsnorm_cuda(x, w, eps, return_inv=True)
-            _, inv_ref = ref.rmsnorm_fwd_ref(x, w, eps)
-            got = krms.rmsnorm_bwd_cuda(x, w, inv_ref, g)
-            want = ref.rmsnorm_bwd_ref(x, w, inv_ref, g)
-            torch.cuda.synchronize()
-            ok, err = _close(inv, inv_ref, TOL[torch.float32])
+    for shape, dtype in [(s, d) for s in RMS_TRAIN_SHAPES + RMS_SSM
+                         for d in (torch.bfloat16, torch.float32)]:
+        D = shape[-1]
+        x, g = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                for _ in range(2))
+        w = torch.randn((D,), generator=gen, device="cuda").to(dtype)
+        _, inv = krms.rmsnorm_cuda(x, w, eps, return_inv=True)
+        _, inv_ref = ref.rmsnorm_fwd_ref(x, w, eps)
+        got = krms.rmsnorm_bwd_cuda(x, w, inv_ref, g)
+        want = ref.rmsnorm_bwd_ref(x, w, inv_ref, g)
+        if dtype == torch.float32:
+            plain, want = want, ref.rmsnorm_bwd_ref(
+                x, w, inv_ref, g, compute_dtype=torch.float64)
+        torch.cuda.synchronize()
+
+        def errors(got, ok, err):
             for a, b in zip(got, want):
                 ok_i, err_i = _close(a, b, TOL[dtype])
                 ok, err = ok and ok_i, max(err, err_i)
-            worst = max(worst, err)
-            n_bytes = (3 * x.numel() * x.element_size() + 2 * D
-                       * w.element_size() + 4 * inv.numel())
-            is_main = tuple(shape) == RMS_MAIN and dtype == torch.bfloat16
-            sets = [(x, w, inv_ref, g)] + (
-                [tuple(t.clone() for t in (x, w, inv_ref, g))
-                 for _ in range(cold_sets(n_bytes) - 1)] if is_main else [])
-            row = {"shape": list(shape), "dtype": str(dtype)[6:],
-                   "max_abs_err": err, "ok": ok}
-            _time_row(row, {
-                "ms": lambda x, w, inv, g: krms.rmsnorm_bwd_cuda(x, w, inv,
-                                                                 g),
-                "plain_ms": lambda x, w, inv, g: ref.rmsnorm_bwd_ref(
-                    x, w, inv, g)}, sets)
-            lib_sets = [(x.clone().requires_grad_(),
-                         w.clone().requires_grad_()) for x, w, _, _ in sets]
-            _grad_ms(row, "library_ms",
-                     lambda x, w: F.rms_norm(x, (D,), w, eps),
-                     lambda x, w: (x, w), g, lib_sets)
-            del sets, lib_sets
-            row["bound_ms"], row["bound_by"] = _bound(
-                n_bytes, 8 * x.numel(), dtype)
-            log("rmsnorm_bwd", json.dumps(row))
-            if not ok:
-                failures.append(f"rmsnorm_bwd {shape} {dtype}: max err {err}")
-            if is_main:
-                main = row
+            return ok, err
+
+        ok, err = errors(got, *_close(inv, inv_ref, TOL[torch.float32]))
+        worst = max(worst, err)
+        n_bytes = (3 * x.numel() * x.element_size() + 2 * D
+                   * w.element_size() + 4 * inv.numel())
+        is_main = tuple(shape) == RMS_MAIN and dtype == torch.bfloat16
+        cold = dtype == torch.bfloat16 and (is_main
+                                            or tuple(shape) in RMS_SSM)
+        sets = [(x, w, inv_ref, g)] + (
+            [tuple(t.clone() for t in (x, w, inv_ref, g))
+             for _ in range(cold_sets(n_bytes) - 1)] if cold else [])
+        row = {"shape": list(shape), "dtype": str(dtype)[6:],
+               "max_abs_err": err, "ok": ok}
+        if dtype == torch.float32:
+            row["plain_f32_vs_f64"] = errors(plain, True, 0.0)[1]
+            del plain
+        _time_row(row, {
+            "ms": lambda x, w, inv, g: krms.rmsnorm_bwd_cuda(x, w, inv,
+                                                             g),
+            "plain_ms": lambda x, w, inv, g: ref.rmsnorm_bwd_ref(
+                x, w, inv, g)}, sets)
+        lib_sets = [(x.clone().requires_grad_(),
+                     w.clone().requires_grad_()) for x, w, _, _ in sets]
+        _grad_ms(row, "library_ms",
+                 lambda x, w: F.rms_norm(x, (D,), w, eps),
+                 lambda x, w: (x, w), g, lib_sets)
+        del sets, lib_sets
+        row["bound_ms"], row["bound_by"] = _bound(
+            n_bytes, 8 * x.numel(), dtype)
+        log("rmsnorm_bwd", json.dumps(row))
+        if not ok:
+            failures.append(f"rmsnorm_bwd {shape} {dtype}: max err {err}")
+        if is_main:
+            main = row
     return dict(main, max_abs_err=worst)
 
 
 def phase_flash_bwd(gen: torch.Generator, failures: list) -> dict:
     """The forward's ``lse`` against the plain forward's, and the backward
     kernels (dq, dk, dv) against the plain backward on the same out, lse
-    and dout, at the training shape and the CASES; at the training shape
-    also the forward writing ``lse`` timed (row "flash_lse")."""
+    and dout, at the CASES and the training shapes (yi-6b's, zamba2's
+    shared block); at the training shapes also the forward writing
+    ``lse`` timed (rows "flash_lse")."""
     main = None
+    fwd_rows = []
     worst = worst_lse = 0.0
-    for case in FLASH_CASES + [FLASH_TRAIN]:
+    for case in FLASH_CASES + [FLASH_TRAIN, FLASH_TRAIN_ZAMBA2]:
         B, Sq, Sk, Hq, Hkv, D, causal, window, q_off, kv_len = case
         kw = dict(causal=causal, sliding_window=window, q_offset=q_off,
                   kv_len=kv_len)
@@ -525,19 +577,23 @@ def phase_flash_bwd(gen: torch.Generator, failures: list) -> dict:
             n_bytes = ((4 * q.numel() + 4 * B * keys * Hkv * D)
                        * q.element_size() + 4 * lse.numel())
             is_main = case == FLASH_TRAIN and dtype == torch.bfloat16
+            train = dtype == torch.bfloat16 and case in (FLASH_TRAIN,
+                                                         FLASH_TRAIN_ZAMBA2)
             inputs = (q, k, v, o, lse_ref, do)
             sets = [inputs] + ([tuple(t.clone() for t in inputs)
                                 for _ in range(cold_sets(n_bytes) - 1)]
-                               if is_main else [])
+                               if train else [])
             row = {"case": list(case), "dtype": str(dtype)[6:],
                    "max_abs_err": err, "lse_max_abs_err": err_lse, "ok": ok}
+            # the plain versions take 15-40 ms a call at zamba2's shape
+            calls = 3 if case == FLASH_TRAIN_ZAMBA2 else 10
             _time_row(row, {
                 "ms": lambda q, k, v, o, lse, do:
                     kflash.flash_attention_bwd_cuda(q, k, v, o, lse, do,
                                                     **kw),
                 "plain_ms": lambda q, k, v, o, lse, do:
                     ref.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)},
-                sets)
+                sets, calls)
             # library yardstick: SDPA with K/V repeated to Hq heads (timed
             # only; the port never calls it); causal self-attention as
             # is_causal, any other mask as a boolean mask
@@ -550,7 +606,7 @@ def phase_flash_bwd(gen: torch.Generator, failures: list) -> dict:
                          qt, kt, vt, is_causal=plain_causal,
                          attn_mask=None if plain_causal else mask),
                      lambda qt, kt, vt: (qt, kt, vt), do.transpose(1, 2),
-                     lib_sets)
+                     lib_sets, calls)
             row["bound_ms"], row["bound_by"] = _bound(
                 n_bytes, 10.0 * B * Hq * pairs * D, dtype)
             if is_main:
@@ -564,6 +620,7 @@ def phase_flash_bwd(gen: torch.Generator, failures: list) -> dict:
                                 f"{err}, lse {err_lse}")
             if is_main:
                 main = row
+            if train:
                 fwd = {"case": list(case), "dtype": str(dtype)[6:]}
                 # the training forward: the same kernel writing lse too
                 sets = [st[:3] + _sdpa_inputs(*st[:3]) for st in sets]
@@ -575,20 +632,23 @@ def phase_flash_bwd(gen: torch.Generator, failures: list) -> dict:
                     "library_ms": lambda q, k, v, qt, kt, vt:
                         F.scaled_dot_product_attention(qt, kt, vt,
                                                        is_causal=True)},
-                    sets)
+                    sets, calls)
                 fwd["bound_ms"], fwd["bound_by"] = _bound(
                     (2 * q.numel() + 2 * B * keys * Hkv * D)
                     * q.element_size() + 4 * lse.numel(),
                     4.0 * B * Hq * pairs * D, dtype)
+                fwd_rows.append(fwd)
             del sets, lib_sets
-    log("flash_lse", json.dumps(dict(fwd, max_abs_err=worst_lse)))
+    for fwd in fwd_rows:  # yi-6b's training shape, then zamba2's
+        log("flash_lse", json.dumps(dict(fwd, max_abs_err=worst_lse)))
     return dict(main, max_abs_err=worst)
 
 
 def phase_cross_entropy(gen: torch.Generator, failures: list) -> dict:
     """The CE kernel's per-token (nll, lse) against the plain blockwise
-    statistics, timed at the loss head's shape in bf16.  Its 524 MB vocab
-    matrix is ten times L2, so its warm time is its cold time."""
+    statistics, timed at the loss heads' shapes in bf16 (yi-6b's, the
+    main row, then mamba2-130m's and zamba2-1.2b's).  Their vocab
+    matrices (524, 77 and 131 MB) are past L2, so warm times only."""
     main = None
     worst = 0.0
     for shape in CE_SHAPES:
@@ -609,7 +669,7 @@ def phase_cross_entropy(gen: torch.Generator, failures: list) -> dict:
             row = {"shape": list(shape), "dtype": str(dtype)[6:],
                    "max_abs_err": err, "ok": ok}
             is_main = shape == CE_MAIN and dtype == torch.bfloat16
-            if is_main:
+            if dtype == torch.bfloat16 and shape in [CE_MAIN] + CE_SSM:
                 # library yardstick: logits by cuBLAS, then cross_entropy
                 _time_row(row, {
                     "ms": lambda h, w, t: kce.cross_entropy_cuda(h, w, t),
@@ -622,6 +682,7 @@ def phase_cross_entropy(gen: torch.Generator, failures: list) -> dict:
                            + 8 * T)
                 row["bound_ms"], row["bound_by"] = _bound(
                     n_bytes, 2.0 * T * V * D, dtype)
+            if is_main:
                 main = row
             log("cross_entropy", json.dumps(row))
             if not ok:
@@ -725,6 +786,95 @@ def phase_ssd(gen: torch.Generator, failures: list) -> dict:
         if not (ok_y and ok_h):
             failures.append(f"ssd init_state chain {dtype}: y err {err_y}, "
                             f"state err {err_h}")
+    return dict(main, max_abs_err=worst)
+
+
+def _ssd_bwd_work(case, x_bytes: int):
+    """(bytes, FLOPs) one SSD backward needs, as ``_ssd_work`` counts them:
+    x, dy, dt, B and C read once, dx, ddt, dB and dC written once (no
+    initial state, as in training); C Bᵀ once per group and dy xᵀ per head
+    over the causal pairs, the three products of the pairs with dy, B and
+    C (dx, dC, dB), and five of S x N x P per head: the states recomputed
+    forward and backward and the inter-chunk terms of dx, dC and dB."""
+    B, S, H, P, G, N, Q = case
+    pairs = sum(q * (q + 1) // 2 for q in
+                [Q] * (S // Q) + ([S % Q] if S % Q else []))
+    n_bytes = (3 * B * S * H * P * x_bytes + 2 * 4 * B * S * H
+               + 4 * B * S * G * N * x_bytes)
+    flops = (2.0 * B * G * pairs * N + 2.0 * B * H * pairs * (2 * P + 2 * N)
+             + 10.0 * B * H * S * N * P)
+    return n_bytes, flops
+
+
+def phase_ssd_bwd(gen: torch.Generator, failures: list) -> dict:
+    """The SSD backward kernels against ``ssd_bwd_ref`` on every case and
+    dtype, with an initial state and a cotangent of the final state: dx,
+    ddt, dB, dC and d_init elementwise at SSD_TOL, dA (a sum over B * S
+    terms) at relative L2 SSD_TOL; the models' training shapes timed cold
+    and warm (no initial state, as in training).  The f32 kernel is held
+    against ``ssd_bwd_ref`` evaluated in f64: at the models' shapes the
+    f32 kernel and the f32 plain version each lie within SSD_TOL of it,
+    but not always of each other (the chunk's cumulative decay, rounded in
+    f32 at magnitudes near 100, moves every term of sums that cancel by
+    ~1e-5 relative); the f32 plain version's own distance from it is
+    logged beside."""
+    main = None
+    worst = 0.0
+    names = ("dx", "ddt", "dA", "dB", "dC", "d_init")
+    for case in SSD_CASES:
+        B, S, H, P, G, N, chunk = case
+        for dtype in (torch.bfloat16, torch.float32):
+            x, dt, A, Bm, Cm = _ssd_inputs(gen, case, dtype)
+            h0, dh = (torch.randn((B, H, P, N), generator=gen, device="cuda")
+                      * 0.1 for _ in range(2))
+            dy = torch.randn((B, S, H, P), generator=gen,
+                             device="cuda").to(dtype)
+            kw = dict(chunk=chunk, init_state=h0, d_state=dh)
+            got = kssd.ssd_bwd_cuda(x, dt, A, Bm, Cm, dy, **kw)
+            want = ref.ssd_bwd_ref(x, dt, A, Bm, Cm, dy, **kw)
+            if dtype == torch.float32:
+                plain, want = want, ref.ssd_bwd_ref(
+                    x, dt, A, Bm, Cm, dy, compute_dtype=torch.float64, **kw)
+            torch.cuda.synchronize()
+
+            def errors(got):
+                ok, err, errs = True, 0.0, {}
+                for name, a, b in zip(names, got, want):
+                    if name == "dA":
+                        errs["dA_rel_l2"] = _rel_l2(a, b)
+                        ok = ok and errs["dA_rel_l2"] <= SSD_TOL[dtype]
+                        continue
+                    ok_i, err_i = _close(a, b, SSD_TOL[dtype])
+                    ok, err = ok and ok_i, max(err, err_i)
+                    errs[name] = err_i
+                return ok, err, errs
+
+            ok, err, errs = errors(got)
+            worst = max(worst, err)
+            row = {"case": list(case), "dtype": str(dtype)[6:],
+                   "max_abs_err": err, "errs": errs, "ok": ok}
+            if dtype == torch.float32:
+                row["plain_f32_vs_f64"] = errors(plain)[2]
+                del plain
+            del got, want
+            n_bytes, flops = _ssd_bwd_work(case, x.element_size())
+            if case in (SSD_ZAMBA2, SSD_MAMBA2) and dtype == torch.bfloat16:
+                inputs = (x, dt, A, Bm, Cm, dy)
+                sets = [inputs] + [tuple(t.clone() for t in inputs)
+                                   for _ in range(cold_sets(n_bytes) - 1)]
+                _time_row(row, {
+                    "ms": lambda *t: kssd.ssd_bwd_cuda(*t, chunk=chunk),
+                    "plain_ms": lambda *t: ref.ssd_bwd_ref(*t, chunk=chunk)},
+                    sets, calls=4)
+                del sets
+                row["library_ms"] = None  # no PyTorch call computes it
+                if case == SSD_ZAMBA2:
+                    main = row
+            row["bound_ms"], row["bound_by"] = _bound(n_bytes, flops, dtype)
+            log("ssd_bwd", json.dumps(row))
+            if not ok:
+                failures.append(f"ssd_bwd {case} {dtype}: {errs}")
+            del x, dt, A, Bm, Cm, dy, h0, dh
     return dict(main, max_abs_err=worst)
 
 
@@ -1023,38 +1173,50 @@ def phase_serving_parts(params, cfg, batch: int, prompt: int,
 
 
 TRAIN_KERNELS = ("rmsnorm", "rmsnorm_bwd", "flash_attention",
-                 "flash_attention_bwd", "cross_entropy")
+                 "flash_attention_bwd", "cross_entropy", "ssd_scan",
+                 "ssd_scan_bwd")
 
 
-def training_launches(layers: int, steps: int) -> dict:
-    """Kernel launches of ``steps`` training steps: per step, with remat
-    "full" or "dots", each block's forward runs twice (the forward, then
-    the recompute in the backward); ln_f is outside the checkpointed
-    blocks; one CE call."""
-    L = layers
+def training_launches(layers: int, steps: int, arch: str = ARCH) -> dict:
+    """Kernel launches of ``steps`` training steps of ``arch`` at
+    ``layers`` layers: per step, with remat "full" or "dots", each block's
+    forward runs twice (the forward, then the recompute in the backward):
+    a transformer block's two norms and flash attention, a mamba block's
+    two norms and SSD scan; the hybrid's shared block (one application
+    every ``attn_every`` mamba blocks) is not checkpointed, so its two
+    norms and flash attention run once; each block's backward runs once;
+    ln_f is outside the checkpointed blocks; one CE call."""
+    L, family = layers, get_config(arch).family
+    attn = {"dense": L, "ssm": 0,
+            "hybrid": L // max(get_config(arch).attn_every, 1)}[family]
+    ssd = 0 if family == "dense" else L
+    remat_attn = attn if family == "dense" else 0  # run again in backward
+    norms = 2 * L + (2 * attn if family == "hybrid" else 0) + 1
     return {k: n * steps for k, n in zip(TRAIN_KERNELS, (
-        2 * L + 1 + 2 * L, 2 * L + 1, 2 * L, L, 1))}
+        norms + 2 * L, norms, attn + remat_attn, attn, 1, 2 * ssd, ssd))}
 
 
 def reset_launches() -> None:
     for mod in (krms, kflash, kce, kssd):
         mod.launches = 0
-    krms.bwd_launches = kflash.bwd_launches = 0
+    krms.bwd_launches = kflash.bwd_launches = kssd.bwd_launches = 0
 
 
 def read_launches() -> dict:
     return {"rmsnorm": krms.launches, "rmsnorm_bwd": krms.bwd_launches,
             "flash_attention": kflash.launches,
             "flash_attention_bwd": kflash.bwd_launches,
-            "cross_entropy": kce.launches}
+            "cross_entropy": kce.launches, "ssd_scan": kssd.launches,
+            "ssd_scan_bwd": kssd.bwd_launches}
 
 
 def _timed_run(failures: list, label: str, layers: int, steps: int,
-               **kw) -> tuple:
-    """One ``run_training`` at full width and ``layers`` layers, counted
-    (launch counters reset just before, read just after, held against
-    ``training_launches``), its losses checked finite, and timed through
-    ``on_step``.  Returns (result, launches, step stamps, start time)."""
+               arch: str = ARCH, seq_len: int = TRAIN_SEQ, **kw) -> tuple:
+    """One ``run_training`` of ``arch`` at full width and ``layers``
+    layers, counted (launch counters reset just before, read just after,
+    held against ``training_launches``), its losses checked finite, and
+    timed through ``on_step``.  Returns (result, launches, step stamps,
+    start time)."""
     stamps = []
 
     def on_step(i, metrics):
@@ -1064,10 +1226,10 @@ def _timed_run(failures: list, label: str, layers: int, steps: int,
     reset_launches()
     t0 = time.perf_counter()
     res = train.run_training(
-        ARCH, smoke=False, num_layers=layers, steps=steps, seq_len=TRAIN_SEQ,
+        arch, smoke=False, num_layers=layers, steps=steps, seq_len=seq_len,
         global_batch=TRAIN_BATCH, device=DEVICE, on_step=on_step, **kw)
     counts = read_launches()
-    want = training_launches(layers, res["steps"])
+    want = training_launches(layers, res["steps"], arch)
     if counts != want:
         failures.append(f"{label} launch counts {counts} != {want}")
     if res["steps"] != steps or not all(
@@ -1142,6 +1304,46 @@ def phase_training(failures: list) -> tuple:
     return counts, steps_s
 
 
+def phase_training_ssm(failures: list, arch: str) -> dict:
+    """``run_training(arch, smoke=False, steps=TRAIN_STEPS, seq_len=
+    SSM_TRAIN_SEQ, global_batch=TRAIN_BATCH, carousel=False)`` at full
+    width and depth, counted and timed as phase "training" is; then one
+    more (warm) step under the profiler, the SSD scan's forward and
+    backward kernels picked out."""
+    cfg = get_config(arch)
+    tag = arch.split("-")[0]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    L = cfg.num_layers
+    res, counts, stamps, t0 = _timed_run(
+        failures, f"training_{tag}", L, TRAIN_STEPS, arch=arch,
+        seq_len=SSM_TRAIN_SEQ, carousel=False)
+    peak = torch.cuda.max_memory_allocated()
+    steps_s = [b - a for a, b in zip(stamps, stamps[1:])]
+    tokens = TRAIN_BATCH * SSM_TRAIN_SEQ
+    run = train.default_run_config(cfg, TRAIN_STEPS)
+    batch = registry.synth_inputs(
+        torch.Generator(device=DEVICE).manual_seed(TRAIN_STEPS), cfg,
+        ShapeConfig("train", SSM_TRAIN_SEQ, TRAIN_BATCH, "train"), "train",
+        device=DEVICE)
+    state = res.pop("state")
+    prof = _profile(lambda: tstep.make_train_step(cfg, run)(state, batch),
+                    top=12, pick=("ssd_", "flash_", "rmsnorm_", "ce_"))
+    log(f"training_{tag}", json.dumps({
+        "arch": arch, "layers": L, "steps": res["steps"],
+        "tokens_per_step": tokens, "losses": res["losses"],
+        "first_step_s": stamps[0] - t0 if stamps else None,
+        "step_s_2_3": steps_s,
+        "tokens_per_s": tokens / statistics.mean(steps_s),
+        "wall_s": res["wall_s"], "peak_mem_bytes": peak,
+        "launches": counts,
+        "expected_launches": training_launches(L, TRAIN_STEPS, arch),
+        "profiled_step": prof}))
+    del state, res, batch
+    torch.cuda.empty_cache()
+    return counts
+
+
 def _tree_items(tree, prefix=""):
     if isinstance(tree, dict):
         for k, v in tree.items():
@@ -1150,18 +1352,24 @@ def _tree_items(tree, prefix=""):
         yield prefix, tree
 
 
-def phase_training_end_to_end(failures: list) -> None:
+def phase_training_end_to_end(failures: list, arch: str = ARCH,
+                              layers: int = E2E_TRAIN_LAYERS,
+                              seq_len: int = TRAIN_SEQ,
+                              label: str = "end_to_end_training") -> dict:
     """One ``grads_and_metrics`` through the kernels against one through
-    the plain versions, at full width and E2E_TRAIN_LAYERS layers."""
-    cfg = get_config(ARCH).replace(num_layers=E2E_TRAIN_LAYERS)
+    the plain versions, at full width and ``layers`` layers; the kernel
+    run's launches are returned (a comparison's, not the main path's)."""
+    cfg = get_config(arch).replace(num_layers=layers)
     dev = torch.device(DEVICE)
     params = serve.init_params(cfg, 11, dev)
     batch = registry.synth_inputs(
         torch.Generator(device=dev).manual_seed(12), cfg,
-        ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train"), "train",
+        ShapeConfig("train", seq_len, TRAIN_BATCH, "train"), "train",
         device=dev)
     run = train.default_run_config(cfg, TRAIN_STEPS)
+    reset_launches()
     gk, mk = tstep.grads_and_metrics(params, cfg, run, batch)
+    counts = read_launches()
     gp, mp = tstep.grads_and_metrics(params, cfg,
                                      run.replace(use_kernels=False), batch)
     lk, lp = float(mk["loss"]), float(mp["loss"])
@@ -1169,18 +1377,23 @@ def phase_training_end_to_end(failures: list) -> None:
     rel = {name: _rel_l2(a, b) for (name, a), (_, b) in
            zip(_tree_items(gk), _tree_items(gp))}
     finite = all(bool(torch.isfinite(g).all()) for g in P.tree_leaves(gk))
-    log("end_to_end_training", json.dumps({
-        "layers": E2E_TRAIN_LAYERS, "loss_kernels": lk, "loss_plain": lp,
+    want = training_launches(layers, 1, arch)
+    log(label, json.dumps({
+        "arch": arch, "layers": layers, "seq_len": seq_len,
+        "loss_kernels": lk, "loss_plain": lp,
         "loss_rel": loss_rel, "loss_tol": LOSS_TOL, "grad_rel_l2": rel,
-        "grad_tol": E2E_TOL, "grads_finite": finite}))
+        "grad_tol": E2E_TOL, "grads_finite": finite, "launches": counts}))
     if not loss_rel <= LOSS_TOL:
-        failures.append(f"training loss kernels {lk} vs plain {lp}")
+        failures.append(f"{label} loss kernels {lk} vs plain {lp}")
     bad = {k: r for k, r in rel.items() if not r <= E2E_TOL}
     if bad or not finite:
-        failures.append(f"training grads rel L2 > {E2E_TOL}: {bad}, "
+        failures.append(f"{label} grads rel L2 > {E2E_TOL}: {bad}, "
                         f"finite={finite}")
+    if counts != want:
+        failures.append(f"{label} launch counts {counts} != {want}")
     del params, gk, gp
     torch.cuda.empty_cache()
+    return counts
 
 
 def _carousel_row(res: dict) -> dict:
@@ -1450,12 +1663,15 @@ def main() -> int:
         failures.append(f"kernels use local memory: {spilling}")
     gen = torch.Generator(device="cuda").manual_seed(0)
     t0 = time.perf_counter()
-    rms_main = phase_rmsnorm(gen, failures)
-    flash_main = phase_flash(gen, failures)
-    rms_bwd_main = phase_rmsnorm_bwd(gen, failures)
-    flash_bwd_main = phase_flash_bwd(gen, failures)
-    ce_main = phase_cross_entropy(gen, failures)
-    ssd_main = phase_ssd(gen, failures)
+    mains = {}
+    for name, phase in (("rmsnorm", phase_rmsnorm), ("flash", phase_flash),
+                        ("rmsnorm_bwd", phase_rmsnorm_bwd),
+                        ("flash_bwd", phase_flash_bwd),
+                        ("cross_entropy", phase_cross_entropy),
+                        ("ssd", phase_ssd), ("ssd_bwd", phase_ssd_bwd)):
+        t1 = time.perf_counter()
+        mains[name] = phase(gen, failures)
+        log(f"{name} phase: {time.perf_counter() - t1:.2f} s")
     log(f"kernel phases: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     counts = [phase_serving(failures)]
@@ -1498,6 +1714,14 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_training_end_to_end(failures)
     log(f"end-to-end training phase: {time.perf_counter() - t0:.2f} s")
+    for arch in ("mamba2-130m", "zamba2-1.2b"):
+        tag = arch.split("-")[0]
+        t0 = time.perf_counter()
+        counts.append(phase_training_ssm(failures, arch))
+        phase_training_end_to_end(failures, arch, SSM_E2E_LAYERS[arch],
+                                  SSM_TRAIN_SEQ,
+                                  f"end_to_end_training_{tag}")
+        log(f"{arch} training phases: {time.perf_counter() - t0:.2f} s")
     for name, phase, args in (
             ("training_carousel", phase_training_carousel, (train_steps_s,)),
             ("carousel_fine_vs_coarse", phase_carousel_fine_vs_coarse, ()),
@@ -1517,17 +1741,19 @@ def main() -> int:
              **{k: row[k] for k in keys})
         for name, source, replaces, row in (
             ("rmsnorm", "rmsnorm.cu", "src/repro/kernels/rmsnorm.py:25",
-             rms_main),
+             mains["rmsnorm"]),
             ("rmsnorm_bwd", "rmsnorm.cu", "src/repro/kernels/ref.py:60",
-             rms_bwd_main),
+             mains["rmsnorm_bwd"]),
             ("flash_attention", "flash_attention.cu",
-             "src/repro/kernels/flash_attention.py:80", flash_main),
+             "src/repro/kernels/flash_attention.py:80", mains["flash"]),
             ("flash_attention_bwd", "flash_attention.cu",
-             "src/repro/kernels/ref.py:188", flash_bwd_main),
+             "src/repro/kernels/ref.py:188", mains["flash_bwd"]),
             ("cross_entropy", "cross_entropy.cu",
-             "src/repro/kernels/cross_entropy.py:56", ce_main),
+             "src/repro/kernels/cross_entropy.py:56", mains["cross_entropy"]),
             ("ssd_scan", "ssd_scan.cu", "src/repro/kernels/ssd_scan.py:71",
-             ssd_main))]
+             mains["ssd"]),
+            ("ssd_scan_bwd", "ssd_scan.cu", "src/repro/kernels/ref.py:322",
+             mains["ssd_bwd"]))]
     log(f"total: {time.perf_counter() - t_start:.2f} s")
     log(smi)
     log(json.dumps({"kernel_info": kernel_info}))

@@ -81,6 +81,43 @@
 // number <= 0 and lies in [0, 1]: exp(cs) underflows to 0 over a long
 // chunk, which is right, and nothing is divided by it.  Entries of L above
 // the diagonal are never formed (no inf * 0).
+//
+// The backward (repro_ssd_bwd) is the twin of autodiff of
+// repro/kernels/ref.py::ssd_ref, which the JAX package trains through (jnp,
+// no Pallas).  For a chunk, with H_c the state before it, G the cotangent
+// of the state after it, dy the cotangent of y and e_j = exp(cs_Q - cs_j)
+// (the formulas in full at ref.py's ssd_bwd_ref, this package's plain
+// version):
+//   G_c  = exp(cs_Q) G + sum_i exp(cs_i) dy_i C_i^T,  dinit = G_0
+//   dx_j = dt_j [sum_i (C_i.B_j) L_ij dy_i + e_j G B_j]
+//   dC_i = sum_j (dy_i.x_j) L_ij dt_j B_j + exp(cs_i) H_c^T dy_i
+//   dB_j = dt_j [sum_i (dy_i.x_j) L_ij C_i + e_j G^T x_j]  (over the group)
+//   ddt_j, dA from the cotangent of cs: row and column sums of
+//   s_ij = (dy_i.x_j)(C_i.B_j) L_ij dt_j, the inter-chunk terms, and a
+//   reverse cumsum over the chunk.
+// Bound on the card.  At zamba2-1.2b's training shape (B=4, S=2048, H=64,
+// P=64, N=64, bf16) x, dy, dx, dt, ddt, B, C, dB and dC once are about
+// 210 MB, 63 us at HBM rate, above the 39 GFLOP of products (three times
+// the forward's) at the bf16 peak: bytes.  At mamba2-130m's (H=24, N=128)
+// 86 MB (26 us) and 26 GFLOP (26 us): the two meet.
+// Design, simple and exact (f32 on the CUDA cores for both dtypes; bf16 is
+// read exactly and dx, dB, dC rounded once at the end), four launches:
+//   1. ssd_state_pass_kernel<T, fwd, NJ>: one block per (32 state rows,
+//      head, batch) walks the chunks as the f32 forward does and writes H_c
+//      for every chunk to an f32 (B, H, n_chunks, P, N) scratch (50-67 MB
+//      at the models' shapes);
+//   2. the same kernel in reverse: G carried in registers, G for every
+//      chunk to a second scratch, and G_0 (dinit);
+//   3. ssd_bwd_chunk_kernel<T>: one block per (chunk, head, batch), fully
+//      parallel: (dy x^T) o L and (C B^T) o L as two 128 x 128 f32 tiles
+//      in shared memory (with the row and column sums of s on the way),
+//      then dx, the dC and dB of this head and the terms of ddt from
+//      32-wide slices staged through shared memory; writes dx and ddt,
+//      and f32 partials of dB, dC (a head each) and of dA (a chunk each);
+//   4. ssd_bwd_reduce_kernel<T>: the partials summed over the heads of a
+//      group and over (batch, chunk), in a fixed order.
+// No float atomics: every sum has a fixed order, so the bits do not
+// depend on the run.  The tensor cores are a later design's (ROADMAP B).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -830,6 +867,719 @@ bool launch_tc(const bf16* x, const float* dt, const float* A,
   return true;
 }
 
+
+// ---------------------------------------------------------------------------
+// The backward (f32 on the CUDA cores, both dtypes; see the head of the
+// file for the formulas and the design)
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+template <typename T>
+__device__ __forceinline__ T from_f(float v);
+template <>
+__device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ bf16 from_f<bf16>(float v) {
+  return __float2bfloat16(v);
+}
+
+// Warp 0: cs[i] = sum_{s <= i} dts[s] * a over kQMax entries (4 a lane,
+// then a shuffle scan), rounded the same way in every backward kernel (no
+// contraction into FMAs), so that they agree bit for bit.
+__device__ __forceinline__ void chunk_cumsum(const float* dts, float* cs,
+                                             float a, int lane) {
+  float v[4], run = 0.f;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    run = __fadd_rn(run, __fmul_rn(dts[4 * lane + e], a));
+    v[e] = run;
+  }
+  float tot = run;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float o = __shfl_up_sync(0xffffffffu, tot, off);
+    if (lane >= off) tot = __fadd_rn(tot, o);
+  }
+  const float before = __fsub_rn(tot, run);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) cs[4 * lane + e] = __fadd_rn(before, v[e]);
+}
+
+// The sum over the 16 lanes of a half warp (tx = lane % 16), in a fixed
+// order.
+__device__ __forceinline__ float half_sum16(float v) {
+#pragma unroll
+  for (int m = 8; m >= 1; m >>= 1) v += __shfl_xor_sync(0xffffffffu, v, m);
+  return v;
+}
+
+constexpr int kSpPT = 32;               // state rows a block
+constexpr int kSpRows = kSpPT / 8;      // rows a thread (8 warps)
+
+size_t state_pass_smem(int Q, int N) {
+  return sizeof(float) * (size_t)(3 * kQMax + Q * kSpPT + Q * N);
+}
+
+// The state passes, one block per (32 state rows, head, batch), walking the
+// chunks in order (forward) or in reverse, the (32, N) slice of the f32
+// state in registers: warp w holds rows w + 8 r (r < 4), lane l columns
+// l + 32 j (j < NJ: 2 for N <= 64, else 4), so a step of the update
+// reads 4 broadcast values of x (or dy) and NJ of B (or C) for 4 NJ FMAs.
+// (A one-column instantiation for N <= 32 spilled under ptxas: such N
+// takes the two-column one.)  Per chunk,
+// before the update, the state is written to buf[b, h, c]; then
+//   forward: H <- exp(cs_Q) H + sum_j dt_j exp(cs_Q - cs_j) x_j B_j^T
+//            (u = x, v = B, s0 = the initial state or null);
+//   reverse: G <- exp(cs_Q) G + sum_i exp(cs_i) dy_i C_i^T
+//            (u = dy, v = C, s0 = the final state's cotangent or null),
+//            and the last G (the initial state's cotangent) to s_out.
+template <typename T, bool kRev, int NJ>
+__global__ void __launch_bounds__(kThreads)
+    ssd_state_pass_kernel(const T* __restrict__ u, const T* __restrict__ v,
+                          const float* __restrict__ dt,
+                          const float* __restrict__ A,
+                          const float* __restrict__ s0,
+                          float* __restrict__ buf, float* __restrict__ s_out,
+                          int S, int H, int P, int G, int N, int Q, int n_c,
+                          Strides us_, Strides vs_, Strides dts_) {
+  extern __shared__ float smem[];
+  float* dts = smem;                  // [kQMax] dt, 0 past Q and S
+  float* cs = dts + kQMax;            // [kQMax] inclusive cumsum of dt * A
+  float* wt = cs + kQMax;             // [kQMax] the weights of the update
+  float* su = wt + kQMax;             // [Q][kSpPT] x or dy
+  float* sv = su + Q * kSpPT;         // [Q][N] B or C
+  const int p0 = blockIdx.x * kSpPT, h = blockIdx.y, b = blockIdx.z;
+  const int grp = h / (H / G);
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const float a = A[h];
+  const T* up = u + b * us_.b + h * us_.h + p0;
+  const T* vp = v + b * vs_.b + grp * vs_.h;
+  const float* dtp = dt + b * dts_.b + h * dts_.h;
+  const long long state0 = ((long long)b * H + h) * P * N;
+  const long long chunk0 = ((long long)b * H + h) * n_c;
+
+  // this thread's rows p0 + warp + 8 r and columns lane + 32 j
+  auto inside = [&](int r, int j) {
+    return p0 + warp + 8 * r < P && lane + 32 * j < N;
+  };
+  auto at = [&](int r, int j) {
+    return (long long)(p0 + warp + 8 * r) * N + lane + 32 * j;
+  };
+  float st[kSpRows][NJ];
+#pragma unroll
+  for (int r = 0; r < kSpRows; ++r)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+      st[r][j] = inside(r, j) && s0 != nullptr ? s0[state0 + at(r, j)] : 0.f;
+
+  for (int it = 0; it < n_c; ++it) {
+    const int c = kRev ? n_c - 1 - it : it, t0 = c * Q;
+    __syncthreads();  // the previous chunk is done with every buffer
+    if (tid < kQMax) {
+      const int t = t0 + tid;
+      dts[tid] = tid < Q && t < S ? dtp[(long long)t * dts_.s] : 0.f;
+    }
+    for (int e = tid; e < Q * kSpPT; e += kThreads) {
+      const int i = e / kSpPT, pp = e % kSpPT, t = t0 + i;
+      su[e] = t < S && p0 + pp < P ? to_f(up[(long long)t * us_.s + pp])
+                                   : 0.f;
+    }
+    for (int e = tid; e < Q * N; e += kThreads) {
+      const int i = e / N, n = e % N, t = t0 + i;
+      sv[e] = t < S ? to_f(vp[(long long)t * vs_.s + n]) : 0.f;
+    }
+    __syncthreads();
+    if (warp == 0) chunk_cumsum(dts, cs, a, lane);
+    __syncthreads();
+    const float cend = cs[Q - 1];
+    if (tid < Q) wt[tid] = kRev ? expf(cs[tid])
+                                : dts[tid] * expf(cend - cs[tid]);
+    __syncthreads();
+    float* bp = buf + (chunk0 + c) * P * N;
+    float acc[kSpRows][NJ];
+#pragma unroll
+    for (int r = 0; r < kSpRows; ++r)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        if (inside(r, j)) bp[at(r, j)] = st[r][j];
+        acc[r][j] = 0.f;
+      }
+    // columns past N read row i's next values: finite, and never stored
+    const int lim = Q * N - 1;
+    for (int i = 0; i < Q; ++i) {
+      const float w = wt[i];
+      float uv[kSpRows], vv[NJ];
+#pragma unroll
+      for (int r = 0; r < kSpRows; ++r)
+        uv[r] = w * su[i * kSpPT + warp + 8 * r];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+        vv[j] = sv[min(i * N + lane + 32 * j, lim)];
+#pragma unroll
+      for (int r = 0; r < kSpRows; ++r)
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+          acc[r][j] = fmaf(uv[r], vv[j], acc[r][j]);
+    }
+    const float decay = expf(cend);
+#pragma unroll
+    for (int r = 0; r < kSpRows; ++r)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+        st[r][j] = fmaf(st[r][j], decay, acc[r][j]);
+  }
+  if (s_out != nullptr) {
+#pragma unroll
+    for (int r = 0; r < kSpRows; ++r)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+        if (inside(r, j)) s_out[state0 + at(r, j)] = st[r][j];
+  }
+}
+
+constexpr int kCT = 32;          // width of a staged slice
+constexpr int kLdS = kCT + 1;    // its row stride (floats)
+constexpr int kLdQ = kQMax + 1;  // the row stride of the Q x Q tiles
+
+// Shared memory of the chunk kernel (floats): the two Q x Q tiles, two
+// staged (Q, 32) slices, one (32, 32) slice of a state, nine per-row
+// vectors, a reduction scratch.  170.75 KB: one block a SM.
+constexpr int kChunkSmemFloats =
+    2 * kQMax * kLdQ + 2 * kQMax * kLdS + kCT * kLdS + 9 * kQMax + 32;
+
+// One block per (chunk, head, batch), 256 threads as 16 x 16 (ty, tx);
+// each thread owns rows ty + 16 r of a 128-row output and columns tx +
+// 16 q.  Hs, Gs: the state before the chunk and the cotangent of the state
+// after it (the state passes' buffers).  Writes dx, ddt and this head's
+// partials of dB and dC ((B, S, H, N) f32) and of dA ((B, H, n_c) f32).
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+    ssd_bwd_chunk_kernel(const T* __restrict__ x, const float* __restrict__ dt,
+                         const float* __restrict__ A,
+                         const T* __restrict__ Bm, const T* __restrict__ Cm,
+                         const T* __restrict__ dy,
+                         const float* __restrict__ hs,
+                         const float* __restrict__ gs, T* __restrict__ dx,
+                         float* __restrict__ ddt, float* __restrict__ db_part,
+                         float* __restrict__ dc_part,
+                         float* __restrict__ da_part, int S, int H, int P,
+                         int G, int N, int Q, int n_c, Strides xs_,
+                         Strides dts_, Strides bs_, Strides cs_,
+                         Strides dys_) {
+  extern __shared__ float smem[];
+  float* s1 = smem;                   // [kQMax][kLdQ] (C B^T) o L
+  float* s2 = s1 + kQMax * kLdQ;      // [kQMax][kLdQ] (dy x^T) o L
+  float* sa = s2 + kQMax * kLdQ;      // [kQMax][kLdS] staged slice
+  float* sb = sa + kQMax * kLdS;      // [kQMax][kLdS] staged slice
+  float* sh = sb + kQMax * kLdS;      // [kCT][kLdS] slice of Hs or Gs
+  float* dts = sh + kCT * kLdS;       // [kQMax] dt, 0 past Q and S
+  float* cs = dts + kQMax;            // [kQMax] inclusive cumsum of dt * A
+  float* ecs = cs + kQMax;            // [kQMax] exp(cs_i)
+  float* eend = ecs + kQMax;          // [kQMax] exp(cs_Q - cs_j)
+  float* rsum = eend + kQMax;         // [kQMax] sum_j s_ij
+  float* csum = rsum + kQMax;         // [kQMax] sum_i s_ij
+  float* dti = csum + kQMax;          // [kQMax] sum_i s_ij / dt_j
+  float* tk = dti + kQMax;            // [kQMax] t_k
+  float* xv = tk + kQMax;             // [kQMax] x_j^T G B_j
+  float* red = xv + kQMax;            // [32] reduction scratch
+
+  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int grp = h / (H / G), t0 = c * Q;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int ty = tid / 16, tx = tid % 16;
+  const float a = A[h];
+  const T* xp = x + b * xs_.b + h * xs_.h;
+  const T* dyp = dy + b * dys_.b + h * dys_.h;
+  const T* bp = Bm + b * bs_.b + grp * bs_.h;
+  const T* cp = Cm + b * cs_.b + grp * cs_.h;
+  const float* dtp = dt + b * dts_.b + h * dts_.h;
+  const long long sidx = (((long long)b * H + h) * n_c + c) * P * N;
+  const float* hsp = hs + sidx;
+  const float* gsp = gs + sidx;
+
+  if (tid < kQMax) {
+    const int t = t0 + tid;
+    dts[tid] = tid < Q && t < S ? dtp[(long long)t * dts_.s] : 0.f;
+  }
+  __syncthreads();
+  if (warp == 0) chunk_cumsum(dts, cs, a, lane);
+  __syncthreads();
+  const float cend = cs[Q - 1];
+  if (tid < kQMax) {
+    ecs[tid] = tid < Q ? expf(cs[tid]) : 0.f;
+    eend[tid] = tid < Q ? expf(cend - cs[tid]) : 0.f;
+  }
+
+  // rows i (i < Q, token t0 + i < S) of a T tensor's (p or n) columns
+  // c0 .. c0 + 31 into a staged slice, zero elsewhere
+  auto stage = [&](float* dst, const T* src, long long row_stride, int c0,
+                   int ncols, const float* scale) {
+    for (int e = tid; e < kQMax * kCT; e += kThreads) {
+      const int i = e / kCT, cc = e % kCT, t = t0 + i, col = c0 + cc;
+      float v = 0.f;
+      if (i < Q && t < S && col < ncols) {
+        v = to_f(src[(long long)t * row_stride + col]);
+        if (scale != nullptr) v *= scale[i];
+      }
+      dst[i * kLdS + cc] = v;
+    }
+  };
+  // rows r0 .. r0 + 31 and columns c0 .. c0 + 31 of a (P, N) state
+  auto stage_state = [&](const float* src, int r0, int c0) {
+    for (int e = tid; e < kCT * kCT; e += kThreads) {
+      const int rr = e / kCT, cc = e % kCT;
+      const int p = r0 + rr, n = c0 + cc;
+      sh[rr * kLdS + cc] = p < P && n < N ? src[(long long)p * N + n] : 0.f;
+    }
+  };
+
+  // ---- the Q x Q tiles: s2 = (dy x^T) o L, then s1 = (C B^T) o L with
+  // the sums of s = (dy.x)(C.B) L dt_j over rows and columns on the way
+  float acc[8][8];
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+#pragma unroll
+    for (int q = 0; q < 8; ++q) acc[r][q] = 0.f;
+  for (int k0 = 0; k0 < P; k0 += kCT) {
+    __syncthreads();
+    stage(sa, dyp, dys_.s, k0, P, nullptr);
+    stage(sb, xp, xs_.s, k0, P, nullptr);
+    __syncthreads();
+#pragma unroll 4
+    for (int kk = 0; kk < kCT; ++kk) {
+      float av[8], bv[8];
+#pragma unroll
+      for (int r = 0; r < 8; ++r) av[r] = sa[(ty + 16 * r) * kLdS + kk];
+#pragma unroll
+      for (int q = 0; q < 8; ++q) bv[q] = sb[(tx + 16 * q) * kLdS + kk];
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+#pragma unroll
+        for (int q = 0; q < 8; ++q) acc[r][q] = fmaf(av[r], bv[q], acc[r][q]);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int i = ty + 16 * r, j = tx + 16 * q;
+      s2[i * kLdQ + j] =
+          j <= i && i < Q ? acc[r][q] * expf(cs[i] - cs[j]) : 0.f;
+      acc[r][q] = 0.f;
+    }
+  for (int k0 = 0; k0 < N; k0 += kCT) {
+    __syncthreads();
+    stage(sa, cp, cs_.s, k0, N, nullptr);
+    stage(sb, bp, bs_.s, k0, N, nullptr);
+    __syncthreads();
+#pragma unroll 4
+    for (int kk = 0; kk < kCT; ++kk) {
+      float av[8], bv[8];
+#pragma unroll
+      for (int r = 0; r < 8; ++r) av[r] = sa[(ty + 16 * r) * kLdS + kk];
+#pragma unroll
+      for (int q = 0; q < 8; ++q) bv[q] = sb[(tx + 16 * q) * kLdS + kk];
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+#pragma unroll
+        for (int q = 0; q < 8; ++q) acc[r][q] = fmaf(av[r], bv[q], acc[r][q]);
+    }
+  }
+  {
+    float rp[8], cpart[8], dpart[8];
+#pragma unroll
+    for (int q = 0; q < 8; ++q) cpart[q] = dpart[q] = 0.f;
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      rp[r] = 0.f;
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const int i = ty + 16 * r, j = tx + 16 * q;
+        float v1 = 0.f, sl = 0.f;
+        if (j <= i && i < Q) {
+          v1 = acc[r][q] * expf(cs[i] - cs[j]);
+          sl = acc[r][q] * s2[i * kLdQ + j];  // (C.B)(dy.x) L
+        }
+        s1[i * kLdQ + j] = v1;
+        const float sd = sl * dts[j];
+        rp[r] += sd;
+        cpart[q] += sd;
+        dpart[q] += sl;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const float v = half_sum16(rp[r]);
+      if (tx == 0) rsum[ty + 16 * r] = v;
+    }
+    __syncthreads();  // the staged slices are free
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      sa[ty * kQMax + tx + 16 * q] = cpart[q];
+      sb[ty * kQMax + tx + 16 * q] = dpart[q];
+    }
+    __syncthreads();
+    if (tid < kQMax) {
+      float s = 0.f, d = 0.f;
+      for (int y = 0; y < 16; ++y) {
+        s += sa[y * kQMax + tid];
+        d += sb[y * kQMax + tid];
+      }
+      csum[tid] = s;
+      dti[tid] = d;
+    }
+  }
+
+  // ---- dx_j = dt_j [sum_i s1_ij dy_i + eend_j (G B_j)] and x_j^T G B_j
+  {
+    float xvp[8];
+#pragma unroll
+    for (int r = 0; r < 8; ++r) xvp[r] = 0.f;
+    for (int p0 = 0; p0 < P; p0 += kCT) {
+      float ai[8][2], av[8][2];
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+#pragma unroll
+        for (int q = 0; q < 2; ++q) ai[r][q] = av[r][q] = 0.f;
+      __syncthreads();
+      stage(sa, dyp, dys_.s, p0, P, nullptr);
+      __syncthreads();
+      for (int i = 0; i < Q; ++i) {
+        const float d0 = sa[i * kLdS + tx], d1 = sa[i * kLdS + tx + 16];
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          const float sv = s1[i * kLdQ + ty + 16 * r];
+          ai[r][0] = fmaf(sv, d0, ai[r][0]);
+          ai[r][1] = fmaf(sv, d1, ai[r][1]);
+        }
+      }
+      for (int n0 = 0; n0 < N; n0 += kCT) {
+        __syncthreads();
+        stage(sb, bp, bs_.s, n0, N, nullptr);
+        stage_state(gsp, p0, n0);
+        __syncthreads();
+#pragma unroll 4
+        for (int nn = 0; nn < kCT; ++nn) {
+          const float h0v = sh[tx * kLdS + nn];
+          const float h1v = sh[(tx + 16) * kLdS + nn];
+#pragma unroll
+          for (int r = 0; r < 8; ++r) {
+            const float bv = sb[(ty + 16 * r) * kLdS + nn];
+            av[r][0] = fmaf(bv, h0v, av[r][0]);
+            av[r][1] = fmaf(bv, h1v, av[r][1]);
+          }
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        const int j = ty + 16 * r, t = t0 + j;
+        if (j < Q && t < S) {
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            const int p = p0 + tx + 16 * q;
+            if (p < P) {
+              xvp[r] += to_f(xp[(long long)t * xs_.s + p]) * av[r][q];
+              dx[b * dys_.b + (long long)t * dys_.s + h * dys_.h + p] =
+                  from_f<T>(dts[j] * (ai[r][q] + eend[j] * av[r][q]));
+            }
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const float v = half_sum16(xvp[r]);
+      if (tx == 0) xv[ty + 16 * r] = v;
+    }
+  }
+
+  // ---- dC_i = sum_j s2_ij dt_j B_j + ecs_i (Hs^T dy_i), and t_i
+  {
+    float tp[8];
+#pragma unroll
+    for (int r = 0; r < 8; ++r) tp[r] = 0.f;
+    for (int n0 = 0; n0 < N; n0 += kCT) {
+      float ai[8][2], ah[8][2];
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+#pragma unroll
+        for (int q = 0; q < 2; ++q) ai[r][q] = ah[r][q] = 0.f;
+      __syncthreads();
+      stage(sb, bp, bs_.s, n0, N, dts);
+      __syncthreads();
+      for (int j = 0; j < Q; ++j) {
+        const float b0 = sb[j * kLdS + tx], b1 = sb[j * kLdS + tx + 16];
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          const float sv = s2[(ty + 16 * r) * kLdQ + j];
+          ai[r][0] = fmaf(sv, b0, ai[r][0]);
+          ai[r][1] = fmaf(sv, b1, ai[r][1]);
+        }
+      }
+      for (int p0 = 0; p0 < P; p0 += kCT) {
+        __syncthreads();
+        stage(sa, dyp, dys_.s, p0, P, nullptr);
+        stage_state(hsp, p0, n0);
+        __syncthreads();
+#pragma unroll 4
+        for (int pp = 0; pp < kCT; ++pp) {
+          const float h0v = sh[pp * kLdS + tx], h1v = sh[pp * kLdS + tx + 16];
+#pragma unroll
+          for (int r = 0; r < 8; ++r) {
+            const float dv = sa[(ty + 16 * r) * kLdS + pp];
+            ah[r][0] = fmaf(dv, h0v, ah[r][0]);
+            ah[r][1] = fmaf(dv, h1v, ah[r][1]);
+          }
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        const int i = ty + 16 * r, t = t0 + i;
+        if (i < Q && t < S) {
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            const int n = n0 + tx + 16 * q;
+            if (n < N) {
+              const float inter = ecs[i] * ah[r][q];
+              dc_part[(((long long)b * S + t) * H + h) * N + n] =
+                  ai[r][q] + inter;
+              tp[r] += to_f(cp[(long long)t * cs_.s + n]) * inter;
+            }
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const float v = half_sum16(tp[r]);
+      if (tx == 0) tk[ty + 16 * r] = v;
+    }
+  }
+
+  // ---- dB_j = dt_j [sum_i s2_ij C_i + eend_j (Gs^T x_j)]
+  for (int n0 = 0; n0 < N; n0 += kCT) {
+    float ai[8][2], ah[8][2];
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+#pragma unroll
+      for (int q = 0; q < 2; ++q) ai[r][q] = ah[r][q] = 0.f;
+    __syncthreads();
+    stage(sb, cp, cs_.s, n0, N, nullptr);
+    __syncthreads();
+    for (int i = 0; i < Q; ++i) {
+      const float c0 = sb[i * kLdS + tx], c1 = sb[i * kLdS + tx + 16];
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        const float sv = s2[i * kLdQ + ty + 16 * r];
+        ai[r][0] = fmaf(sv, c0, ai[r][0]);
+        ai[r][1] = fmaf(sv, c1, ai[r][1]);
+      }
+    }
+    for (int p0 = 0; p0 < P; p0 += kCT) {
+      __syncthreads();
+      stage(sa, xp, xs_.s, p0, P, nullptr);
+      stage_state(gsp, p0, n0);
+      __syncthreads();
+#pragma unroll 4
+      for (int pp = 0; pp < kCT; ++pp) {
+        const float h0v = sh[pp * kLdS + tx], h1v = sh[pp * kLdS + tx + 16];
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          const float xv_ = sa[(ty + 16 * r) * kLdS + pp];
+          ah[r][0] = fmaf(xv_, h0v, ah[r][0]);
+          ah[r][1] = fmaf(xv_, h1v, ah[r][1]);
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const int j = ty + 16 * r, t = t0 + j;
+      if (j < Q && t < S) {
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int n = n0 + tx + 16 * q;
+          if (n < N)
+            db_part[(((long long)b * S + t) * H + h) * N + n] =
+                dts[j] * (ai[r][q] + eend[j] * ah[r][q]);
+        }
+      }
+    }
+  }
+
+  // ---- w = exp(cs_Q) <Gs, Hs>, then dcs, its reverse cumsum, ddt, dA
+  float wp = 0.f;
+  for (int e = tid; e < P * N; e += kThreads) wp = fmaf(gsp[e], hsp[e], wp);
+#pragma unroll
+  for (int m = 16; m >= 1; m >>= 1) wp += __shfl_xor_sync(0xffffffffu, wp, m);
+  if (lane == 0) red[warp] = wp;
+  __syncthreads();
+  if (tid == 0) {
+    float w = 0.f, usum = 0.f;
+    for (int k = 0; k < kThreads / 32; ++k) w += red[k];
+    w *= expf(cend);
+    for (int k = 0; k < Q; ++k) usum += eend[k] * dts[k] * xv[k];
+    float run = 0.f, da = 0.f;
+    for (int k = Q - 1; k >= 0; --k) {
+      float dcs = rsum[k] - csum[k] + tk[k] - eend[k] * dts[k] * xv[k];
+      if (k == Q - 1) dcs += usum + w;
+      run += dcs;
+      rsum[k] = run;  // now d(a)_k, the reverse cumsum
+      da = fmaf(dts[k], run, da);
+    }
+    da_part[((long long)b * H + h) * n_c + c] = da;
+  }
+  __syncthreads();
+  if (tid < Q && t0 + tid < S)
+    ddt[((long long)b * S + t0 + tid) * H + h] =
+        dti[tid] + eend[tid] * xv[tid] + a * rsum[tid];
+}
+
+// dB and dC: the per-head partials summed over the H / G heads of each
+// group in head order, rounded once to T; dA: the per-(batch, chunk)
+// partials summed in (batch, chunk) order.  A grid-stride loop.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    ssd_bwd_reduce_kernel(const float* __restrict__ db_part,
+                          const float* __restrict__ dc_part,
+                          const float* __restrict__ da_part,
+                          T* __restrict__ dB, T* __restrict__ dC,
+                          float* __restrict__ dA, int Bsz, int S, int H,
+                          int G, int N, int n_c) {
+  const long long nbc = (long long)Bsz * S * G * N;
+  const int HG = H / G;
+  for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       e < 2 * nbc + H; e += (long long)gridDim.x * blockDim.x) {
+    if (e < 2 * nbc) {
+      const bool is_c = e >= nbc;
+      const long long o = is_c ? e - nbc : e;
+      const int n = (int)(o % N);
+      const long long row = o / N;  // (b * S + s) * G + g
+      const int g = (int)(row % G);
+      const float* src = (is_c ? dc_part : db_part) +
+                         ((row / G) * H + (long long)g * HG) * N + n;
+      float sum = 0.f;
+      for (int k = 0; k < HG; ++k) sum += src[(long long)k * N];
+      (is_c ? dC : dB)[o] = from_f<T>(sum);
+    } else {
+      const int h = (int)(e - 2 * nbc);
+      float sum = 0.f;
+      for (int b = 0; b < Bsz; ++b)
+        for (int c = 0; c < n_c; ++c)
+          sum += da_part[((long long)b * H + h) * n_c + c];
+      dA[h] = sum;
+    }
+  }
+}
+
+template <typename T>
+using StatePass = decltype(&ssd_state_pass_kernel<T, false, 2>);
+
+// Columns of the state a lane holds: 2 for N <= 64, else 4.
+int cols_a_lane(int N) { return N <= 64 ? 2 : 4; }
+
+template <typename T>
+StatePass<T> state_pass(bool rev, int nj) {
+  if (nj == 2)
+    return rev ? ssd_state_pass_kernel<T, true, 2>
+               : ssd_state_pass_kernel<T, false, 2>;
+  return rev ? ssd_state_pass_kernel<T, true, 4>
+             : ssd_state_pass_kernel<T, false, 4>;
+}
+
+// Raises each backward kernel's shared-memory limit to its largest use,
+// once (so that launches captured into a CUDA graph make no other API
+// call); false on a CUDA error.
+template <typename T>
+bool bwd_ready() {
+  static int state = 0;  // 0 not tried, 1 ready, -1 failed
+  if (state == 0) {
+    const int sp = (int)state_pass_smem(kQMax, kNMax);
+    bool ok = cudaFuncSetAttribute(ssd_bwd_chunk_kernel<T>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)(sizeof(float) * kChunkSmemFloats)) ==
+              cudaSuccess;
+    for (int rev = 0; rev < 2; ++rev)
+      for (int nj : {2, 4})
+        ok = ok && cudaFuncSetAttribute(
+                       state_pass<T>(rev, nj),
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       sp) == cudaSuccess;
+    state = ok ? 1 : -1;
+  }
+  return state > 0;
+}
+
+template <typename T>
+bool launch_bwd(const T* x, const float* dt, const float* A, const T* Bm,
+                const T* Cm, const float* h0, const T* dy, const float* dh,
+                float* hs, float* gs, float* db_part, float* dc_part,
+                float* da_part, T* dx, float* ddt, float* dA, T* dB, T* dC,
+                float* dinit, int Bsz, int S, int H, int P, int G, int N,
+                int Q, Strides xs, Strides dts, Strides bs, Strides cs,
+                cudaStream_t s) {
+  if (!bwd_ready<T>()) return false;
+  const int n_c = (S + Q - 1) / Q;
+  const Strides dys{(long long)S * H * P, (long long)H * P, (long long)P};
+  const dim3 sp_grid((P + kSpPT - 1) / kSpPT, H, Bsz);
+  const size_t sp_smem = state_pass_smem(Q, N);
+  const StatePass<T> fwd = state_pass<T>(false, cols_a_lane(N));
+  const StatePass<T> rev = state_pass<T>(true, cols_a_lane(N));
+  fwd<<<sp_grid, kThreads, sp_smem, s>>>(x, Bm, dt, A, h0, hs, nullptr, S, H,
+                                         P, G, N, Q, n_c, xs, bs, dts);
+  rev<<<sp_grid, kThreads, sp_smem, s>>>(dy, Cm, dt, A, dh, gs, dinit, S, H,
+                                         P, G, N, Q, n_c, dys, cs, dts);
+  ssd_bwd_chunk_kernel<T>
+      <<<dim3(n_c, H, Bsz), kThreads, sizeof(float) * kChunkSmemFloats, s>>>(
+          x, dt, A, Bm, Cm, dy, hs, gs, dx, ddt, db_part, dc_part, da_part, S,
+          H, P, G, N, Q, n_c, xs, dts, bs, cs, dys);
+  const long long total = 2LL * Bsz * S * G * N + H;
+  const int blocks =
+      (int)std::min<long long>((total + kThreads - 1) / kThreads, 132 * 8);
+  ssd_bwd_reduce_kernel<T><<<blocks, kThreads, 0, s>>>(
+      db_part, dc_part, da_part, dB, dC, dA, Bsz, S, H, G, N, n_c);
+  return true;
+}
+
+// The backward's kernels for reports, in the order of repro_ssd_info: the
+// state passes (bf16 then f32; forward then reverse; 2, 4 columns a
+// lane), then the chunk and the reduce kernels (bf16, f32).
+constexpr int kNumStatePass = 8;
+
+bool bwd_info(int idx, const char** name, int* out) {
+  static char buf[48];
+  if (idx < 0) return false;
+  if (idx < kNumStatePass) {
+    const bool f32 = idx >= 4, rev = idx % 4 >= 2;
+    const int nj = idx % 2 ? 4 : 2;
+    snprintf(buf, sizeof buf, "ssd_state_pass_kernel<%s,%s,%d>",
+             f32 ? "f32" : "bf16", rev ? "rev" : "fwd", nj);
+    *name = buf;
+    const size_t sp = state_pass_smem(kQMax, kNMax);
+    return f32 ? tc::kernel_info(state_pass<float>(rev, nj), kThreads, sp,
+                                 out)
+               : tc::kernel_info(state_pass<bf16>(rev, nj), kThreads, sp,
+                                 out);
+  }
+  const size_t ck = sizeof(float) * kChunkSmemFloats;
+  switch (idx - kNumStatePass) {
+    case 0:
+      *name = "ssd_bwd_chunk_kernel<bf16>";
+      return tc::kernel_info(ssd_bwd_chunk_kernel<bf16>, kThreads, ck, out);
+    case 1:
+      *name = "ssd_bwd_chunk_kernel<f32>";
+      return tc::kernel_info(ssd_bwd_chunk_kernel<float>, kThreads, ck, out);
+    case 2:
+      *name = "ssd_bwd_reduce_kernel<bf16>";
+      return tc::kernel_info(ssd_bwd_reduce_kernel<bf16>, kThreads, 0, out);
+    case 3:
+      *name = "ssd_bwd_reduce_kernel<f32>";
+      return tc::kernel_info(ssd_bwd_reduce_kernel<float>, kThreads, 0, out);
+    default:
+      return false;
+  }
+}
+
 }  // namespace
 
 // x: (B, S, H, P); dt: (B, S, H) f32; A: (H,) f32; Bm, Cm: (B, S, G, N);
@@ -870,11 +1620,55 @@ extern "C" bool repro_ssd_fwd(
                     dts, bs, cs, ys, s);
 }
 
-// Facts about the bf16 kernel for reports: idx 0, 1, 2 its instantiated
-// paddings of N.  Writes the kernel's name and out[0..5]
-// (tc::kernel_info).  Returns false past the last one or on a CUDA error.
+// The backward.  x, dt, A, Bm, Cm, h0 as repro_ssd_fwd takes them (any N
+// and alignment: read element by element); dy: (B, S, H, P) contiguous in
+// x's dtype; dh: the final state's f32 cotangent (B, H, P, N) contiguous,
+// or null (zero).  Scratch: hs, gs (B, H, ceil(S / Q), P, N) f32,
+// db_part, dc_part (B, S, H, N) f32, da_part (B, H, ceil(S / Q)) f32.
+// Outputs, contiguous: dx (B, S, H, P) and dB, dC (B, S, G, N) in x's
+// dtype, ddt (B, S, H), dA (H,) and dinit (B, H, P, N) f32.  Four launches
+// on `stream`.  Returns false (and launches nothing) for a shape it does
+// not take (as repro_ssd_fwd) or on a CUDA error setting the kernels'
+// shared-memory limits; errors of a launch are left to cudaGetLastError.
+extern "C" bool repro_ssd_bwd(
+    const void* x, const float* dt, const float* A, const void* Bm,
+    const void* Cm, const float* h0, const void* dy, const float* dh,
+    float* hs, float* gs, float* db_part, float* dc_part, float* da_part,
+    void* dx, float* ddt, float* dA, void* dB, void* dC, float* dinit,
+    int Bsz, int S, int H, int P, int G, int N, int Q, long long x_sb,
+    long long x_ss, long long x_sh, long long dt_sb, long long dt_ss,
+    long long dt_sh, long long b_sb, long long b_ss, long long b_sg,
+    long long c_sb, long long c_ss, long long c_sg, int bf16,
+    cudaStream_t s) {
+  if (Bsz < 1 || S < 1 || Q < 1 || Q > kQMax || N < 1 || N > kNMax ||
+      P < 8 || P % 8 != 0 || G < 1 || H % G != 0)
+    return false;
+  const Strides xs{x_sb, x_ss, x_sh}, dts{dt_sb, dt_ss, dt_sh},
+      bs{b_sb, b_ss, b_sg}, cs{c_sb, c_ss, c_sg};
+  if (bf16) {
+    using T = __nv_bfloat16;
+    return launch_bwd<T>(
+        static_cast<const T*>(x), dt, A, static_cast<const T*>(Bm),
+        static_cast<const T*>(Cm), h0, static_cast<const T*>(dy), dh, hs, gs,
+        db_part, dc_part, da_part, static_cast<T*>(dx), ddt, dA,
+        static_cast<T*>(dB), static_cast<T*>(dC), dinit, Bsz, S, H, P, G, N,
+        Q, xs, dts, bs, cs, s);
+  }
+  return launch_bwd<float>(
+      static_cast<const float*>(x), dt, A, static_cast<const float*>(Bm),
+      static_cast<const float*>(Cm), h0, static_cast<const float*>(dy), dh,
+      hs, gs, db_part, dc_part, da_part, static_cast<float*>(dx), ddt, dA,
+      static_cast<float*>(dB), static_cast<float*>(dC), dinit, Bsz, S, H, P,
+      G, N, Q, xs, dts, bs, cs, s);
+}
+
+// Facts about the kernels for reports: idx 0, 1, 2 the bf16 scan at its
+// instantiated paddings of N, then the backward's kernels (bwd_info).
+// Writes the kernel's name and out[0..5] (tc::kernel_info).  Returns false
+// past the last one or on a CUDA error.
 extern "C" bool repro_ssd_info(int idx, const char** name, int* out) {
-  if (idx < 0 || idx >= kNumTcNp) return false;
+  if (idx >= kNumTcNp) return bwd_info(idx - kNumTcNp, name, out);
+  if (idx < 0) return false;
   static char buf[48];
   const int np = kTcNp[idx];
   size_t smem = 0;

@@ -7,12 +7,13 @@ plain version.  A CUDA tensor sent to a kernel launches it or raises:
 there is no fallback.
 
 Where a gradient is needed (grad mode on and an input that requires
-grad), ``rmsnorm`` and ``flash_attention`` go through their autograd
-Functions, whose backward is a kernel too (or the plain backward); the
-forward then also writes the statistic the backward reads.  Otherwise
-they call the forward alone, so serving pays nothing for training.
-``ssd`` has no backward kernel (the JAX package autodiffs ``ssd_ref``), so
-its kernel path refuses to run where a gradient is needed.
+grad), ``rmsnorm``, ``flash_attention`` and ``ssd`` go through their
+autograd Functions, whose backward is a kernel too (or the plain
+backward); the forward then also writes or saves what the backward
+reads.  Otherwise they call the forward alone, so serving pays nothing
+for training.  On the plain path ``ssd``'s Function takes its gradients
+from ``ref.ssd_bwd_ref``, the hand-derived formulas the kernel follows
+(tests hold them against ``jax.vjp`` and torch autograd of ``ssd_ref``).
 """
 from __future__ import annotations
 
@@ -67,15 +68,14 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
 
 def ssd(x, dt, A, Bm, Cm, *, chunk: int = 128, init_state=None,
         return_state: bool = False, use_kernels: Optional[bool] = None):
-    """The chunked SSD scan (Mamba2 prefill): the CUDA kernel or
-    ``ssd_ref``."""
-    if _kernel_path(x, use_kernels):
-        if _needs_grad(*(t for t in (x, dt, A, Bm, Cm, init_state)
-                         if t is not None)):
-            raise NotImplementedError(
-                "the SSD kernel has no backward; SSM/hybrid training is "
-                "ROADMAP A6 (training part): pass use_kernels=False to "
-                "autodiff the plain ssd_ref")
+    """The chunked SSD scan (Mamba2 prefill and training): the CUDA kernel
+    or ``ssd_ref``."""
+    kernel = _kernel_path(x, use_kernels)
+    if _needs_grad(*(t for t in (x, dt, A, Bm, Cm, init_state)
+                     if t is not None)):
+        y, h = _ssd.SSDFn.apply(x, dt, A, Bm, Cm, init_state, chunk, kernel)
+        return (y, h) if return_state else y
+    if kernel:
         return _ssd.ssd_cuda(x, dt, A, Bm, Cm, chunk=chunk,
                              init_state=init_state,
                              return_state=return_state)

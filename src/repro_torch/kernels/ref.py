@@ -34,10 +34,15 @@ def rmsnorm_fwd_ref(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
 
 
 def rmsnorm_bwd_ref(x: torch.Tensor, w: torch.Tensor, inv: torch.Tensor,
-                    g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+                    g: torch.Tensor, *,
+                    compute_dtype: torch.dtype = torch.float32,
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``_rmsnorm_vjp_bwd``: (dx in x's dtype, dw in w's dtype) from the
-    saved x, w, per-row ``inv`` and the cotangent g."""
-    xf, gf, wf = x.float(), g.float(), w.float()
+    saved x, w, per-row ``inv`` and the cotangent g, in f32.
+    ``compute_dtype`` float64 evaluates the same formula in f64 (a
+    yardstick for the f32 versions' dw, a sum over every row) and still
+    rounds the results as above."""
+    xf, gf, wf, inv = (t.to(compute_dtype) for t in (x, g, w, inv))
     xhat = xf * inv[..., None]
     gw = gf * wf
     dx = inv[..., None] * (gw - xhat * (gw * xhat).mean(dim=-1,
@@ -289,6 +294,121 @@ def ssd_ref(
     if return_state:
         return y, h
     return y
+
+
+def ssd_bwd_ref(
+    x: torch.Tensor,   # (B, S, H, P)
+    dt: torch.Tensor,  # (B, S, H)
+    A: torch.Tensor,   # (H,)
+    Bm: torch.Tensor,  # (B, S, G, N)
+    Cm: torch.Tensor,  # (B, S, G, N)
+    dy: torch.Tensor,  # (B, S, H, P), the cotangent of y
+    *,
+    chunk: int = 128,
+    init_state: Optional[torch.Tensor] = None,  # (B, H, P, N)
+    d_state: Optional[torch.Tensor] = None,     # (B, H, P, N)
+    compute_dtype: torch.dtype = torch.float32,
+) -> Tuple[torch.Tensor, ...]:
+    """The backward of :func:`ssd_ref`, chunk by chunk in f32, from the
+    formulas below (the JAX package autodiffs ``ssd_ref``; the tests hold
+    this against ``jax.vjp``).  ``d_state`` is the cotangent of the final
+    state (None: zero).  Returns (dx, ddt, dA, dB, dC, d_init): dx, dB and
+    dC rounded once to the inputs' dtypes, the rest f32; d_init is the
+    cotangent of the initial state (zeros or not).  ``compute_dtype``
+    float64 evaluates the same formulas in f64 (a yardstick for the f32
+    versions at large shapes) and still rounds the results as above.
+
+    In a chunk of Q tokens, with cs the inclusive cumsum of a = dt A, H_c
+    the state before the chunk, Ĥ the cotangent of the state after it,
+    L_ij = exp(cs_i - cs_j) (j <= i), ȳ = dy and e_j = exp(cs_Q - cs_j):
+
+      Ĥ_c   = exp(cs_Q) Ĥ + sum_i exp(cs_i) ȳ_i C_iᵀ;   d_init = Ĥ_0
+      dx_j  = dt_j [sum_i (C_i.B_j) L_ij ȳ_i + e_j Ĥ B_j]
+      dC_i  = sum_j (ȳ_i.x_j) L_ij dt_j B_j + exp(cs_i) H_cᵀ ȳ_i
+      dB_j  = dt_j [sum_i (ȳ_i.x_j) L_ij C_i + e_j Ĥᵀ x_j]  (over the
+              heads of the group)
+      ddt_j = sum_i (ȳ_i.x_j)(C_i.B_j) L_ij + e_j x_jᵀ Ĥ B_j + A dā_j
+      dā_s  = sum_{k >= s} dcs_k,  dA = sum dt_s dā_s
+
+    with dcs_k = sum_j s_kj - sum_i s_ik + t_k - u_k + [k = Q](sum_j u_j
+    + w), s_ij = (ȳ_i.x_j)(C_i.B_j) L_ij dt_j, t_k = exp(cs_k) ȳ_kᵀ H_c
+    C_k, u_j = e_j dt_j x_jᵀ Ĥ B_j and w = exp(cs_Q) <Ĥ, H_c>."""
+    B_, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    HG = H // G
+    pad = (-S) % chunk
+    if pad:
+        x, dy = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (x, dy))
+        Bm, Cm = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (Bm, Cm))
+        dt = F.pad(dt, (0, 0, 0, pad))
+    C_ = x.shape[1] // chunk
+    shp, cd = (B_, C_, chunk), compute_dtype
+    xc = x.to(cd).reshape(*shp, H, P)
+    dyc = dy.to(cd).reshape(*shp, H, P)
+    dtc = dt.to(cd).reshape(*shp, H)
+    Br = torch.repeat_interleave(Bm.to(cd).reshape(*shp, G, N), HG, dim=3)
+    Cr = torch.repeat_interleave(Cm.to(cd).reshape(*shp, G, N), HG, dim=3)
+    Af = A.to(cd)
+
+    cs = torch.cumsum(dtc * Af, dim=2)             # (B, C, Q, H)
+    cs_end = cs[:, :, -1]                          # (B, C, H)
+    ecs = torch.exp(cs)
+    e = torch.exp(cs_end[:, :, None] - cs)         # exp(cs_Q - cs_j)
+
+    # the states before each chunk, and the cotangents after each chunk
+    inject = torch.einsum("bcshn,bcsh,bcshp->bchpn", Br, e * dtc, xc)
+    back = torch.einsum("bcshn,bcsh,bcshp->bchpn", Cr, ecs, dyc)
+    decay = torch.exp(cs_end)[..., None, None]     # (B, C, H, 1, 1)
+    h = (torch.zeros((B_, H, P, N), dtype=cd, device=x.device)
+         if init_state is None else init_state.to(cd))
+    hs = []
+    for c in range(C_):
+        hs.append(h)
+        h = h * decay[:, c] + inject[:, c]
+    g = (torch.zeros((B_, H, P, N), dtype=cd, device=x.device)
+         if d_state is None else d_state.to(cd))
+    gs = [None] * C_
+    for c in reversed(range(C_)):
+        gs[c] = g
+        g = g * decay[:, c] + back[:, c]
+    Hc, Hn = torch.stack(hs, dim=1), torch.stack(gs, dim=1)  # (B,C,H,P,N)
+
+    # the decay-weighted (i, j) products, j <= i
+    seg = _segsum((dtc * Af).permute(0, 1, 3, 2))  # (B, C, H, Q, Q)
+    L = torch.exp(seg)
+    CB = torch.einsum("bcihn,bcjhn->bchij", Cr, Br) * L
+    YX_raw = torch.einsum("bcihp,bcjhp->bchij", dyc, xc)
+    YX = YX_raw * L
+    sL = CB * YX_raw                                # s_ij / dt_j
+    s = sL * dtc.permute(0, 1, 3, 2)[:, :, :, None, :]
+
+    V = torch.einsum("bcjhn,bchpn->bcjhp", Br, Hn)  # Ĥ B_j
+    xV = (xc * V).sum(-1)                           # x_jᵀ Ĥ B_j
+    dx = dtc[..., None] * (torch.einsum("bchij,bcihp->bcjhp", CB, dyc)
+                           + e[..., None] * V)
+    dC_inter = ecs[..., None] * torch.einsum("bcihp,bchpn->bcihn", dyc, Hc)
+    dC = torch.einsum("bchij,bcjh,bcjhn->bcihn", YX, dtc, Br) + dC_inter
+    dB = dtc[..., None] * (
+        torch.einsum("bchij,bcihn->bcjhn", YX, Cr)
+        + e[..., None] * torch.einsum("bcjhp,bchpn->bcjhn", xc, Hn))
+
+    t = (Cr * dC_inter).sum(-1)                     # (B, C, Q, H)
+    u = e * dtc * xV
+    w = torch.exp(cs_end) * (Hn * Hc).sum((-1, -2))  # (B, C, H)
+    dcs = (s.sum(-1) - s.sum(-2)).permute(0, 1, 3, 2) + t - u
+    dcs[:, :, -1] += u.sum(2) + w
+    da = torch.flip(torch.cumsum(torch.flip(dcs, [2]), dim=2), [2])
+    ddt = sL.sum(-2).permute(0, 1, 3, 2) + e * xV + Af * da
+    dA = (dtc * da).sum((0, 1, 2))
+
+    def out(t, dtype, n):  # (B, C, Q, ..) -> (B, S, ..) in dtype
+        return t.reshape(B_, C_ * chunk, *n)[:, :S].to(dtype)
+
+    return (out(dx, x.dtype, (H, P)), out(ddt, torch.float32, (H,)),
+            dA.float(), out(dB.reshape(*shp, G, HG, N).sum(4), Bm.dtype,
+                            (G, N)),
+            out(dC.reshape(*shp, G, HG, N).sum(4), Cm.dtype, (G, N)),
+            g.float())
 
 
 def ssd_decode_ref(

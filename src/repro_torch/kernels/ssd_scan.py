@@ -18,11 +18,23 @@ address or strides are not a multiple of 16 bytes is copied to new
 memory first, and a state size N that is no multiple of 8 is zero-padded
 (the model's never are).  The tail past S is masked, not padded.
 
-The plain version is :func:`repro_torch.kernels.ref.ssd_ref`;
-``kernels/ops.py`` sends CPU tensors there.  The JAX package has no SSD
-backward kernel (training autodiffs ``ssd_ref``), so there is no autograd
-Function here: ``ops.ssd`` refuses the kernel path where a gradient is
-needed.
+The backward, :func:`ssd_bwd_cuda`, is the twin of autodiff of
+``repro/kernels/ref.py::ssd_ref`` (the JAX package trains through jnp, no
+Pallas).  It runs in f32 on the CUDA cores for both dtypes, in four
+launches: a forward pass over the chunks writes the state before each
+chunk, a reverse pass the cotangent of the state after each chunk (and
+of the initial state), a kernel per (batch, head, chunk) forms the
+chunk's Q x Q products in shared memory and writes dx, ddt and per-head
+partials of dB, dC and dA, and a last kernel sums the partials in a
+fixed order (see the source notes).  It reads x, B and C element by
+element through their strides, so it takes any N and alignment (no
+padding, no copy).  No float atomics: every output's bits are fixed.
+
+:class:`SSDFn` is the autograd Function around the scan: its backward
+is the kernel on the kernel path, :func:`repro_torch.kernels.ref.
+ssd_bwd_ref` on the plain path.  The plain forward is
+:func:`repro_torch.kernels.ref.ssd_ref`; ``kernels/ops.py`` sends CPU
+tensors to the plain versions.
 """
 from __future__ import annotations
 
@@ -31,10 +43,12 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import _chunk_aligned
 
 # kernel launches since the last reset (set to 0 to reset)
-launches = 0
+launches = 0  # forward
+bwd_launches = 0  # backward (one count per call of its four kernels)
 
 MAX_CHUNK = 128
 MAX_STATE = 128
@@ -109,3 +123,85 @@ def ssd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if pad:
         h_out = h_out[..., :N].contiguous()
     return (y, h_out) if return_state else y
+
+
+def ssd_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                 Bm: torch.Tensor, Cm: torch.Tensor, dy: torch.Tensor, *,
+                 chunk: int = 128, init_state: Optional[torch.Tensor] = None,
+                 d_state: Optional[torch.Tensor] = None):
+    """Launches the SSD backward kernels.  The inputs of :func:`ssd_cuda`,
+    dy (the cotangent of y, x's shape and dtype) and d_state (the f32
+    cotangent of the final state, or None: zero).  Returns (dx, ddt, dA,
+    dB, dC, d_init) as :func:`repro_torch.kernels.ref.ssd_bwd_ref` does:
+    dx, dB, dC in the inputs' dtype, ddt, dA and d_init f32."""
+    global bwd_launches
+    chunk = int(chunk)
+    _check(x, dt, A, Bm, Cm, init_state, chunk)
+    B_, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    if (dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device
+            or not dy.is_contiguous()):
+        raise ValueError(f"dy must be contiguous {tuple(x.shape)} {x.dtype} "
+                         f"on {x.device}, got {tuple(dy.shape)} {dy.dtype}")
+    if d_state is not None and (
+            d_state.shape != (B_, H, P, N) or d_state.dtype != torch.float32
+            or d_state.device != x.device or not d_state.is_contiguous()):
+        raise ValueError(f"d_state must be contiguous f32 {(B_, H, P, N)}, "
+                         f"got {tuple(d_state.shape)} {d_state.dtype}")
+    n_c = -(-S // chunk)
+    dev = x.device
+
+    def f32(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+
+    # scratch: the states before each chunk and the cotangents after it,
+    # the per-head partials of dB and dC, the per-chunk partials of dA
+    hs, gs = f32(B_, H, n_c, P, N), f32(B_, H, n_c, P, N)
+    db_part, dc_part, da_part = f32(B_, S, H, N), f32(B_, S, H, N), \
+        f32(B_, H, n_c)
+    dx = torch.empty((B_, S, H, P), dtype=x.dtype, device=dev)
+    dB = torch.empty((B_, S, G, N), dtype=Bm.dtype, device=dev)
+    dC = torch.empty_like(dB)
+    ddt, dA, d_init = f32(B_, S, H), f32(H), f32(B_, H, P, N)
+    build.extension().ssd_bwd(x, dt, A, Bm, Cm, init_state, dy, d_state, hs,
+                              gs, db_part, dc_part, da_part, dx, ddt, dA, dB,
+                              dC, d_init, chunk)
+    bwd_launches += 1
+    return dx, ddt, dA, dB, dC, d_init
+
+
+class SSDFn(torch.autograd.Function):
+    """(y, final state) = ssd(x, dt, A, B, C, init_state) with the backward
+    of autodiff of ``ssd_ref``: the forward saves its inputs, the backward
+    recomputes the chunk states from them.  ``kernel`` selects the CUDA
+    kernels, else the plain versions.  Unused outputs get no cotangent
+    (a missing y cotangent is zero, a missing state cotangent seeds
+    nothing)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, init_state, chunk: int,
+                kernel: bool):
+        if kernel:
+            y, h = ssd_cuda(x, dt, A, Bm, Cm, chunk=chunk,
+                            init_state=init_state, return_state=True)
+        else:
+            y, h = ref.ssd_ref(x, dt, A, Bm, Cm, chunk=chunk,
+                               init_state=init_state, return_state=True)
+        ctx.chunk, ctx.kernel = chunk, kernel
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, A, Bm, Cm, init_state)
+        return y, h
+
+    @staticmethod
+    def backward(ctx, dy, d_state):
+        x, dt, A, Bm, Cm, init_state = ctx.saved_tensors
+        dy = (torch.zeros_like(x) if dy is None
+              else dy.to(x.dtype).contiguous())
+        if d_state is not None:
+            d_state = d_state.float().contiguous()
+        bwd = ssd_bwd_cuda if ctx.kernel else ref.ssd_bwd_ref
+        dx, ddt, dA, dB, dC, d_init = bwd(
+            x, dt, A, Bm, Cm, dy, chunk=ctx.chunk, init_state=init_state,
+            d_state=d_state)
+        return (dx, ddt, dA, dB, dC,
+                None if init_state is None else d_init, None, None)

@@ -14,11 +14,15 @@ the card as it is taken.  ``--no-carousel`` trains on synthetic batches
 instead: batch ``i`` comes from ``synth_inputs`` with seed ``i``, as the
 JAX entry point draws it from ``PRNGKey(i)``.
 
-One card holds the model, so there is no mesh and there are no sharding
-rules.  Weights are random, drawn on the device from a seeded generator.
-With ``out_dir`` an AsyncCheckpointer saves the state every
-``ckpt_every`` steps and after the last; ``resume`` loads the newest
-checkpoint and trains ``steps`` more from its step.  As in the JAX
+It trains every family the port registers but MoE: the dense archs
+(yi-6b and the rest), mamba2-130m (SSM) and zamba2-1.2b (hybrid), on
+the card through the kernels (the SSD scan's backward included) or on
+the CPU through their plain versions.  One card holds the model, so
+there is no mesh and there are no sharding rules.  Weights are random,
+drawn on the device from a seeded generator.  With ``out_dir`` an
+AsyncCheckpointer saves the state every ``ckpt_every`` steps and after
+the last; ``resume`` loads the newest checkpoint and trains ``steps``
+more from its step.  As in the JAX
 package, a resumed run restarts its batch stream: synthetic batches from
 index 0, the carousel from its first shard.
 """

@@ -57,7 +57,8 @@ def _run(params: Params, cfg: ModelConfig, run: RunConfig, x: torch.Tensor,
          kv_len: Optional[int] = None) -> torch.Tensor:
     """Groups of ``attn_every`` mamba layers, each followed by one
     application of the shared block; then the remaining layers and
-    ``ln_f``."""
+    ``ln_f``.  In training the mamba blocks are checkpointed by
+    ``M.run_layers``; the shared block is not, as in the JAX package."""
     k = cfg.attn_every
     n_app = n_attn_applications(cfg)
     for g in range(n_app):

@@ -8,7 +8,8 @@ projection.  The projections stay split, as in the JAX tree, and plain
 over layers on views of the stacked leaves takes the place of
 ``lax.scan``.  The decode state is O(1): conv tails (W - 1 tokens) and
 the f32 SSM state (H, P, N) per layer, written in place into the stacked
-cache.
+cache.  Training checkpoints each block whole unless ``run.remat`` is
+"none" (``run_layers``).
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.kernels import ops
@@ -147,10 +149,19 @@ def run_layers(params: Params, cfg: ModelConfig, run: RunConfig,
                x: torch.Tensor, lo: int, hi: int,
                state: Optional[Params] = None) -> torch.Tensor:
     """Blocks ``lo .. hi - 1`` of ``params["blocks"]``; a given stacked
-    ``state`` is updated in place."""
+    ``state`` is updated in place.  With grad mode on, no state and
+    ``run.remat`` other than "none", each block is checkpointed whole
+    (its input kept, the block run again in the backward): the JAX blocks
+    call ``jax.checkpoint`` with no policy for "full" and "dots" alike."""
+    remat = run.remat != "none" and torch.is_grad_enabled() and \
+        state is None
     for i in range(lo, hi):
-        s_l = None if state is None else layer(state, i)
-        x = block_fwd(layer(params["blocks"], i), cfg, run, x, s_l)
+        p_l = layer(params["blocks"], i)
+        if remat:
+            x = checkpoint(block_fwd, p_l, cfg, run, x, use_reentrant=False)
+        else:
+            s_l = None if state is None else layer(state, i)
+            x = block_fwd(p_l, cfg, run, x, s_l)
     return x
 
 

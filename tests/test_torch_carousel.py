@@ -99,19 +99,30 @@ def test_stager_retries_tape_faults():
 
 def test_stager_no_backoff_sleep_after_final_attempt():
     """A terminally failing file is marked failed right after its last
-    attempt, not one backoff interval later."""
-    cold = ColdStore(drives=1, fault_rate=1.0, seed=0)
+    attempt, not one backoff interval later.  Timed from the reads
+    themselves, so a loaded machine does not move the bounds."""
+    class TimedStore(ColdStore):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            self.read_at = []
+
+        def read(self, name):
+            self.read_at.append(time.monotonic())
+            return super().read(name)  # fault_rate 1: always raises
+
+    cold = TimedStore(drives=1, fault_rate=1.0, seed=0)
     cold.add(TapeFile("f0", size=1, payload=b"x"))
     cache = DiskCache(100)
     bus = _Bus()
     st = Stager(cold, cache, bus, workers=1, max_attempts=3, backoff=0.2)
-    t0 = time.monotonic()
     st.submit("f0")
     assert st.wait(timeout=5, hedge_interval=0.005)
-    elapsed = time.monotonic() - t0
-    # 0.2 + 0.4 s between the attempts; a sleep after the last one would
-    # add 0.8 s
-    assert elapsed < 1.0, elapsed
+    r0, r1, r2 = cold.read_at
+    # backoff 0.2, then 0.4, between the attempts
+    assert r1 - r0 >= 0.2 and r2 - r1 >= 0.4, cold.read_at
+    # a sleep after the last attempt would add 0.8 s; half of it bounds
+    assert st.records["f0"].finished - r2 < 0.4, (
+        st.records["f0"].finished, r2)
     assert st.failed() == ["f0"]
     assert st.records["f0"].attempts == 3
     assert bus.seen == [(JM.T_COLLECTION_UPDATED,

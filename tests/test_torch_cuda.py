@@ -550,9 +550,9 @@ def test_tensor_core_kernels_are_deterministic(cuda):
 
 def test_tensor_core_kernels_fit_without_spills(cuda):
     """Every redesigned kernel (tensor-core flash forward and backward, CE
-    forward, RMSNorm backward and forward, tensor-core SSD scan) keeps its
-    state in registers (no local memory) and fits at least one block a SM
-    at its launch size."""
+    forward, RMSNorm backward and forward, tensor-core SSD scan) and the
+    SSD backward's kernels keep their state in registers (no local
+    memory) and fit at least one block a SM at their launch size."""
     from repro_torch.kernels import build
     rows = build.extension().kernel_info()
     names = [name for name, _ in rows]
@@ -571,6 +571,12 @@ def test_tensor_core_kernels_fit_without_spills(cuda):
             assert f"rmsnorm_fwd_kernel<{dtype},{nv}>" in names
     for n in (32, 64, 128):
         assert f"ssd_scan_tc_kernel<{n}>" in names
+    for dtype in ("bf16", "f32"):
+        for name in ("ssd_bwd_chunk_kernel", "ssd_bwd_reduce_kernel"):
+            assert f"{name}<{dtype}>" in names
+        for way in ("fwd", "rev"):
+            for nj in (2, 4):
+                assert f"ssd_state_pass_kernel<{dtype},{way},{nj}>" in names
     # the SSD scan's design point at zamba2-1.2b's shape: two blocks a SM
     assert dict(rows)["ssd_scan_tc_kernel<64>"][5] >= 2
     # the flash forward's design point: two blocks of 4 warps a SM
@@ -812,8 +818,117 @@ def test_ssd_kernel_rejects_bad_inputs_and_gradients(cuda):
     with pytest.raises(ValueError, match="last axis"):
         kssd.ssd_cuda(x.transpose(2, 3).contiguous().transpose(2, 3), dt,
                       A, Bm, Cm, chunk=8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.ssd(x.requires_grad_(), dt, A, Bm, Cm, chunk=8)
+    # with a gradient the kernel path runs SSDFn: the forward kernel, then
+    # the backward kernels (no plain fallback)
+    n = (kssd.launches, kssd.bwd_launches)
+    xg = x.clone().requires_grad_()
+    y = ops.ssd(xg, dt, A, Bm, Cm, chunk=8)
+    assert type(y.grad_fn).__name__ == "SSDFnBackward"
+    y.sum().backward()
+    torch.cuda.synchronize()
+    assert (kssd.launches, kssd.bwd_launches) == (n[0] + 1, n[1] + 1)
+    want = ref.ssd_bwd_ref(x, dt, A, Bm, Cm, torch.ones_like(x), chunk=8)[0]
+    torch.testing.assert_close(xg.grad, want, **_ssd_tol(torch.float32))
+    with pytest.raises(ValueError, match="dy"):
+        kssd.ssd_bwd_cuda(x, dt, A, Bm, Cm, torch.ones_like(x)[:, :4],
+                          chunk=8)
+
+
+def _ssd_bwd_check(got, want, dtype):
+    """dx, ddt, dB, dC, d_init elementwise; dA, a sum over B * S terms,
+    at relative L2 (chip_smoke.py's phase "ssd_bwd")."""
+    t = _ssd_tol(dtype)["rtol"]
+    for name, a, b in zip(("dx", "ddt", "dA", "dB", "dC", "d_init"), got,
+                          want):
+        if name == "dA":
+            rel = float((a - b).norm() / b.norm())
+            assert rel <= t, (name, rel)
+        else:
+            assert a.dtype == b.dtype and a.shape == b.shape, name
+            torch.testing.assert_close(a.float(), b.float(), rtol=t, atol=t,
+                                       msg=name)
+
+
+@pytest.mark.parametrize("case", SSD_CASES)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("state", [False, True])
+@pytest.mark.parametrize("d_state", [False, True])
+def test_ssd_bwd_kernel_matches_plain(cuda, case, dtype, state, d_state):
+    x, dt, A, Bm, Cm, h0 = _ssd_inputs(case, dtype, cuda, seed=5,
+                                       state=state)
+    B, S, H, P, _, N, chunk = case
+    g = torch.Generator(device=cuda).manual_seed(6)
+    dy = torch.randn(x.shape, generator=g, device=cuda).to(dtype)
+    dh = (torch.randn((B, H, P, N), generator=g, device=cuda) * 0.1
+          if d_state else None)
+    n = kssd.bwd_launches
+    got = kssd.ssd_bwd_cuda(x, dt, A, Bm, Cm, dy, chunk=chunk,
+                            init_state=h0, d_state=dh)
+    torch.cuda.synchronize()
+    assert kssd.bwd_launches == n + 1
+    want = ref.ssd_bwd_ref(x, dt, A, Bm, Cm, dy, chunk=chunk, init_state=h0,
+                           d_state=dh)
+    _ssd_bwd_check(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ssd_bwd_kernel_reads_views_and_is_deterministic(cuda, dtype):
+    """x as the model's view of (B, S, H * P) and B/C as slices of one
+    (B, S, 2N + 1) tensor (B one element off a 16-byte boundary) give the
+    bits of contiguous copies; two calls give the same bits; and SSDFn
+    through ``ops.ssd`` gives every gradient of the kernels."""
+    B, S, H, P, N, Q = 2, 300, 4, 64, 64, 128
+    g = torch.Generator(device=cuda).manual_seed(9)
+    xs = (torch.randn((B, S, H * P + 8), generator=g, device=cuda)
+          * 0.5).to(dtype)
+    bc = (torch.randn((B, S, 2 * N + 1), generator=g, device=cuda)
+          * 0.3).to(dtype)
+    x = xs[..., :H * P].reshape(B, S, H, P)
+    Bm, Cm = bc[..., 1:N + 1].unsqueeze(2), bc[..., N + 1:].unsqueeze(2)
+    dt = torch.nn.functional.softplus(
+        torch.randn((B, S, H), generator=g, device=cuda))
+    A = -torch.exp(torch.randn((H,), generator=g, device=cuda) * 0.3)
+    dy = torch.randn((B, S, H, P), generator=g, device=cuda).to(dtype)
+    got = kssd.ssd_bwd_cuda(x, dt, A, Bm, Cm, dy, chunk=Q)
+    again = kssd.ssd_bwd_cuda(x, dt, A, Bm, Cm, dy, chunk=Q)
+    flat = kssd.ssd_bwd_cuda(x.contiguous(), dt, A, Bm.contiguous(),
+                             Cm.contiguous(), dy, chunk=Q)
+    for a, b, c in zip(got, again, flat):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    _ssd_bwd_check(got, ref.ssd_bwd_ref(x, dt, A, Bm, Cm, dy, chunk=Q),
+                   dtype)
+    leaves = [t.detach().clone().requires_grad_() for t in (x, dt, A, Bm,
+                                                            Cm)]
+    y = ops.ssd(*leaves, chunk=Q)
+    y.backward(dy)
+    for leaf, a in zip(leaves, got[:5]):
+        assert torch.equal(leaf.grad, a)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-1.2b"])
+def test_smoke_ssm_training_kernels_match_plain(cuda, arch):
+    """One smoke-config ``grads_and_metrics`` over two chunks and a ragged
+    tail through the kernels against the plain path: the loss within
+    1e-2, every gradient leaf within relative L2 5e-2; the SSD scan runs
+    twice a layer (remat "full") and its backward once."""
+    cfg = get_smoke_config(arch)
+    params = serve.init_params(cfg, 1, cuda)
+    batch = registry.synth_inputs(torch.Generator(device=cuda).manual_seed(
+        10), cfg, ShapeConfig("t", 72, 2, "train"), device=cuda)
+    n = (kssd.launches, kssd.bwd_launches)
+    gk, mk = tstep.grads_and_metrics(params, cfg, RunConfig(ce_block_v=64),
+                                     batch)
+    torch.cuda.synchronize()
+    L = cfg.num_layers
+    assert (kssd.launches, kssd.bwd_launches) == (n[0] + 2 * L, n[1] + L)
+    gp, mp = tstep.grads_and_metrics(
+        params, cfg, RunConfig(ce_block_v=64, use_kernels=False), batch)
+    assert (kssd.launches, kssd.bwd_launches) == (n[0] + 2 * L, n[1] + L)
+    torch.testing.assert_close(mk["loss"], mp["loss"], rtol=1e-2, atol=0)
+    for a, b in zip(tree_leaves(gk), tree_leaves(gp)):
+        assert bool(torch.isfinite(a).all())
+        assert float((a.float() - b.float()).norm()
+                     / b.float().norm()) <= 5e-2
 
 
 # The bf16 tensor-core scan: N = 128 with P = 64 (mamba2-130m's head),

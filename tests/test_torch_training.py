@@ -124,6 +124,24 @@ def test_rmsnorm_grads_match_jax_vjp(shape, dtype):
     np.testing.assert_allclose(_np(tw.grad), _np(jdw), **_tol(dtype))
 
 
+@pytest.mark.parametrize("shape", [(8, 128), (3, 7, 384), (1, 513)])
+def test_rmsnorm_bwd_ref_in_f64_matches_jax_vjp(shape):
+    """``rmsnorm_bwd_ref(compute_dtype=float64)``, the yardstick of the
+    f32 kernel's dw over many rows: the same formula, results in f32."""
+    rng = np.random.default_rng(0)
+    jx, tx = _pair(rng.standard_normal(shape, np.float32), "float32")
+    jw, tw = _pair(rng.standard_normal(shape[-1:], np.float32), "float32")
+    jg, tg = _pair(rng.standard_normal(shape, np.float32), "float32")
+    _, vjp = jax.vjp(lambda x, w: jref.rmsnorm_ref(x, w, 1e-5), jx, jw)
+    jdx, jdw = vjp(jg)
+    _, inv = tref.rmsnorm_fwd_ref(tx, tw, 1e-5)
+    dx, dw = tref.rmsnorm_bwd_ref(tx, tw, inv, tg,
+                                  compute_dtype=torch.float64)
+    assert dx.dtype == dw.dtype == torch.float32
+    np.testing.assert_allclose(_np(dx), _np(jdx), **_tol("float32"))
+    np.testing.assert_allclose(_np(dw), _np(jdw), **_tol("float32"))
+
+
 @pytest.mark.parametrize("case", CASES)
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_flash_lse_and_grads_match_jax_vjp(case, dtype):
@@ -504,14 +522,15 @@ def test_training_fine_starts_before_coarse():
 
 
 def test_resume_continues_from_checkpoint(tmp_path):
-    """Twin of tests/test_integration.py's (which trains mamba2-130m; SSM
-    training on the card is not ported yet, so yi-6b here)."""
+    """Twin of tests/test_integration.py's: mamba2-130m, carousel-fed,
+    checkpointed every 5 steps, then resumed."""
     from repro_torch.ckpt import latest_step, load_checkpoint
 
+    arch = "mamba2-130m"
     out = str(tmp_path / "run")
     kw = dict(smoke=True, seq_len=32, global_batch=2, out_dir=out,
               ckpt_every=5, device="cpu")
-    r1 = ttrain.run_training(ARCH, steps=10, **kw)
+    r1 = ttrain.run_training(arch, steps=10, **kw)
     assert set(r1) == RESULT_KEYS | {"carousel", "checkpoint"}
     assert r1["final_step"] == 10 and latest_step(out) == 10
     # saves at 5 and 10, and the last save after the loop rewrites 10
@@ -525,7 +544,7 @@ def test_resume_continues_from_checkpoint(tmp_path):
     for a, b in zip(TP.tree_leaves(saved["params"]),
                     TP.tree_leaves(r1["state"]["params"])):
         assert torch.equal(a, b)
-    r2 = ttrain.run_training(ARCH, steps=5, resume=True, **kw)
+    r2 = ttrain.run_training(arch, steps=5, resume=True, **kw)
     assert r2["final_step"] == 15 and r2["steps"] == 5
     assert r2["state"]["opt"]["step"] == 15
     assert sorted(os.listdir(out)) == [f"step_{s:08d}" for s in (5, 10, 15)]
