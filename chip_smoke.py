@@ -39,7 +39,8 @@ Phases, each of which fails the run (non-zero exit, no final result line):
    dB, dC and d_init elementwise, dA at relative L2, against
    ``ssd_bwd_ref`` on the same cases with an initial state and a
    final-state cotangent, the f32 rows against it evaluated in f64; both
-   models' training shapes timed).
+   models' training shapes timed, with each launch's device time and the
+   scratch a call allocates).
    The library yardstick of a backward is the library forward plus
    backward less the forward;
 4. serving: ``run_serving(arch, smoke=False, prompt_len=P, gen=32,
@@ -191,6 +192,12 @@ E2E_TRAIN_LAYERS = 2
 # it)
 SSM_TRAIN_SEQ = 2048
 SSM_E2E_LAYERS = {"mamba2-130m": 2, "zamba2-1.2b": 7}
+# the mamba block's leaves whose gradients pass through the SSD backward:
+# A and dt (A_log, dt_bias), the in-projections of x, B, C and dt, and the
+# causal convolutions of x, B and C
+SSD_FED_LEAVES = ("A_log", "dt_bias", "w_x", "w_B", "w_C", "w_dt",
+                  "conv_x", "conv_B", "conv_C", "conv_x_b", "conv_B_b",
+                  "conv_C_b")
 # the carousel's fine vs coarse delivery: one tape drive, 0.4 s a shard
 FINE_COARSE = dict(steps=6, tape_latency=0.4, drives=1)
 FINE_COARSE_GAP_S = 1.5  # coarse's first batch this much later at least
@@ -806,6 +813,36 @@ def _ssd_bwd_work(case, x_bytes: int):
     return n_bytes, flops
 
 
+def _f32_chunk_rates(case, call) -> dict:
+    """What held the CUDA-core chunk kernel of the backward's first
+    design: ``ssd_bwd_chunk_kernel<f32>`` (its f32 instance, which the f32
+    path keeps) profiled in one ``call``, and the warp instructions its
+    loops execute at ``case`` (8 warps a block, a block per (chunk, head,
+    batch)): FMAs and 32-bit shared-memory loads, as shares of what the
+    SMs can execute in that time at the card's maximum SM clock (4 warp
+    FMAs and 1 warp shared-memory load a clock a SM: 128 FP32 lanes, 32
+    banks of 4 bytes)."""
+    B, S, H, P, G, N, Q = case
+    kp, kn = -(-P // 32), -(-N // 32)
+    # the staged slices of dx, dC and dB (i or j over Q, then the inter-
+    # chunk product over a 32 x 32 slice of the state), 16 FMAs and 10
+    # loads a step; the two Q x Q tiles, 64 FMAs and 16 loads a step
+    steps = kp * Q + kp * kn * 32 + 2 * (kn * Q + kn * kp * 32)
+    warps = 8 * -(-S // Q) * H * B
+    fma = warps * (64 * 32 * (kp + kn) + 16 * steps)
+    lds = warps * (16 * 32 * (kp + kn) + 10 * steps)
+    prof = _profile(call, pick=("ssd_bwd_chunk_kernel",))
+    ms = sum(t for _, t, _ in prof["picked"])
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.split()[0])
+    slots = torch.cuda.get_device_properties(0).multi_processor_count \
+        * mhz * 1e6 * ms * 1e-3
+    return {"ms": ms, "max_sm_mhz": mhz, "warp_fma": fma, "warp_lds": lds,
+            "fma_share": fma / (4 * slots), "lds_share": lds / slots}
+
+
 def phase_ssd_bwd(gen: torch.Generator, failures: list) -> dict:
     """The SSD backward kernels against ``ssd_bwd_ref`` on every case and
     dtype, with an initial state and a cotangent of the final state: dx,
@@ -866,10 +903,27 @@ def phase_ssd_bwd(gen: torch.Generator, failures: list) -> dict:
                     "ms": lambda *t: kssd.ssd_bwd_cuda(*t, chunk=chunk),
                     "plain_ms": lambda *t: ref.ssd_bwd_ref(*t, chunk=chunk)},
                     sets, calls=4)
+                # each launch's device time (the state passes, the chunk
+                # kernels, the reduction), a call of the last input set,
+                # and the scratch a call allocates beside the f32 path's
+                # layout (f32 states, a partial a head)
+                prof = _profile(lambda: [kssd.ssd_bwd_cuda(
+                    *sets[-1], chunk=chunk) for _ in range(3)],
+                    pick=("ssd_bwd",))
+                row["launch_ms"] = {name: ms / n
+                                    for name, ms, n in prof["picked"]}
+                row["scratch_bytes"] = kssd.bwd_scratch_bytes(
+                    B, S, H, P, G, N, chunk, dtype)
+                row["scratch_bytes_f32_layout"] = kssd.bwd_scratch_bytes(
+                    B, S, H, P, G, N, chunk, torch.float32)
                 del sets
                 row["library_ms"] = None  # no PyTorch call computes it
                 if case == SSD_ZAMBA2:
                     main = row
+            if case in (SSD_ZAMBA2, SSD_MAMBA2) and dtype == torch.float32:
+                row["f32_chunk_kernel"] = _f32_chunk_rates(
+                    case, lambda: kssd.ssd_bwd_cuda(x, dt, A, Bm, Cm, dy,
+                                                    chunk=chunk))
             row["bound_ms"], row["bound_by"] = _bound(n_bytes, flops, dtype)
             log("ssd_bwd", json.dumps(row))
             if not ok:
@@ -1382,6 +1436,9 @@ def phase_training_end_to_end(failures: list, arch: str = ARCH,
         "arch": arch, "layers": layers, "seq_len": seq_len,
         "loss_kernels": lk, "loss_plain": lp,
         "loss_rel": loss_rel, "loss_tol": LOSS_TOL, "grad_rel_l2": rel,
+        "worst_leaf": max(rel.items(), key=lambda kv: kv[1]),
+        "ssd_fed_rel_l2": {k: r for k, r in rel.items()
+                           if k.rsplit("/", 1)[-1] in SSD_FED_LEAVES},
         "grad_tol": E2E_TOL, "grads_finite": finite, "launches": counts}))
     if not loss_rel <= LOSS_TOL:
         failures.append(f"{label} loss kernels {lk} vs plain {lp}")

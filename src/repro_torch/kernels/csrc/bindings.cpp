@@ -70,16 +70,18 @@ extern "C" bool repro_ssd_fwd(
     long long dt_sh, long long b_sb, long long b_ss, long long b_sg,
     long long c_sb, long long c_ss, long long c_sg, long long y_sb,
     long long y_ss, long long y_sh, int bf16, cudaStream_t s);
+extern "C" int repro_ssd_bwd_slots(int Bsz, int S, int H, int G, int N,
+                                   int Q);
 extern "C" bool repro_ssd_bwd(
     const void* x, const float* dt, const float* A, const void* Bm,
     const void* Cm, const float* h0, const void* dy, const float* dh,
-    float* hs, float* gs, float* db_part, float* dc_part, float* da_part,
-    void* dx, float* ddt, float* dA, void* dB, void* dC, float* dinit,
-    int Bsz, int S, int H, int P, int G, int N, int Q, long long x_sb,
-    long long x_ss, long long x_sh, long long dt_sb, long long dt_ss,
-    long long dt_sh, long long b_sb, long long b_ss, long long b_sg,
-    long long c_sb, long long c_ss, long long c_sg, int bf16,
-    cudaStream_t s);
+    void* hs, void* gs, float* db_part, float* dc_part, float* da_part,
+    float* wpart, float* rvec, float* dvec, void* dx, float* ddt, float* dA,
+    void* dB, void* dC, float* dinit, int Bsz, int S, int H, int P, int G,
+    int N, int Q, int HP, long long x_sb, long long x_ss, long long x_sh,
+    long long dt_sb, long long dt_ss, long long dt_sh, long long b_sb,
+    long long b_ss, long long b_sg, long long c_sb, long long c_ss,
+    long long c_sg, int bf16, cudaStream_t s);
 extern "C" bool repro_ssd_info(int idx, const char** name, int* out);
 
 namespace {
@@ -247,30 +249,47 @@ void ssd_fwd(const at::Tensor& x, const at::Tensor& dt, const at::Tensor& A,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
-// The SSD backward.  x, dt, A, Bm, Cm, h0 as ssd_fwd takes them (any N and
-// alignment); dy: (B, S, H, P) contiguous in x's dtype; dh: the final
-// state's f32 cotangent (B, H, P, N) contiguous or None; scratch hs, gs
-// (B, H, ceil(S / chunk), P, N), db_part, dc_part (B, S, H, N), da_part
-// (B, H, ceil(S / chunk)), all f32; outputs contiguous: dx (B, S, H, P),
+// Blocks of the bf16 SSD backward's chunk kernels a group of heads (the
+// partials of dB and dC a group), for N a multiple of 8; 0 where its
+// kernels cannot launch.
+int64_t ssd_bwd_slots(int64_t B, int64_t S, int64_t H, int64_t G,
+                      int64_t N, int64_t chunk) {
+  const c10::cuda::CUDAGuard guard(at::cuda::current_device());
+  return repro_ssd_bwd_slots(B, S, H, G, N, chunk);
+}
+
+// The SSD backward.  x, dt, A, Bm, Cm, h0 as ssd_fwd takes them; dy: (B,
+// S, H, P) contiguous in x's dtype; dh: the final state's f32 cotangent
+// (B, H, P, N) contiguous or None; outputs contiguous: dx (B, S, H, P),
 // dB, dC (B, S, G, N) in x's dtype, ddt (B, S, H), dA (H,), dinit (B, H,
-// P, N) f32.
+// P, N) f32.  Scratch (f32 unless said): da_part (B, H, ceil(S / chunk));
+// db_part, dc_part (B, S, HP, N) with HP / G partials a group; f32: hs, gs
+// (B, H, ceil(S / chunk), P, N), HP = H, no wpart, rvec, dvec; bf16: hs,
+// gs bf16 (B, H, ceil(S / chunk), 2, P, N), HP = G * ssd_bwd_slots(..),
+// wpart (B, H, ceil(S / chunk)), rvec, dvec (B, H, S).
 void ssd_bwd(const at::Tensor& x, const at::Tensor& dt, const at::Tensor& A,
              const at::Tensor& Bm, const at::Tensor& Cm,
              const c10::optional<at::Tensor>& h0, const at::Tensor& dy,
              const c10::optional<at::Tensor>& dh, at::Tensor hs,
              at::Tensor gs, at::Tensor db_part, at::Tensor dc_part,
-             at::Tensor da_part, at::Tensor dx, at::Tensor ddt, at::Tensor dA,
-             at::Tensor dB, at::Tensor dC, at::Tensor dinit, int64_t chunk) {
+             at::Tensor da_part, const c10::optional<at::Tensor>& wpart,
+             const c10::optional<at::Tensor>& rvec,
+             const c10::optional<at::Tensor>& dvec, at::Tensor dx,
+             at::Tensor ddt, at::Tensor dA, at::Tensor dB, at::Tensor dC,
+             at::Tensor dinit, int64_t chunk) {
   const c10::cuda::CUDAGuard guard(x.device());
+  auto opt = [](const c10::optional<at::Tensor>& t) {
+    return t ? t->data_ptr<float>() : nullptr;
+  };
   const bool launched = repro_ssd_bwd(
       x.data_ptr(), dt.data_ptr<float>(), A.data_ptr<float>(),
-      Bm.data_ptr(), Cm.data_ptr(), h0 ? h0->data_ptr<float>() : nullptr,
-      dy.data_ptr(), dh ? dh->data_ptr<float>() : nullptr,
-      hs.data_ptr<float>(), gs.data_ptr<float>(), db_part.data_ptr<float>(),
-      dc_part.data_ptr<float>(), da_part.data_ptr<float>(), dx.data_ptr(),
-      ddt.data_ptr<float>(), dA.data_ptr<float>(), dB.data_ptr(),
-      dC.data_ptr(), dinit.data_ptr<float>(), x.size(0), x.size(1),
-      x.size(2), x.size(3), Bm.size(2), Bm.size(3), chunk, x.stride(0),
+      Bm.data_ptr(), Cm.data_ptr(), opt(h0), dy.data_ptr(), opt(dh),
+      hs.data_ptr(), gs.data_ptr(), db_part.data_ptr<float>(),
+      dc_part.data_ptr<float>(), da_part.data_ptr<float>(), opt(wpart),
+      opt(rvec), opt(dvec), dx.data_ptr(), ddt.data_ptr<float>(),
+      dA.data_ptr<float>(), dB.data_ptr(), dC.data_ptr(),
+      dinit.data_ptr<float>(), x.size(0), x.size(1), x.size(2), x.size(3),
+      Bm.size(2), Bm.size(3), chunk, db_part.size(2), x.stride(0),
       x.stride(1), x.stride(2), dt.stride(0), dt.stride(1), dt.stride(2),
       Bm.stride(0), Bm.stride(1), Bm.stride(2), Cm.stride(0), Cm.stride(1),
       Cm.stride(2), is_bf16(x), at::cuda::getCurrentCUDAStream());
@@ -321,6 +340,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("ce_splits", &ce_splits, "vocab splits of the CE forward's scratch");
   m.def("ce_fwd", &ce_fwd, "blockwise cross-entropy forward into nll, lse");
   m.def("ssd_fwd", &ssd_fwd, "Mamba2 SSD chunked scan into y and hout");
+  m.def("ssd_bwd_slots", &ssd_bwd_slots,
+        "blocks of the bf16 SSD backward's chunk kernels a group of heads");
   m.def("ssd_bwd", &ssd_bwd,
         "Mamba2 SSD backward into dx, ddt, dA, dB, dC, dinit");
   m.def("kernel_info", &kernel_info,

@@ -84,14 +84,14 @@
 //
 // The backward (repro_ssd_bwd) is the twin of autodiff of
 // repro/kernels/ref.py::ssd_ref, which the JAX package trains through (jnp,
-// no Pallas).  For a chunk, with H_c the state before it, G the cotangent
+// no Pallas).  For a chunk, with H_c the state before it, Ĥ the cotangent
 // of the state after it, dy the cotangent of y and e_j = exp(cs_Q - cs_j)
 // (the formulas in full at ref.py's ssd_bwd_ref, this package's plain
 // version):
-//   G_c  = exp(cs_Q) G + sum_i exp(cs_i) dy_i C_i^T,  dinit = G_0
-//   dx_j = dt_j [sum_i (C_i.B_j) L_ij dy_i + e_j G B_j]
+//   Ĥ_c  = exp(cs_Q) Ĥ + sum_i exp(cs_i) dy_i C_i^T,  dinit = Ĥ_0
+//   dx_j = dt_j [sum_i (C_i.B_j) L_ij dy_i + e_j Ĥ B_j]
 //   dC_i = sum_j (dy_i.x_j) L_ij dt_j B_j + exp(cs_i) H_c^T dy_i
-//   dB_j = dt_j [sum_i (dy_i.x_j) L_ij C_i + e_j G^T x_j]  (over the group)
+//   dB_j = dt_j [sum_i (dy_i.x_j) L_ij C_i + e_j Ĥ^T x_j]  (over the group)
 //   ddt_j, dA from the cotangent of cs: row and column sums of
 //   s_ij = (dy_i.x_j)(C_i.B_j) L_ij dt_j, the inter-chunk terms, and a
 //   reverse cumsum over the chunk.
@@ -100,24 +100,76 @@
 // 210 MB, 63 us at HBM rate, above the 39 GFLOP of products (three times
 // the forward's) at the bf16 peak: bytes.  At mamba2-130m's (H=24, N=128)
 // 86 MB (26 us) and 26 GFLOP (26 us): the two meet.
-// Design, simple and exact (f32 on the CUDA cores for both dtypes; bf16 is
-// read exactly and dx, dB, dC rounded once at the end), four launches:
-//   1. ssd_state_pass_kernel<T, fwd, NJ>: one block per (32 state rows,
+//
+// bf16 (the models' path): tensor cores (mma.sync.m16n8k16, bf16 in, f32
+// sums), five launches:
+//   1. ssd_bwd_state_tc_kernel<NP, fwd>: the forward scan's tiling and
+//      state update, y skipped: one block per (head, batch) walks the
+//      chunks with the f32 state in registers, (x o w)^T B as hi + lo
+//      products, and writes the state before each chunk as hi and lo bf16
+//      copies (B, H, n_chunks, 2, P, N): the operands the chunk kernels
+//      read, as many bytes as f32;
+//   2. the same in reverse: the cotangent Ĥ after each chunk from (dy o
+//      exp(cs))^T C, likewise copied, d_init = the last one in f32, and w
+//      = exp(cs_Q) <Ĥ_c, H_c> per chunk;
+//   3. ssd_bwd_row_tc_kernel<NP>: one block per (chunk, block of heads of
+//      one group, batch); warp w owns the chunk's rows 16w .. 16w + 15 and
+//      walks the block's heads, dC of the group summed over them in its
+//      registers: S1 = C B^T and S2 = dy x^T over the causal 16 x 16 tiles
+//      only (exact: bf16 operands), M = S2 o L o dt as hi + lo A operands
+//      from the f32 fragments (dC += M B), exp(cs) dy H_c against the
+//      state's copies; the row and column sums of s = S1 o S2 o L o dt on
+//      the fragments, fixed-order shuffles (a column's sums over the warps
+//      through shared memory in warp order); per head it writes the row
+//      sums less the column sums (with the inter-chunk t) and the column
+//      sums of s / dt;
+//   4. ssd_bwd_col_tc_kernel<NP>: the same grid, warp w owns columns j =
+//      16w .. 16w + 15, the rows of dx and dB.  These sums run over i >= j,
+//      so the kernel recomputes the transposed tiles B C^T and x dy^T
+//      rather than staging S1 and S2 through shared memory (the forward's
+//      choice of products over bytes; a 128 x 128 f32 tile and its hi and
+//      lo copies would take the shared memory of two blocks): dx += (T1 o
+//      L) dy and dB += (T2 o L o dt) C as hi + lo products, Ĥ B_j and Ĥ^T
+//      x_j against Ĥ's copies; warp 0 forms dcs, its reverse cumsum
+//      (shuffles in a fixed order), ddt and the chunk's share of dA.  It
+//      walks the block's heads twice, dx, ddt and dA first, then dB of
+//      the group summed in registers: with both sums live it needed ~180
+//      registers and spilled at the 128 of two blocks a SM, so x, dy and
+//      Ĥ's copies are read twice.  (Warp w does w + 1 causal tiles in the
+//      row kernel and 8 - w in this one: each block waits on one warp, a
+//      second pass's matter);
+//   5. ssd_bwd_reduce_kernel<bf16>: the partials of dB and dC, one a block
+//      of heads, summed over a group's blocks in order (at most H / G / 8
+//      a group: an eighth of one a head or less; the wrapper asks
+//      repro_ssd_bwd_slots for the count, the fewest waves of heads over
+//      the card), and dA over (batch, chunk).
+// Rounding (tests/test_torch_ssd_bwd_numerics.py emulates it): every
+// tensor-core operand that is not bf16 already goes in as a hi + lo pair
+// (M, T1 o L, T2 o L o dt, the states' copies, x o w and dy o exp(cs));
+// the states themselves, every sum and ddt, dA, d_init stay f32; dx, dB
+// and dC are rounded once.  Rounded once, M moved dB and dC past half the
+// tolerance; a single copy of the states or of the passes' operands moved
+// ddt and dA, which nothing rounds, a hundredfold.  The chunk kernels take
+// P <= 64 (one 64-column tile of x, dy and the states); N is padded to 32,
+// 64 or 128 (the instantiations) with zero fill.
+//
+// f32 (the 3e-4 sweeps against f64, which TF32 cannot meet; no main
+// path): f32 FMAs on the CUDA cores, any N and alignment, four launches:
+//   1. ssd_state_pass_kernel<float, fwd, NJ>: one block per (32 state rows,
 //      head, batch) walks the chunks as the f32 forward does and writes H_c
-//      for every chunk to an f32 (B, H, n_chunks, P, N) scratch (50-67 MB
-//      at the models' shapes);
-//   2. the same kernel in reverse: G carried in registers, G for every
-//      chunk to a second scratch, and G_0 (dinit);
-//   3. ssd_bwd_chunk_kernel<T>: one block per (chunk, head, batch), fully
-//      parallel: (dy x^T) o L and (C B^T) o L as two 128 x 128 f32 tiles
-//      in shared memory (with the row and column sums of s on the way),
-//      then dx, the dC and dB of this head and the terms of ddt from
+//      for every chunk to an f32 (B, H, n_chunks, P, N) scratch;
+//   2. the same kernel in reverse: Ĥ for every chunk to a second scratch,
+//      and Ĥ_0 (dinit);
+//   3. ssd_bwd_chunk_kernel<float>: one block per (chunk, head, batch),
+//      fully parallel: (dy x^T) o L and (C B^T) o L as two 128 x 128 f32
+//      tiles in shared memory (with the row and column sums of s on the
+//      way), then dx, the dC and dB of this head and the terms of ddt from
 //      32-wide slices staged through shared memory; writes dx and ddt,
 //      and f32 partials of dB, dC (a head each) and of dA (a chunk each);
-//   4. ssd_bwd_reduce_kernel<T>: the partials summed over the heads of a
-//      group and over (batch, chunk), in a fixed order.
-// No float atomics: every sum has a fixed order, so the bits do not
-// depend on the run.  The tensor cores are a later design's (ROADMAP B).
+//   4. ssd_bwd_reduce_kernel<float>: the partials summed over the heads of
+//      a group and over (batch, chunk), in a fixed order.
+// No float atomics in either: every sum has a fixed order, so the bits do
+// not depend on the run.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -869,12 +921,11 @@ bool launch_tc(const bf16* x, const float* dt, const float* A,
 
 
 // ---------------------------------------------------------------------------
-// The backward (f32 on the CUDA cores, both dtypes; see the head of the
-// file for the formulas and the design)
+// The f32 backward on the CUDA cores (see the head of the file for the
+// formulas and the design)
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
 template <typename T>
 __device__ __forceinline__ T from_f(float v);
 template <>
@@ -1435,9 +1486,10 @@ __global__ void __launch_bounds__(kThreads, 1)
         dti[tid] + eend[tid] * xv[tid] + a * rsum[tid];
 }
 
-// dB and dC: the per-head partials summed over the H / G heads of each
-// group in head order, rounded once to T; dA: the per-(batch, chunk)
-// partials summed in (batch, chunk) order.  A grid-stride loop.
+// dB and dC: the partials ((B, S, HP, N) f32: HP / G a group, per head
+// (f32) or per block of heads (bf16)) summed over each group in order,
+// rounded once to T; dA: the per-(batch, chunk) partials summed in
+// (batch, chunk) order.  A grid-stride loop.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     ssd_bwd_reduce_kernel(const float* __restrict__ db_part,
@@ -1445,9 +1497,9 @@ __global__ void __launch_bounds__(kThreads)
                           const float* __restrict__ da_part,
                           T* __restrict__ dB, T* __restrict__ dC,
                           float* __restrict__ dA, int Bsz, int S, int H,
-                          int G, int N, int n_c) {
+                          int HP, int G, int N, int n_c) {
   const long long nbc = (long long)Bsz * S * G * N;
-  const int HG = H / G;
+  const int HG = HP / G;
   for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
        e < 2 * nbc + H; e += (long long)gridDim.x * blockDim.x) {
     if (e < 2 * nbc) {
@@ -1457,7 +1509,7 @@ __global__ void __launch_bounds__(kThreads)
       const long long row = o / N;  // (b * S + s) * G + g
       const int g = (int)(row % G);
       const float* src = (is_c ? dc_part : db_part) +
-                         ((row / G) * H + (long long)g * HG) * N + n;
+                         ((row / G) * HP + (long long)g * HG) * N + n;
       float sum = 0.f;
       for (int k = 0; k < HG; ++k) sum += src[(long long)k * N];
       (is_c ? dC : dB)[o] = from_f<T>(sum);
@@ -1468,6 +1520,961 @@ __global__ void __launch_bounds__(kThreads)
         for (int c = 0; c < n_c; ++c)
           sum += da_part[((long long)b * H + h) * n_c + c];
       dA[h] = sum;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The bf16 backward on the tensor cores (see the head of the file)
+// ---------------------------------------------------------------------------
+
+constexpr int kBwdPT = 64;  // columns of x and dy, rows of a state: P <= 64
+
+// Warp 0: lane l's four dt values of chunk c (rows 4l .. 4l + 3, zero past
+// Q and S).
+__device__ __forceinline__ void load_dt4(const float* dtp, long long ds,
+                                         int c, int Q, int S, int lane,
+                                         float (&d)[4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int i = 4 * lane + e, tt = c * Q + i;
+    d[e] = i < Q && tt < S ? dtp[(long long)tt * ds] : 0.f;
+  }
+}
+
+// Warp 0: the inclusive cumsum of dt * a over a chunk in log2 units (the
+// forward scan's arithmetic) and its dt into shared memory; scs2[kQMax -
+// 1] is cs_end.
+__device__ __forceinline__ void chunk_cs2(const float (&d)[4], float a,
+                                          float* scs2, float* sdt,
+                                          int lane) {
+  float v[4], run = 0.f;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    run += __fmul_rn(d[e], a);
+    v[e] = run;
+  }
+  float tot = run;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float o = __shfl_up_sync(0xffffffffu, tot, off);
+    if (lane >= off) tot += o;
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    scs2[4 * lane + e] = (tot - run + v[e]) * kLog2e;
+    sdt[4 * lane + e] = d[e];
+  }
+}
+
+// The chunk's rows 0 .. Qp - 1 of a (token, column) bf16 matrix into a
+// swizzled [kQMax][W] tile: token t0 + r for r < Q and t0 + r < S, columns
+// below ncols; zeros elsewhere.
+template <int W>
+__device__ __forceinline__ void load_token_tile(bf16* dst, const bf16* src,
+                                                long long row_stride, int t0,
+                                                int Q, int S, int Qp,
+                                                int ncols) {
+  constexpr int CH = W / 8;
+  for (int i = threadIdx.x; i < Qp * CH; i += kTcThreads) {
+    const int r = i / CH, ch = i % CH, tt = t0 + r;
+    const bool ok = r < Q && tt < S && ch * 8 < ncols;
+    tc::cp_async16(dst + tc::swz<W>(r, ch),
+                   ok ? src + (long long)tt * row_stride + ch * 8 : src,
+                   ok ? 16 : 0);
+  }
+}
+
+// One bf16 copy (hi or lo) of a (P, N) state, rows of N values, into a
+// swizzled [kBwdPT][NP] tile, zeros past P and N.
+template <int NP>
+__device__ __forceinline__ void load_state_tile(bf16* dst, const bf16* src,
+                                                int P, int N) {
+  constexpr int CH = NP / 8;
+  for (int i = threadIdx.x; i < kBwdPT * CH; i += kTcThreads) {
+    const int r = i / CH, ch = i % CH;
+    const bool ok = r < P && ch * 8 < N;
+    tc::cp_async16(dst + tc::swz<NP>(r, ch),
+                   ok ? src + (long long)r * N + ch * 8 : src, ok ? 16 : 0);
+  }
+}
+
+// Two bf16 values of a swizzled [rows][W] tile at (r, c), c even, as f32.
+template <int W>
+__device__ __forceinline__ float2 tile_pair(const bf16* tile, int r, int c) {
+  __nv_bfloat162 v;
+  memcpy(&v, tile + tc::swz<W>(r, c >> 3) + (c & 7), sizeof v);
+  return __bfloat1622float2(v);
+}
+
+// Shared memory of the state passes for N padded to NP: two stages of {u
+// [kQMax][kBwdPT], v [kQMax][NP]} and, in reverse, the forward pass's hi
+// and lo copies of H_c [kBwdPT][NP] (bf16, swizzled), then the chunk's
+// cumsum and dt (f32 [kQMax] each) and a reduction scratch: 66 / 98 KB
+// (forward / reverse) at NP = 64, 97 / 161 KB at NP = 128.
+template <int NP, bool kRev>
+struct BwdStateLayout {
+  static constexpr int kU = kQMax * kBwdPT;  // bf16 elements
+  static constexpr int kV = kQMax * NP;
+  static constexpr int kH = kRev ? kBwdPT * NP : 0;
+  static constexpr size_t kStage = sizeof(bf16) * (kU + kV + 2 * kH);
+  static constexpr size_t kBytes =
+      2 * kStage + sizeof(float) * (2 * kQMax + kTcWarps);
+  // two blocks a SM up to N 64, where a batch's heads (zamba2-1.2b: 256
+  // blocks) fill the card twice; one at N 128, whose state and update
+  // (64 f32 registers each) do not fit 128 registers
+  static constexpr int kMinBlocks = NP <= 64 ? 2 : 1;
+};
+
+// The state passes on the tensor cores, the forward scan's tiling and
+// state update: one block per (head, batch) holds the (P, N) f32 state in
+// registers and walks the chunks, in order (forward) or in reverse.
+// Before each chunk's update it writes the state to buf[b, h, c] as hi
+// and lo bf16 copies ((B, H, n_c, 2, P, N)); then
+//   forward: H <- exp(cs_Q) H + (x o w)^T B,  w_j = dt_j exp(cs_Q - cs_j)
+//            (u = x, v = B, s0 = the initial state or null);
+//   reverse: Ĥ <- exp(cs_Q) Ĥ + (dy o exp(cs))^T C
+//            (u = dy, v = C, s0 = the final state's cotangent or null),
+// with u o w as hi + lo bf16 A operands.  The reverse pass also writes
+// w_c = exp(cs_Q) <Ĥ_c, H_c> to wpart[b, h, c] (H_c from hbuf, the
+// forward pass's copies, which arrive with the chunk's u and v) and the
+// last Ĥ (the initial state's cotangent) to s_out.
+template <int NP, bool kRev>
+__global__ void __launch_bounds__(kTcThreads,
+                                  BwdStateLayout<NP, kRev>::kMinBlocks)
+    ssd_bwd_state_tc_kernel(const bf16* __restrict__ u,
+                            const bf16* __restrict__ v,
+                            const float* __restrict__ dt,
+                            const float* __restrict__ A,
+                            const float* __restrict__ s0,
+                            const bf16* __restrict__ hbuf,
+                            bf16* __restrict__ buf, float* __restrict__ wpart,
+                            float* __restrict__ s_out, int S, int H, int P,
+                            int G, int N, int Q, int n_c, Strides us_,
+                            Strides vs_, Strides dts_) {
+  using L = BwdStateLayout<NP, kRev>;
+  constexpr int PT = kBwdPT;
+  constexpr int MT = PT / 16;         // m16 tiles of the state's rows
+  constexpr int WPM = kTcWarps / MT;  // warps on one m16 tile
+  constexpr int NPW = NP / 8 / WPM;   // n8 blocks of the state a warp
+  static_assert(NPW % 2 == 0, "pairs of n8 blocks a warp");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* scs2 = reinterpret_cast<float*>(smem_raw + 2 * L::kStage);
+  float* sdt = scs2 + kQMax;
+  float* red = sdt + kQMax;  // [kTcWarps]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int grp = h / (H / G);
+  const float a = A[h];
+  const int Qp = (Q + 15) & ~15;
+  const bf16* up = u + b * us_.b + h * us_.h;
+  const bf16* vp = v + b * vs_.b + grp * vs_.h;
+  const float* dtp = dt + b * dts_.b + h * dts_.h;
+  const long long state0 = ((long long)b * H + h) * P * N;
+  const long long chunk0 = ((long long)b * H + h) * n_c;
+  auto su = [&](int st) {
+    return reinterpret_cast<bf16*>(smem_raw + st * L::kStage);
+  };
+  auto sv = [&](int st) { return su(st) + L::kU; };
+  auto sh = [&](int st) { return sv(st) + L::kV; };  // H_c hi, then lo
+  auto chunk_at = [&](int it) { return kRev ? n_c - 1 - it : it; };
+  auto load_chunk = [&](int it, int st) {
+    const int c = chunk_at(it);
+    load_token_tile<PT>(su(st), up, us_.s, c * Q, Q, S, Qp, P);
+    load_token_tile<NP>(sv(st), vp, vs_.s, c * Q, Q, S, Qp, N);
+    if constexpr (kRev) {
+      const bf16* hp = hbuf + (chunk0 + c) * 2 * P * N;
+      load_state_tile<NP>(sh(st), hp, P, N);
+      load_state_tile<NP>(sh(st) + L::kH, hp + (long long)P * N, P, N);
+    }
+  };
+
+  // this warp's slice: rows 16 mt + g (+ 8), columns 8 (nb0 + j) + 2t (+ 1)
+  const int mt = warp / WPM, nb0 = (warp % WPM) * NPW;
+  float hr[NPW][4];
+#pragma unroll
+  for (int j = 0; j < NPW; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int p = mt * 16 + g + 8 * r, n = (nb0 + j) * 8 + 2 * t;
+      float2 s = make_float2(0.f, 0.f);
+      if (s0 != nullptr && p < P && n < N)
+        s = *reinterpret_cast<const float2*>(s0 + state0 +
+                                             (long long)p * N + n);
+      hr[j][2 * r] = s.x;
+      hr[j][2 * r + 1] = s.y;
+    }
+
+  load_chunk(0, 0);
+  tc::cp_async_commit();
+  if (n_c > 1) load_chunk(1, 1);
+  tc::cp_async_commit();
+  float dn[4];  // warp 0: dt of the next chunk to scan
+  if (warp == 0) {
+    load_dt4(dtp, dts_.s, chunk_at(0), Q, S, lane, dn);
+    chunk_cs2(dn, a, scs2, sdt, lane);
+    if (n_c > 1) load_dt4(dtp, dts_.s, chunk_at(1), Q, S, lane, dn);
+  }
+  tc::cp_async_wait<1>();
+  __syncthreads();  // chunk 0 landed, its cumsum written
+
+#pragma unroll 1
+  for (int it = 0; it < n_c; ++it) {
+    const int st = it & 1, c = chunk_at(it);
+    const bf16 *cu = su(st), *cv = sv(st);
+    const float c2end = scs2[kQMax - 1];
+    // the state at the chunk's start (forward) or end (reverse), as hi and
+    // lo copies
+    {
+      bf16* hi = buf + (chunk0 + c) * 2 * P * N;
+      bf16* lo = hi + (long long)P * N;
+#pragma unroll
+      for (int j = 0; j < NPW; ++j)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int p = mt * 16 + g + 8 * r, n = (nb0 + j) * 8 + 2 * t;
+          if (p < P && n < N) {
+            const long long o = (long long)p * N + n;
+            uint32_t vh, vl;
+            tc::split_bf16(hr[j][2 * r], hr[j][2 * r + 1], vh, vl);
+            *reinterpret_cast<uint32_t*>(hi + o) = vh;
+            *reinterpret_cast<uint32_t*>(lo + o) = vl;
+          }
+        }
+    }
+    // the reverse pass's share of <Ĥ, H_c> (both zero past P and N)
+    if constexpr (kRev) {
+      float wsum = 0.f;
+#pragma unroll
+      for (int j = 0; j < NPW; ++j)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int p = mt * 16 + g + 8 * r, n = (nb0 + j) * 8 + 2 * t;
+          const float2 fa = tile_pair<NP>(sh(st), p, n);
+          const float2 fb = tile_pair<NP>(sh(st) + L::kH, p, n);
+          wsum += hr[j][2 * r] * (fa.x + fb.x) +
+                  hr[j][2 * r + 1] * (fa.y + fb.y);
+        }
+#pragma unroll
+      for (int m = 16; m >= 1; m >>= 1)
+        wsum += __shfl_xor_sync(0xffffffffu, wsum, m);
+      if (lane == 0) red[warp] = wsum;
+    }
+    // the update: state = exp(cs_end) state + (u o w)^T v
+    {
+      // w at rows k0 + 2t (+ 1) and k0 + 2t + 8 (+ 1)
+      auto weights = [&](int k0) {
+        const float2 cc = *reinterpret_cast<const float2*>(scs2 + k0 + 2 * t);
+        if constexpr (kRev) {
+          return make_float2(exp2_approx(cc.x), exp2_approx(cc.y));
+        } else {
+          const float2 d = *reinterpret_cast<const float2*>(sdt + k0 + 2 * t);
+          return make_float2(d.x * exp2_approx(c2end - cc.x),
+                             d.y * exp2_approx(c2end - cc.y));
+        }
+      };
+      float acc[NPW][4];
+#pragma unroll
+      for (int j = 0; j < NPW; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+#pragma unroll 1
+      for (int kk = 0; kk < Qp / 16; ++kk) {
+        uint32_t ax[4];
+        tc::load_a_km<PT>(ax, cu, kk * 16, mt * 16);
+        const float2 w0 = weights(kk * 16), w1 = weights(kk * 16 + 8);
+        uint32_t xh[4], xl[4];  // u o w as hi + lo bf16: two products
+        scale_split(ax[0], w0, xh[0], xl[0]);
+        scale_split(ax[1], w0, xh[1], xl[1]);
+        scale_split(ax[2], w1, xh[2], xl[2]);
+        scale_split(ax[3], w1, xh[3], xl[3]);
+#pragma unroll
+        for (int jp = 0; jp < NPW / 2; ++jp) {
+          uint32_t bb[4];
+          tc::load_b_kn<NP>(bb, cv, kk * 16, (nb0 + 2 * jp) * 8);
+          tc::mma(acc[2 * jp], xh, bb[0], bb[1]);
+          tc::mma(acc[2 * jp + 1], xh, bb[2], bb[3]);
+          tc::mma(acc[2 * jp], xl, bb[0], bb[1]);
+          tc::mma(acc[2 * jp + 1], xl, bb[2], bb[3]);
+        }
+      }
+      const float decay = exp2_approx(c2end);
+#pragma unroll
+      for (int j = 0; j < NPW; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) hr[j][e] = fmaf(hr[j][e], decay, acc[j][e]);
+    }
+
+    tc::cp_async_wait<0>();
+    __syncthreads();  // chunk it read by all, chunk it + 1 landed
+    if constexpr (kRev) {
+      if (threadIdx.x == 0) {
+        float w = 0.f;
+        for (int k = 0; k < kTcWarps; ++k) w += red[k];
+        wpart[chunk0 + c] = exp2_approx(c2end) * w;
+      }
+    }
+    if (warp == 0 && it + 1 < n_c) {
+      chunk_cs2(dn, a, scs2, sdt, lane);
+      if (it + 2 < n_c) load_dt4(dtp, dts_.s, chunk_at(it + 2), Q, S, lane, dn);
+    }
+    if (it + 2 < n_c) load_chunk(it + 2, st);
+    tc::cp_async_commit();
+    __syncthreads();  // chunk it + 1's cumsum written
+  }
+
+  if (s_out != nullptr) {
+#pragma unroll
+    for (int j = 0; j < NPW; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int p = mt * 16 + g + 8 * r, n = (nb0 + j) * 8 + 2 * t;
+        if (p < P && n < N)
+          *reinterpret_cast<float2*>(s_out + state0 + (long long)p * N + n) =
+              make_float2(hr[j][2 * r], hr[j][2 * r + 1]);
+      }
+  }
+}
+
+// Shared memory of the chunk kernels for N padded to NP: the chunk's B and
+// C [kQMax][NP], a head's x and dy [kQMax][kBwdPT] and its state's hi and
+// lo copies [kBwdPT][NP] (bf16, swizzled), then f32 vectors: cumsum and dt
+// [kQMax] each, and 2 kTcWarps + 2 rows of kQMax (the row kernel's column
+// sums a warp and its row sums; the column kernel's r, colsum and x^T Ĥ B
+// vectors).  90 KB at NP = 64 (two blocks a SM), 138 KB at NP = 128.
+template <int NP>
+struct BwdChunkLayout {
+  static constexpr int kBC = kQMax * NP, kX = kQMax * kBwdPT;
+  static constexpr int kSt = kBwdPT * NP;  // bf16 elements
+  static constexpr size_t kTiles =
+      sizeof(bf16) * (2 * (size_t)kBC + 2 * kX + 2 * kSt);
+  static constexpr size_t kBytes =
+      kTiles + sizeof(float) * (4 + 2 * kTcWarps) * kQMax;
+  static constexpr int kMinBlocks = 2 * (kBytes + 1024) <= 233472 ? 2 : 1;
+};
+
+// Pointers into the chunk kernels' shared memory.
+template <int NP>
+struct BwdChunkSmem {
+  bf16 *b, *c, *x, *dy, *hi, *lo;
+  float *cs2, *dt, *vec;
+  __device__ explicit BwdChunkSmem(unsigned char* raw) {
+    using L = BwdChunkLayout<NP>;
+    b = reinterpret_cast<bf16*>(raw);
+    c = b + L::kBC;
+    x = c + L::kBC;
+    dy = x + L::kX;
+    hi = dy + L::kX;
+    lo = hi + L::kSt;
+    cs2 = reinterpret_cast<float*>(lo + L::kSt);
+    dt = cs2 + kQMax;
+    vec = dt + kQMax;
+  }
+};
+
+// The row kernel: one block per (chunk, hpb heads of one group, batch),
+// 8 warps, warp w owning the chunk's rows i = 16w .. 16w + 15; the block
+// walks its heads in order, summing their dC in registers:
+//   dC_i += exp(cs_i) (dy_i H_c)  (the state's hi + lo copies, two
+//           products; t_i = C_i . that term on the way)
+//   for each 16-column tile j <= i: S2 = dy x^T and S1 = C B^T, exact;
+//           s / dt_j = S1 o S2 o L summed over the row and, through
+//           shared memory, over the column; M = S2 o L o dt_j as hi + lo
+//           A operands: dC_i += M B.
+// Per head it writes rvec = rowsum(s) + t - colsum(s) and dvec =
+// colsum(s / dt) ((B, H, S) f32) for the column kernel; at the end the
+// heads' dC sum to dc_part[b, t, slot] ((B, S, H / hpb, N) f32).
+template <int NP>
+__global__ void __launch_bounds__(kTcThreads, BwdChunkLayout<NP>::kMinBlocks)
+    ssd_bwd_row_tc_kernel(const bf16* __restrict__ x,
+                          const float* __restrict__ dt,
+                          const float* __restrict__ A,
+                          const bf16* __restrict__ Bm,
+                          const bf16* __restrict__ Cm,
+                          const bf16* __restrict__ dy,
+                          const bf16* __restrict__ hbuf,
+                          float* __restrict__ dc_part,
+                          float* __restrict__ rvec, float* __restrict__ dvec,
+                          int S, int H, int P, int G, int N, int Q, int n_c,
+                          int hpb, Strides xs_, Strides dts_, Strides bs_,
+                          Strides cs_, Strides dys_) {
+  constexpr int PT = kBwdPT;
+  constexpr int NB = NP / 8;            // n8 blocks of dC
+  constexpr int NH = NB < 8 ? NB : 8;   // of its inter-chunk term at once
+  constexpr int KN = NP / 16, KP = PT / 16;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const BwdChunkSmem<NP> sm(smem_raw);
+  float* scolL = sm.vec;                      // [kTcWarps][kQMax]
+  float* srow = scolL + kTcWarps * kQMax;     // [kQMax]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int c = blockIdx.x, b = blockIdx.z;
+  const int h_first = blockIdx.y * hpb, grp = h_first / (H / G);
+  const int t0 = c * Q, Qp = (Q + 15) & ~15, nT = Qp / 16;
+  const int i0 = warp * 16 + g, i1 = i0 + 8;
+
+  load_token_tile<NP>(sm.b, Bm + b * bs_.b + grp * bs_.h, bs_.s, t0, Q, S,
+                      Qp, N);
+  load_token_tile<NP>(sm.c, Cm + b * cs_.b + grp * cs_.h, cs_.s, t0, Q, S,
+                      Qp, N);
+  float dc[NB][4];
+#pragma unroll
+  for (int j = 0; j < NB; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dc[j][e] = 0.f;
+
+#pragma unroll 1
+  for (int k = 0; k < hpb; ++k) {
+    const int h = h_first + k;
+    if (k > 0) __syncthreads();  // the last head is done with every buffer
+    load_token_tile<PT>(sm.x, x + b * xs_.b + h * xs_.h, xs_.s, t0, Q, S, Qp,
+                        P);
+    load_token_tile<PT>(sm.dy, dy + b * dys_.b + h * dys_.h, dys_.s, t0, Q,
+                        S, Qp, P);
+    const bf16* hp = hbuf + (((long long)b * H + h) * n_c + c) * 2 * P * N;
+    load_state_tile<NP>(sm.hi, hp, P, N);
+    load_state_tile<NP>(sm.lo, hp + (long long)P * N, P, N);
+    tc::cp_async_commit();
+    if (warp == 0) {
+      float d[4];
+      load_dt4(dt + b * dts_.b + h * dts_.h, dts_.s, c, Q, S, lane, d);
+      chunk_cs2(d, A[h], sm.cs2, sm.dt, lane);
+    }
+    tc::cp_async_wait<0>();
+    __syncthreads();
+
+    if (warp < nT) {
+      const float c2a = sm.cs2[i0], c2b = sm.cs2[i1];
+      const float ea = exp2_approx(c2a), eb = exp2_approx(c2b);
+      float tp0 = 0.f, tp1 = 0.f;  // t_i at rows i0, i1
+      // dC_i += exp(cs_i) dy_i H_c, NH n8 blocks at a time
+#pragma unroll
+      for (int n0 = 0; n0 < NB; n0 += NH) {
+        float tmp[NH][4];
+#pragma unroll
+        for (int j = 0; j < NH; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) tmp[j][e] = 0.f;
+#pragma unroll 1
+        for (int kk = 0; kk < KP; ++kk) {
+          uint32_t ya[4];
+          tc::load_a<PT>(ya, sm.dy, warp * 16, kk * 16);
+#pragma unroll
+          for (int np = 0; np < NH / 2; ++np) {
+            uint32_t bh[4];
+            tc::load_b_kn<NP>(bh, sm.hi, kk * 16, (n0 + 2 * np) * 8);
+            tc::mma(tmp[2 * np], ya, bh[0], bh[1]);
+            tc::mma(tmp[2 * np + 1], ya, bh[2], bh[3]);
+            tc::load_b_kn<NP>(bh, sm.lo, kk * 16, (n0 + 2 * np) * 8);
+            tc::mma(tmp[2 * np], ya, bh[0], bh[1]);
+            tc::mma(tmp[2 * np + 1], ya, bh[2], bh[3]);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < NH; ++j) {
+          const int n = (n0 + j) * 8 + 2 * t;
+          const float2 ca = tile_pair<NP>(sm.c, i0, n);
+          const float2 cb = tile_pair<NP>(sm.c, i1, n);
+          const float v0 = tmp[j][0] * ea, v1 = tmp[j][1] * ea;
+          const float v2 = tmp[j][2] * eb, v3 = tmp[j][3] * eb;
+          tp0 += ca.x * v0 + ca.y * v1;
+          tp1 += cb.x * v2 + cb.y * v3;
+          dc[n0 + j][0] += v0;
+          dc[n0 + j][1] += v1;
+          dc[n0 + j][2] += v2;
+          dc[n0 + j][3] += v3;
+        }
+      }
+      // the causal tiles j <= i
+      float rs0 = 0.f, rs1 = 0.f;  // sum_j s_ij at rows i0, i1
+#pragma unroll 1
+      for (int jt = 0; jt <= warp; ++jt) {
+        float s2[2][4], s1[2][4];
+#pragma unroll
+        for (int q = 0; q < 2; ++q)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s2[q][e] = s1[q][e] = 0.f;
+#pragma unroll 2
+        for (int kk = 0; kk < KP; ++kk) {  // S2 = dy x^T
+          uint32_t ya[4], xb[4];
+          tc::load_a<PT>(ya, sm.dy, warp * 16, kk * 16);
+          tc::load_b_nk<PT>(xb, sm.x, jt * 16, kk * 16);
+          tc::mma(s2[0], ya, xb[0], xb[1]);
+          tc::mma(s2[1], ya, xb[2], xb[3]);
+        }
+#pragma unroll 2
+        for (int kk = 0; kk < KN; ++kk) {  // S1 = C B^T
+          uint32_t ca[4], bb[4];
+          tc::load_a<NP>(ca, sm.c, warp * 16, kk * 16);
+          tc::load_b_nk<NP>(bb, sm.b, jt * 16, kk * 16);
+          tc::mma(s1[0], ca, bb[0], bb[1]);
+          tc::mma(s1[1], ca, bb[2], bb[3]);
+        }
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int j = jt * 16 + q * 8 + 2 * t;
+          const float2 cj = *reinterpret_cast<const float2*>(sm.cs2 + j);
+          const float2 dj = *reinterpret_cast<const float2*>(sm.dt + j);
+          const float l0 = j <= i0 ? exp2_approx(c2a - cj.x) : 0.f;
+          const float l1 = j + 1 <= i0 ? exp2_approx(c2a - cj.y) : 0.f;
+          const float l2 = j <= i1 ? exp2_approx(c2b - cj.x) : 0.f;
+          const float l3 = j + 1 <= i1 ? exp2_approx(c2b - cj.y) : 0.f;
+          const float sl0 = s1[q][0] * s2[q][0] * l0;  // s / dt_j
+          const float sl1 = s1[q][1] * s2[q][1] * l1;
+          const float sl2 = s1[q][2] * s2[q][2] * l2;
+          const float sl3 = s1[q][3] * s2[q][3] * l3;
+          rs0 += sl0 * dj.x + sl1 * dj.y;
+          rs1 += sl2 * dj.x + sl3 * dj.y;
+          s2[q][0] *= l0 * dj.x;  // M = S2 o L o dt_j
+          s2[q][1] *= l1 * dj.y;
+          s2[q][2] *= l2 * dj.x;
+          s2[q][3] *= l3 * dj.y;
+          // column sums of s / dt_j over the warp's 16 rows
+          float c0 = sl0 + sl2, c1 = sl1 + sl3;
+#pragma unroll
+          for (int m = 4; m <= 16; m <<= 1) {
+            c0 += __shfl_xor_sync(0xffffffffu, c0, m);
+            c1 += __shfl_xor_sync(0xffffffffu, c1, m);
+          }
+          if (g == 0) {
+            scolL[warp * kQMax + j] = c0;
+            scolL[warp * kQMax + j + 1] = c1;
+          }
+        }
+        uint32_t mh[4], ml[4];  // M as hi + lo bf16: two products
+        tc::pack_a_split(mh, ml, s2[0], s2[1]);
+#pragma unroll
+        for (int np = 0; np < NB / 2; ++np) {
+          uint32_t bb[4];
+          tc::load_b_kn<NP>(bb, sm.b, jt * 16, np * 16);
+          tc::mma(dc[2 * np], mh, bb[0], bb[1]);
+          tc::mma(dc[2 * np + 1], mh, bb[2], bb[3]);
+          tc::mma(dc[2 * np], ml, bb[0], bb[1]);
+          tc::mma(dc[2 * np + 1], ml, bb[2], bb[3]);
+        }
+      }
+#pragma unroll
+      for (int m = 1; m <= 2; m <<= 1) {
+        rs0 += __shfl_xor_sync(0xffffffffu, rs0, m);
+        rs1 += __shfl_xor_sync(0xffffffffu, rs1, m);
+        tp0 += __shfl_xor_sync(0xffffffffu, tp0, m);
+        tp1 += __shfl_xor_sync(0xffffffffu, tp1, m);
+      }
+      if (t == 0) {
+        srow[i0] = rs0 + tp0;
+        srow[i1] = rs1 + tp1;
+      }
+    }
+    __syncthreads();
+    // r = rowsum(s) + t - colsum(s), colsum(s / dt): column j's sums come
+    // from warps j / 16 .. nT - 1, added in warp order
+    if (threadIdx.x < Qp) {
+      const int j = threadIdx.x, tt = t0 + j;
+      float cl = 0.f;
+      for (int w = j / 16; w < nT; ++w) cl += scolL[w * kQMax + j];
+      if (j < Q && tt < S) {
+        const long long o = ((long long)b * H + h) * S + tt;
+        rvec[o] = srow[j] - cl * sm.dt[j];
+        dvec[o] = cl;
+      }
+    }
+  }
+
+  if (warp < nT) {
+    const int slots = H / hpb;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int i = r ? i1 : i0, tt = t0 + i;
+      if (i < Q && tt < S) {
+        float* row =
+            dc_part + (((long long)b * S + tt) * slots + blockIdx.y) * N;
+#pragma unroll
+        for (int j = 0; j < NB; ++j) {
+          const int n = j * 8 + 2 * t;
+          if (n < N)
+            *reinterpret_cast<float2*>(row + n) =
+                make_float2(dc[j][2 * r], dc[j][2 * r + 1]);
+        }
+      }
+    }
+  }
+}
+
+// L_ij = exp(cs_i - cs_j) on a column-owned tile's C fragment: rows j0
+// and j0 + 8 (cumsums c2a, c2b in log2 units), columns i and i + 1; zero
+// where i < j (never formed, so no inf * 0).
+__device__ __forceinline__ void col_decay(const float* cs2, int i, int j0,
+                                          float c2a, float c2b,
+                                          float (&l)[4]) {
+  const float2 ci = *reinterpret_cast<const float2*>(cs2 + i);
+  l[0] = i >= j0 ? exp2_approx(ci.x - c2a) : 0.f;
+  l[1] = i + 1 >= j0 ? exp2_approx(ci.y - c2a) : 0.f;
+  l[2] = i >= j0 + 8 ? exp2_approx(ci.x - c2b) : 0.f;
+  l[3] = i + 1 >= j0 + 8 ? exp2_approx(ci.y - c2b) : 0.f;
+}
+
+// The column kernel: the row kernel's grid and heads, warp w owning the
+// chunk's columns j = 16w .. 16w + 15 (rows of dx and dB).  It walks the
+// block's heads twice, so that no warp holds dB's group sum and dx's
+// accumulators at once (x, dy and Ĥ's copies are read twice; with both
+// at once the kernel needs ~180 registers, and spilled at the 128 of two
+// blocks a SM).  First pass, per head:
+//   V_j = Ĥ B_j (Ĥ's hi + lo copies, two products), x_j^T V_j, then
+//   dx_j = dt_j (e_j V_j + sum_{i >= j} (T1 o L)_ji dy_i) over the causal
+//           16-row tiles, T1 = B C^T exact, T1 o L as hi + lo A
+//           operands; dx written in bf16;
+//   warp 0: dcs = r - u (+ sum u + w at the chunk's last row), its reverse
+//           cumsum da, ddt = colsum(s / dt) + e x^T V + A da and the
+//           chunk's share of dA, sum dt da, into da_part[b, h, c].
+// Second pass, per head, dB of the group summed in registers:
+//   dB_j += e_j dt_j (Ĥ^T x_j)  (Ĥ's copies, two products)
+//   dB_j += sum_{i >= j} (T2 o L o dt_j)_ji C_i, T2 = x dy^T likewise.
+// At the end the heads' dB sum to db_part[b, t, slot].
+template <int NP>
+__global__ void __launch_bounds__(kTcThreads, BwdChunkLayout<NP>::kMinBlocks)
+    ssd_bwd_col_tc_kernel(const bf16* __restrict__ x,
+                          const float* __restrict__ dt,
+                          const float* __restrict__ A,
+                          const bf16* __restrict__ Bm,
+                          const bf16* __restrict__ Cm,
+                          const bf16* __restrict__ dy,
+                          const bf16* __restrict__ gbuf,
+                          const float* __restrict__ wpart,
+                          const float* __restrict__ rvec,
+                          const float* __restrict__ dvec,
+                          bf16* __restrict__ dx, float* __restrict__ ddt,
+                          float* __restrict__ db_part,
+                          float* __restrict__ da_part, int S, int H, int P,
+                          int G, int N, int Q, int n_c, int hpb,
+                          Strides xs_, Strides dts_, Strides bs_,
+                          Strides cs_, Strides dys_) {
+  constexpr int PT = kBwdPT;
+  constexpr int NB = NP / 8;            // n8 blocks of dB
+  // k16 steps unrolled together and n8 blocks of dB's inter-chunk term
+  // at once: more at N 128 (one block a SM, registers to spare) than
+  // below (two blocks a SM within 128 registers)
+  constexpr int KU = NP > 64 ? 4 : 1;
+  constexpr int NH = NP > 64 ? 8 : NB < 4 ? NB : 4;
+  constexpr int PB = PT / 8;            // n8 blocks of dx
+  constexpr int KN = NP / 16, KP = PT / 16;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const BwdChunkSmem<NP> sm(smem_raw);
+  float* srv = sm.vec;         // [kQMax] r
+  float* sdv = srv + kQMax;    // [kQMax] colsum(s / dt)
+  float* sxv = sdv + kQMax;    // [kQMax] x^T Ĥ B
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int c = blockIdx.x, b = blockIdx.z;
+  const int h_first = blockIdx.y * hpb, grp = h_first / (H / G);
+  const int t0 = c * Q, Qp = (Q + 15) & ~15, nT = Qp / 16;
+  const int j0 = warp * 16 + g, j1 = j0 + 8;
+
+  load_token_tile<NP>(sm.b, Bm + b * bs_.b + grp * bs_.h, bs_.s, t0, Q, S,
+                      Qp, N);
+  load_token_tile<NP>(sm.c, Cm + b * cs_.b + grp * cs_.h, cs_.s, t0, Q, S,
+                      Qp, N);
+  // head h's x, dy and Ĥ copies, its cumsum and dt (and, in the first
+  // pass, its vectors) into shared memory
+  auto load_head = [&](int h, bool first) {
+    load_token_tile<PT>(sm.x, x + b * xs_.b + h * xs_.h, xs_.s, t0, Q, S, Qp,
+                        P);
+    load_token_tile<PT>(sm.dy, dy + b * dys_.b + h * dys_.h, dys_.s, t0, Q,
+                        S, Qp, P);
+    const bf16* gp = gbuf + (((long long)b * H + h) * n_c + c) * 2 * P * N;
+    load_state_tile<NP>(sm.hi, gp, P, N);
+    load_state_tile<NP>(sm.lo, gp + (long long)P * N, P, N);
+    tc::cp_async_commit();
+    if (warp == 0) {
+      float d[4];
+      load_dt4(dt + b * dts_.b + h * dts_.h, dts_.s, c, Q, S, lane, d);
+      chunk_cs2(d, A[h], sm.cs2, sm.dt, lane);
+    }
+    if (first && threadIdx.x < kQMax) {
+      const int j = threadIdx.x, tt = t0 + j;
+      const long long o = ((long long)b * H + h) * S + tt;
+      const bool ok = j < Q && tt < S;
+      srv[j] = ok ? rvec[o] : 0.f;
+      sdv[j] = ok ? dvec[o] : 0.f;
+      sxv[j] = 0.f;
+    }
+    tc::cp_async_wait<0>();
+    __syncthreads();
+  };
+  // e_j = exp(cs_Q - cs_j) and dt_j at the warp's rows j0, j1
+  auto row_scales = [&](float& ea, float& eb, float& da0, float& da1) {
+    const float c2end = sm.cs2[kQMax - 1];
+    ea = exp2_approx(c2end - sm.cs2[j0]);
+    eb = exp2_approx(c2end - sm.cs2[j1]);
+    da0 = sm.dt[j0];
+    da1 = sm.dt[j1];
+  };
+
+  // the first pass: dx, ddt and dA
+#pragma unroll 1
+  for (int k = 0; k < hpb; ++k) {
+    const int h = h_first + k;
+    if (k > 0) __syncthreads();  // the last head is done with every buffer
+    load_head(h, true);
+    if (warp < nT) {
+      const float c2a = sm.cs2[j0], c2b = sm.cs2[j1];
+      float ea, eb, da0, da1;
+      row_scales(ea, eb, da0, da1);
+      {
+        // V_j = Ĥ B_j, then x_j^T V_j and dx_j = e_j V_j
+        float dxa[PB][4];
+#pragma unroll
+        for (int j = 0; j < PB; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dxa[j][e] = 0.f;
+#pragma unroll
+        for (int np = 0; np < PB / 2; ++np) {
+#pragma unroll 1
+          for (int k0 = 0; k0 < KN; k0 += KU)
+#pragma unroll
+          for (int kk = k0; kk < k0 + KU; ++kk) {
+            uint32_t ba[4], gb[4];
+            tc::load_a<NP>(ba, sm.b, warp * 16, kk * 16);
+            tc::load_b_nk<NP>(gb, sm.hi, np * 16, kk * 16);
+            tc::mma(dxa[2 * np], ba, gb[0], gb[1]);
+            tc::mma(dxa[2 * np + 1], ba, gb[2], gb[3]);
+            tc::load_b_nk<NP>(gb, sm.lo, np * 16, kk * 16);
+            tc::mma(dxa[2 * np], ba, gb[0], gb[1]);
+            tc::mma(dxa[2 * np + 1], ba, gb[2], gb[3]);
+          }
+        }
+        float xv0 = 0.f, xv1 = 0.f;
+#pragma unroll
+        for (int j = 0; j < PB; ++j) {
+          const float2 xa = tile_pair<PT>(sm.x, j0, j * 8 + 2 * t);
+          const float2 xb = tile_pair<PT>(sm.x, j1, j * 8 + 2 * t);
+          xv0 += xa.x * dxa[j][0] + xa.y * dxa[j][1];
+          xv1 += xb.x * dxa[j][2] + xb.y * dxa[j][3];
+          dxa[j][0] *= ea;
+          dxa[j][1] *= ea;
+          dxa[j][2] *= eb;
+          dxa[j][3] *= eb;
+        }
+#pragma unroll
+        for (int m = 1; m <= 2; m <<= 1) {
+          xv0 += __shfl_xor_sync(0xffffffffu, xv0, m);
+          xv1 += __shfl_xor_sync(0xffffffffu, xv1, m);
+        }
+        if (t == 0) {
+          sxv[j0] = xv0;
+          sxv[j1] = xv1;
+        }
+        // the causal tiles i >= j: T1 = B C^T o L as hi + lo A operands
+#pragma unroll 1
+        for (int it = warp; it < nT; ++it) {
+          float t1[2][4];
+#pragma unroll
+          for (int q = 0; q < 2; ++q)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) t1[q][e] = 0.f;
+#pragma unroll 1
+          for (int k0 = 0; k0 < KN; k0 += KU)
+#pragma unroll
+          for (int kk = k0; kk < k0 + KU; ++kk) {
+            uint32_t ba[4], cb[4];
+            tc::load_a<NP>(ba, sm.b, warp * 16, kk * 16);
+            tc::load_b_nk<NP>(cb, sm.c, it * 16, kk * 16);
+            tc::mma(t1[0], ba, cb[0], cb[1]);
+            tc::mma(t1[1], ba, cb[2], cb[3]);
+          }
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            float l[4];
+            col_decay(sm.cs2, it * 16 + q * 8 + 2 * t, j0, c2a, c2b, l);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) t1[q][e] *= l[e];
+          }
+          uint32_t th[4], tl[4];
+          tc::pack_a_split(th, tl, t1[0], t1[1]);
+#pragma unroll
+          for (int np = 0; np < PB / 2; ++np) {
+            uint32_t yb[4];
+            tc::load_b_kn<PT>(yb, sm.dy, it * 16, np * 16);
+            tc::mma(dxa[2 * np], th, yb[0], yb[1]);
+            tc::mma(dxa[2 * np + 1], th, yb[2], yb[3]);
+            tc::mma(dxa[2 * np], tl, yb[0], yb[1]);
+            tc::mma(dxa[2 * np + 1], tl, yb[2], yb[3]);
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int j = r ? j1 : j0, tt = t0 + j;
+          const float d = r ? da1 : da0;
+          if (j < Q && tt < S) {
+            bf16* row =
+                dx + b * dys_.b + (long long)tt * dys_.s + h * dys_.h;
+#pragma unroll
+            for (int n = 0; n < PB; ++n) {
+              const int p = n * 8 + 2 * t;
+              if (p < P)
+                *reinterpret_cast<uint32_t*>(row + p) = tc::pack_bf16(
+                    dxa[n][2 * r] * d, dxa[n][2 * r + 1] * d);
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();
+    // dcs, its reverse cumsum da, ddt and the chunk's share of dA
+    if (warp == 0) {
+      const float a = A[h], c2end = sm.cs2[kQMax - 1];
+      float dcs[4], ek[4], us = 0.f;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int k2 = 4 * lane + e;
+        ek[e] = exp2_approx(c2end - sm.cs2[k2]);
+        const float u = ek[e] * sm.dt[k2] * sxv[k2];
+        dcs[e] = srv[k2] - u;
+        us += u;
+      }
+#pragma unroll
+      for (int m = 16; m >= 1; m >>= 1)
+        us += __shfl_xor_sync(0xffffffffu, us, m);
+      if (lane == 31)
+        dcs[3] += us + wpart[((long long)b * H + h) * n_c + c];
+      // suffix sums over lanes, then within the lane from its last row
+      const float tot = dcs[0] + dcs[1] + dcs[2] + dcs[3];
+      float suf = tot;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const float o = __shfl_down_sync(0xffffffffu, suf, off);
+        if (lane + off < 32) suf += o;
+      }
+      float run = __shfl_down_sync(0xffffffffu, suf, 1);
+      if (lane == 31) run = 0.f;
+      float dap = 0.f;
+#pragma unroll
+      for (int e = 3; e >= 0; --e) {
+        const int k2 = 4 * lane + e, tt = t0 + k2;
+        run += dcs[e];
+        if (k2 < Q && tt < S)
+          ddt[((long long)b * S + tt) * H + h] =
+              sdv[k2] + ek[e] * sxv[k2] + a * run;
+        dap += sm.dt[k2] * run;
+      }
+#pragma unroll
+      for (int m = 16; m >= 1; m >>= 1)
+        dap += __shfl_xor_sync(0xffffffffu, dap, m);
+      if (lane == 0) da_part[((long long)b * H + h) * n_c + c] = dap;
+    }
+  }
+
+  // the second pass: dB of the group, summed over the heads in registers
+  float db[NB][4];
+#pragma unroll
+  for (int j = 0; j < NB; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) db[j][e] = 0.f;
+#pragma unroll 1
+  for (int k = 0; k < hpb; ++k) {
+    __syncthreads();  // the last head is done with every buffer
+    load_head(h_first + k, false);
+    if (warp < nT) {
+      const float c2a = sm.cs2[j0], c2b = sm.cs2[j1];
+      float ea, eb, da0, da1;
+      row_scales(ea, eb, da0, da1);
+      {
+        // dB_j += e_j dt_j (Ĥ^T x_j), NH n8 blocks at a time
+        const float wa = ea * da0, wb = eb * da1;
+#pragma unroll
+        for (int n0 = 0; n0 < NB; n0 += NH) {
+          float tmp[NH][4];
+#pragma unroll
+          for (int j = 0; j < NH; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) tmp[j][e] = 0.f;
+#pragma unroll 1
+          for (int k0 = 0; k0 < KP; k0 += KU)
+#pragma unroll
+          for (int kk = k0; kk < k0 + KU; ++kk) {
+            uint32_t xa[4];
+            tc::load_a<PT>(xa, sm.x, warp * 16, kk * 16);
+#pragma unroll
+            for (int np = 0; np < NH / 2; ++np) {
+              uint32_t bh[4];
+              tc::load_b_kn<NP>(bh, sm.hi, kk * 16, (n0 + 2 * np) * 8);
+              tc::mma(tmp[2 * np], xa, bh[0], bh[1]);
+              tc::mma(tmp[2 * np + 1], xa, bh[2], bh[3]);
+              tc::load_b_kn<NP>(bh, sm.lo, kk * 16, (n0 + 2 * np) * 8);
+              tc::mma(tmp[2 * np], xa, bh[0], bh[1]);
+              tc::mma(tmp[2 * np + 1], xa, bh[2], bh[3]);
+            }
+          }
+#pragma unroll
+          for (int j = 0; j < NH; ++j) {
+            db[n0 + j][0] += tmp[j][0] * wa;
+            db[n0 + j][1] += tmp[j][1] * wa;
+            db[n0 + j][2] += tmp[j][2] * wb;
+            db[n0 + j][3] += tmp[j][3] * wb;
+          }
+        }
+        // the causal tiles i >= j: T2 = x dy^T o L o dt_j likewise
+#pragma unroll 1
+        for (int it = warp; it < nT; ++it) {
+          float t2[2][4];
+#pragma unroll
+          for (int q = 0; q < 2; ++q)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) t2[q][e] = 0.f;
+#pragma unroll 1
+          for (int k0 = 0; k0 < KP; k0 += KU)
+#pragma unroll
+          for (int kk = k0; kk < k0 + KU; ++kk) {
+            uint32_t xa[4], yb[4];
+            tc::load_a<PT>(xa, sm.x, warp * 16, kk * 16);
+            tc::load_b_nk<PT>(yb, sm.dy, it * 16, kk * 16);
+            tc::mma(t2[0], xa, yb[0], yb[1]);
+            tc::mma(t2[1], xa, yb[2], yb[3]);
+          }
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            float l[4];
+            col_decay(sm.cs2, it * 16 + q * 8 + 2 * t, j0, c2a, c2b, l);
+            t2[q][0] *= l[0] * da0;
+            t2[q][1] *= l[1] * da0;
+            t2[q][2] *= l[2] * da1;
+            t2[q][3] *= l[3] * da1;
+          }
+          uint32_t th[4], tl[4];
+          tc::pack_a_split(th, tl, t2[0], t2[1]);
+#pragma unroll
+          for (int np = 0; np < NB / 2; ++np) {
+            uint32_t cb[4];
+            tc::load_b_kn<NP>(cb, sm.c, it * 16, np * 16);
+            tc::mma(db[2 * np], th, cb[0], cb[1]);
+            tc::mma(db[2 * np + 1], th, cb[2], cb[3]);
+            tc::mma(db[2 * np], tl, cb[0], cb[1]);
+            tc::mma(db[2 * np + 1], tl, cb[2], cb[3]);
+          }
+        }
+      }
+    }
+  }
+
+  if (warp < nT) {
+    const int slots = H / hpb;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int j = r ? j1 : j0, tt = t0 + j;
+      if (j < Q && tt < S) {
+        float* row =
+            db_part + (((long long)b * S + tt) * slots + blockIdx.y) * N;
+#pragma unroll
+        for (int n8 = 0; n8 < NB; ++n8) {
+          const int n = n8 * 8 + 2 * t;
+          if (n < N)
+            *reinterpret_cast<float2*>(row + n) =
+                make_float2(db[n8][2 * r], db[n8][2 * r + 1]);
+        }
+      }
     }
   }
 }
@@ -1537,46 +2544,187 @@ bool launch_bwd(const T* x, const float* dt, const float* A, const T* Bm,
   const int blocks =
       (int)std::min<long long>((total + kThreads - 1) / kThreads, 132 * 8);
   ssd_bwd_reduce_kernel<T><<<blocks, kThreads, 0, s>>>(
-      db_part, dc_part, da_part, dB, dC, dA, Bsz, S, H, G, N, n_c);
+      db_part, dc_part, da_part, dB, dC, dA, Bsz, S, H, H, G, N, n_c);
+  return true;
+}
+
+// Raises the bf16 backward's shared-memory limits for N padded to NP and
+// reads the SMs and the chunk kernels' resident blocks a SM, once (so that
+// launches captured into a CUDA graph make no other API call); ready is
+// false on a CUDA error or where a kernel fits no block.
+struct BwdTcPlan {
+  bool ready = false;
+  int sms = 0, blocks = 0;
+};
+
+template <typename K>
+bool raise_smem(K kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes) == cudaSuccess;
+}
+
+template <int NP>
+const BwdTcPlan& bwd_tc_plan() {
+  static BwdTcPlan plan;
+  static bool queried = false;
+  if (!queried) {
+    queried = true;
+    const size_t sf = BwdStateLayout<NP, false>::kBytes;
+    const size_t sr = BwdStateLayout<NP, true>::kBytes;
+    const size_t cs = BwdChunkLayout<NP>::kBytes;
+    int dev = 0, rows = 0, cols = 0, fwd = 0, rev = 0;
+    const bool ok =
+        cudaGetDevice(&dev) == cudaSuccess &&
+        cudaDeviceGetAttribute(&plan.sms, cudaDevAttrMultiProcessorCount,
+                               dev) == cudaSuccess &&
+        raise_smem(ssd_bwd_state_tc_kernel<NP, false>, sf) &&
+        raise_smem(ssd_bwd_state_tc_kernel<NP, true>, sr) &&
+        raise_smem(ssd_bwd_row_tc_kernel<NP>, cs) &&
+        raise_smem(ssd_bwd_col_tc_kernel<NP>, cs) &&
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &fwd, ssd_bwd_state_tc_kernel<NP, false>, kTcThreads, sf) ==
+            cudaSuccess &&
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &rev, ssd_bwd_state_tc_kernel<NP, true>, kTcThreads, sr) ==
+            cudaSuccess &&
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &rows, ssd_bwd_row_tc_kernel<NP>, kTcThreads, cs) ==
+            cudaSuccess &&
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &cols, ssd_bwd_col_tc_kernel<NP>, kTcThreads, cs) == cudaSuccess;
+    plan.blocks = std::min(rows, cols);
+    plan.ready = ok && plan.blocks > 0 && fwd > 0 && rev > 0;
+  }
+  return plan;
+}
+
+const BwdTcPlan& bwd_tc_plan_for(int np) {
+  return np == 32 ? bwd_tc_plan<32>()
+                  : np == 64 ? bwd_tc_plan<64>() : bwd_tc_plan<128>();
+}
+
+// Blocks of the chunk kernels a group of H / G heads: the fewest waves of
+// heads over the card, with the partials of dB and dC at most an eighth
+// of one per head (at most H / G / 8 blocks a group, at least one); on a
+// tie the fewer partials.
+int bwd_tc_slots(const BwdTcPlan& plan, int Bsz, int n_c, int H, int G) {
+  const int HG = H / G, most = std::max(1, HG / 8);
+  const long long resident = (long long)plan.sms * plan.blocks;
+  int best = 1;
+  long long best_cost = -1;
+  for (int slots = 1; slots <= most; ++slots) {
+    if (HG % slots) continue;
+    const long long blocks = (long long)n_c * Bsz * G * slots;
+    const long long cost = (blocks + resident - 1) / resident * (HG / slots);
+    if (best_cost < 0 || cost < best_cost) {
+      best_cost = cost;
+      best = slots;
+    }
+  }
+  return best;
+}
+
+// The bf16 backward: the two state passes, the row and column kernels over
+// (chunk, block of H / HP heads, batch), then the reduction of the HP / G
+// partials of dB and dC a group and of dA.  Five launches.
+template <int NP>
+bool launch_bwd_tc(const bf16* x, const float* dt, const float* A,
+                   const bf16* Bm, const bf16* Cm, const float* h0,
+                   const bf16* dy, const float* dh, bf16* hs, bf16* gs,
+                   float* db_part, float* dc_part, float* da_part,
+                   float* wpart, float* rvec, float* dvec, bf16* dx,
+                   float* ddt, float* dA, bf16* dB, bf16* dC, float* dinit,
+                   int Bsz, int S, int H, int P, int G, int N, int Q, int HP,
+                   Strides xs, Strides dts, Strides bs, Strides cs,
+                   cudaStream_t s) {
+  if (!bwd_tc_plan<NP>().ready) return false;
+  const int n_c = (S + Q - 1) / Q, hpb = H / HP;
+  const Strides dys{(long long)S * H * P, (long long)H * P, (long long)P};
+  const dim3 sgrid(1, H, Bsz), cgrid(n_c, HP, Bsz);
+  const size_t csz = BwdChunkLayout<NP>::kBytes;
+  ssd_bwd_state_tc_kernel<NP, false>
+      <<<sgrid, kTcThreads, BwdStateLayout<NP, false>::kBytes, s>>>(
+          x, Bm, dt, A, h0, nullptr, hs, nullptr, nullptr, S, H, P, G, N, Q,
+          n_c, xs, bs, dts);
+  ssd_bwd_state_tc_kernel<NP, true>
+      <<<sgrid, kTcThreads, BwdStateLayout<NP, true>::kBytes, s>>>(
+      dy, Cm, dt, A, dh, hs, gs, wpart, dinit, S, H, P, G, N, Q, n_c, dys, cs,
+      dts);
+  ssd_bwd_row_tc_kernel<NP><<<cgrid, kTcThreads, csz, s>>>(
+      x, dt, A, Bm, Cm, dy, hs, dc_part, rvec, dvec, S, H, P, G, N, Q, n_c,
+      hpb, xs, dts, bs, cs, dys);
+  ssd_bwd_col_tc_kernel<NP><<<cgrid, kTcThreads, csz, s>>>(
+      x, dt, A, Bm, Cm, dy, gs, wpart, rvec, dvec, dx, ddt, db_part, da_part,
+      S, H, P, G, N, Q, n_c, hpb, xs, dts, bs, cs, dys);
+  const long long total = 2LL * Bsz * S * G * N + H;
+  const int blocks =
+      (int)std::min<long long>((total + kThreads - 1) / kThreads, 132 * 8);
+  ssd_bwd_reduce_kernel<bf16><<<blocks, kThreads, 0, s>>>(
+      db_part, dc_part, da_part, dB, dC, dA, Bsz, S, H, HP, G, N, n_c);
   return true;
 }
 
 // The backward's kernels for reports, in the order of repro_ssd_info: the
-// state passes (bf16 then f32; forward then reverse; 2, 4 columns a
-// lane), then the chunk and the reduce kernels (bf16, f32).
-constexpr int kNumStatePass = 8;
+// f32 path's state passes (forward then reverse; 2, 4 columns a lane) and
+// chunk kernel, the reduce kernel (bf16, f32), then the bf16 path's
+// kernels at each padding of N (32, 64, 128): the state passes (forward,
+// reverse), the row and the column kernels.
+constexpr int kNumF32Bwd = 7;
+
+template <int NP>
+bool bwd_tc_info(int k, const char** name, int* out) {
+  static char buf[48];
+  *name = buf;
+  const size_t cs = BwdChunkLayout<NP>::kBytes;
+  switch (k) {
+    case 0:
+      snprintf(buf, sizeof buf, "ssd_bwd_state_tc_kernel<%d,fwd>", NP);
+      return tc::kernel_info(ssd_bwd_state_tc_kernel<NP, false>, kTcThreads,
+                             BwdStateLayout<NP, false>::kBytes, out);
+    case 1:
+      snprintf(buf, sizeof buf, "ssd_bwd_state_tc_kernel<%d,rev>", NP);
+      return tc::kernel_info(ssd_bwd_state_tc_kernel<NP, true>, kTcThreads,
+                             BwdStateLayout<NP, true>::kBytes, out);
+    case 2:
+      snprintf(buf, sizeof buf, "ssd_bwd_row_tc_kernel<%d>", NP);
+      return tc::kernel_info(ssd_bwd_row_tc_kernel<NP>, kTcThreads, cs, out);
+    default:
+      snprintf(buf, sizeof buf, "ssd_bwd_col_tc_kernel<%d>", NP);
+      return tc::kernel_info(ssd_bwd_col_tc_kernel<NP>, kTcThreads, cs, out);
+  }
+}
 
 bool bwd_info(int idx, const char** name, int* out) {
   static char buf[48];
   if (idx < 0) return false;
-  if (idx < kNumStatePass) {
-    const bool f32 = idx >= 4, rev = idx % 4 >= 2;
+  if (idx < 4) {
+    const bool rev = idx >= 2;
     const int nj = idx % 2 ? 4 : 2;
-    snprintf(buf, sizeof buf, "ssd_state_pass_kernel<%s,%s,%d>",
-             f32 ? "f32" : "bf16", rev ? "rev" : "fwd", nj);
+    snprintf(buf, sizeof buf, "ssd_state_pass_kernel<f32,%s,%d>",
+             rev ? "rev" : "fwd", nj);
     *name = buf;
-    const size_t sp = state_pass_smem(kQMax, kNMax);
-    return f32 ? tc::kernel_info(state_pass<float>(rev, nj), kThreads, sp,
-                                 out)
-               : tc::kernel_info(state_pass<bf16>(rev, nj), kThreads, sp,
-                                 out);
+    return tc::kernel_info(state_pass<float>(rev, nj), kThreads,
+                           state_pass_smem(kQMax, kNMax), out);
   }
-  const size_t ck = sizeof(float) * kChunkSmemFloats;
-  switch (idx - kNumStatePass) {
-    case 0:
-      *name = "ssd_bwd_chunk_kernel<bf16>";
-      return tc::kernel_info(ssd_bwd_chunk_kernel<bf16>, kThreads, ck, out);
-    case 1:
+  switch (idx) {
+    case 4:
       *name = "ssd_bwd_chunk_kernel<f32>";
-      return tc::kernel_info(ssd_bwd_chunk_kernel<float>, kThreads, ck, out);
-    case 2:
+      return tc::kernel_info(ssd_bwd_chunk_kernel<float>, kThreads,
+                             sizeof(float) * kChunkSmemFloats, out);
+    case 5:
       *name = "ssd_bwd_reduce_kernel<bf16>";
       return tc::kernel_info(ssd_bwd_reduce_kernel<bf16>, kThreads, 0, out);
-    case 3:
+    case 6:
       *name = "ssd_bwd_reduce_kernel<f32>";
       return tc::kernel_info(ssd_bwd_reduce_kernel<float>, kThreads, 0, out);
-    default:
-      return false;
+  }
+  const int k = idx - kNumF32Bwd;
+  switch (k / 4) {
+    case 0: return bwd_tc_info<32>(k % 4, name, out);
+    case 1: return bwd_tc_info<64>(k % 4, name, out);
+    case 2: return bwd_tc_info<128>(k % 4, name, out);
+    default: return false;
   }
 }
 
@@ -1620,46 +2768,77 @@ extern "C" bool repro_ssd_fwd(
                     dts, bs, cs, ys, s);
 }
 
-// The backward.  x, dt, A, Bm, Cm, h0 as repro_ssd_fwd takes them (any N
-// and alignment: read element by element); dy: (B, S, H, P) contiguous in
-// x's dtype; dh: the final state's f32 cotangent (B, H, P, N) contiguous,
-// or null (zero).  Scratch: hs, gs (B, H, ceil(S / Q), P, N) f32,
-// db_part, dc_part (B, S, H, N) f32, da_part (B, H, ceil(S / Q)) f32.
-// Outputs, contiguous: dx (B, S, H, P) and dB, dC (B, S, G, N) in x's
-// dtype, ddt (B, S, H), dA (H,) and dinit (B, H, P, N) f32.  Four launches
-// on `stream`.  Returns false (and launches nothing) for a shape it does
-// not take (as repro_ssd_fwd) or on a CUDA error setting the kernels'
+// Blocks of the bf16 backward's chunk kernels a group of H / G heads (the
+// partials of dB and dC it needs a group), for N a multiple of 8; 0 where
+// its kernels cannot launch (a CUDA error or a shape it does not take).
+extern "C" int repro_ssd_bwd_slots(int Bsz, int S, int H, int G, int N,
+                                   int Q) {
+  if (Bsz < 1 || S < 1 || Q < 1 || Q > kQMax || N < 1 || N > kNMax ||
+      G < 1 || H % G != 0)
+    return 0;
+  const BwdTcPlan& plan = bwd_tc_plan_for(padded_n(N));
+  if (!plan.ready) return 0;
+  return bwd_tc_slots(plan, Bsz, (S + Q - 1) / Q, H, G);
+}
+
+// The backward.  x, dt, A, Bm, Cm, h0 as repro_ssd_fwd takes them; dy: (B,
+// S, H, P) contiguous in x's dtype; dh: the final state's f32 cotangent
+// (B, H, P, N) contiguous, or null (zero).  Outputs, contiguous: dx (B, S,
+// H, P) and dB, dC (B, S, G, N) in x's dtype, ddt (B, S, H), dA (H,) and
+// dinit (B, H, P, N) f32.  Scratch, f32 unless said: da_part (B, H,
+// ceil(S / Q)); db_part, dc_part (B, S, HP, N), HP / G partials a group;
+//   f32 (any N and alignment: read element by element; four launches):
+//     hs, gs (B, H, ceil(S / Q), P, N); HP = H; wpart, rvec, dvec unused;
+//   bf16 (tensor cores; five launches; P <= 64, N a multiple of 8, x, Bm,
+//     Cm, dy 16-byte aligned with strides multiples of 8): hs, gs bf16 (B,
+//     H, ceil(S / Q), 2, P, N); HP = G * repro_ssd_bwd_slots(..); wpart
+//     (B, H, ceil(S / Q)); rvec, dvec (B, H, S).
+// Launches on `stream`.  Returns false (and launches nothing) for a shape
+// or alignment it does not take, or on a CUDA error setting the kernels'
 // shared-memory limits; errors of a launch are left to cudaGetLastError.
 extern "C" bool repro_ssd_bwd(
     const void* x, const float* dt, const float* A, const void* Bm,
     const void* Cm, const float* h0, const void* dy, const float* dh,
-    float* hs, float* gs, float* db_part, float* dc_part, float* da_part,
-    void* dx, float* ddt, float* dA, void* dB, void* dC, float* dinit,
-    int Bsz, int S, int H, int P, int G, int N, int Q, long long x_sb,
-    long long x_ss, long long x_sh, long long dt_sb, long long dt_ss,
-    long long dt_sh, long long b_sb, long long b_ss, long long b_sg,
-    long long c_sb, long long c_ss, long long c_sg, int bf16,
-    cudaStream_t s) {
+    void* hs, void* gs, float* db_part, float* dc_part, float* da_part,
+    float* wpart, float* rvec, float* dvec, void* dx, float* ddt, float* dA,
+    void* dB, void* dC, float* dinit, int Bsz, int S, int H, int P, int G,
+    int N, int Q, int HP, long long x_sb, long long x_ss, long long x_sh,
+    long long dt_sb, long long dt_ss, long long dt_sh, long long b_sb,
+    long long b_ss, long long b_sg, long long c_sb, long long c_ss,
+    long long c_sg, int bf16, cudaStream_t s) {
   if (Bsz < 1 || S < 1 || Q < 1 || Q > kQMax || N < 1 || N > kNMax ||
-      P < 8 || P % 8 != 0 || G < 1 || H % G != 0)
+      P < 8 || P % 8 != 0 || G < 1 || H % G != 0 || HP < 1 || H % HP != 0 ||
+      HP % G != 0)
     return false;
   const Strides xs{x_sb, x_ss, x_sh}, dts{dt_sb, dt_ss, dt_sh},
       bs{b_sb, b_ss, b_sg}, cs{c_sb, c_ss, c_sg};
   if (bf16) {
     using T = __nv_bfloat16;
-    return launch_bwd<T>(
-        static_cast<const T*>(x), dt, A, static_cast<const T*>(Bm),
-        static_cast<const T*>(Cm), h0, static_cast<const T*>(dy), dh, hs, gs,
-        db_part, dc_part, da_part, static_cast<T*>(dx), ddt, dA,
-        static_cast<T*>(dB), static_cast<T*>(dC), dinit, Bsz, S, H, P, G, N,
-        Q, xs, dts, bs, cs, s);
+    if (P > kBwdPT || N % 8 != 0 || wpart == nullptr || rvec == nullptr ||
+        dvec == nullptr || !aligned16(x) || !aligned16(Bm) ||
+        !aligned16(Cm) || !aligned16(dy) || xs.b % 8 || xs.s % 8 ||
+        xs.h % 8 || bs.b % 8 || bs.s % 8 || bs.h % 8 || cs.b % 8 ||
+        cs.s % 8 || cs.h % 8)
+      return false;
+    const int np = padded_n(N);
+    auto launch = np == 32   ? &launch_bwd_tc<32>
+                  : np == 64 ? &launch_bwd_tc<64>
+                             : &launch_bwd_tc<128>;
+    return launch(static_cast<const T*>(x), dt, A, static_cast<const T*>(Bm),
+                  static_cast<const T*>(Cm), h0, static_cast<const T*>(dy),
+                  dh, static_cast<T*>(hs), static_cast<T*>(gs), db_part,
+                  dc_part, da_part, wpart, rvec, dvec, static_cast<T*>(dx),
+                  ddt, dA, static_cast<T*>(dB), static_cast<T*>(dC), dinit,
+                  Bsz, S, H, P, G, N, Q, HP, xs, dts, bs, cs, s);
   }
+  if (HP != H) return false;
   return launch_bwd<float>(
       static_cast<const float*>(x), dt, A, static_cast<const float*>(Bm),
       static_cast<const float*>(Cm), h0, static_cast<const float*>(dy), dh,
-      hs, gs, db_part, dc_part, da_part, static_cast<float*>(dx), ddt, dA,
-      static_cast<float*>(dB), static_cast<float*>(dC), dinit, Bsz, S, H, P,
-      G, N, Q, xs, dts, bs, cs, s);
+      static_cast<float*>(hs), static_cast<float*>(gs), db_part, dc_part,
+      da_part, static_cast<float*>(dx), ddt, dA, static_cast<float*>(dB),
+      static_cast<float*>(dC), dinit, Bsz, S, H, P, G, N, Q, xs, dts, bs, cs,
+      s);
 }
 
 // Facts about the kernels for reports: idx 0, 1, 2 the bf16 scan at its

@@ -20,15 +20,18 @@ memory first, and a state size N that is no multiple of 8 is zero-padded
 
 The backward, :func:`ssd_bwd_cuda`, is the twin of autodiff of
 ``repro/kernels/ref.py::ssd_ref`` (the JAX package trains through jnp, no
-Pallas).  It runs in f32 on the CUDA cores for both dtypes, in four
-launches: a forward pass over the chunks writes the state before each
-chunk, a reverse pass the cotangent of the state after each chunk (and
-of the initial state), a kernel per (batch, head, chunk) forms the
-chunk's Q x Q products in shared memory and writes dx, ddt and per-head
-partials of dB, dC and dA, and a last kernel sums the partials in a
-fixed order (see the source notes).  It reads x, B and C element by
-element through their strides, so it takes any N and alignment (no
-padding, no copy).  No float atomics: every output's bits are fixed.
+Pallas).  bf16 (the models' path) runs on the tensor cores in five
+launches: two state passes of the forward's tiling write the state
+before each chunk and the cotangent after it (as hi and lo bf16 copies),
+a row kernel and a column kernel over (chunk, block of heads, batch)
+form the chunk's causal products and dx, dC, dB and ddt, summing dB and
+dC over the block's heads in registers, and a last kernel sums the few
+partials of a group and dA in a fixed order.  It takes x, B, C and dy
+as the forward does (16-byte copies: misaligned ones are copied, N is
+zero-padded to a multiple of 8) and P <= 64.  f32 runs on the CUDA
+cores in four launches (per-head partials of dB and dC), element by
+element through the strides, so it takes any N, P and alignment.  No
+float atomics: every output's bits are fixed (see the source notes).
 
 :class:`SSDFn` is the autograd Function around the scan: its backward
 is the kernel on the kernel path, :func:`repro_torch.kernels.ref.
@@ -41,6 +44,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import build
 from repro_torch.kernels import ref
@@ -48,7 +52,7 @@ from repro_torch.kernels.flash_attention import _chunk_aligned
 
 # kernel launches since the last reset (set to 0 to reset)
 launches = 0  # forward
-bwd_launches = 0  # backward (one count per call of its four kernels)
+bwd_launches = 0  # backward (one count per call of its kernels)
 
 MAX_CHUNK = 128
 MAX_STATE = 128
@@ -108,9 +112,9 @@ def ssd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if x.dtype == torch.bfloat16:
         pad = -N % 8
         if pad:  # zero columns of B, C and the state add nothing
-            Bm, Cm = (torch.nn.functional.pad(t, (0, pad)) for t in (Bm, Cm))
+            Bm, Cm = (F.pad(t, (0, pad)) for t in (Bm, Cm))
             if init_state is not None:
-                init_state = torch.nn.functional.pad(init_state, (0, pad))
+                init_state = F.pad(init_state, (0, pad))
         x, Bm, Cm = (_chunk_aligned(t) for t in (x, Bm, Cm))
     else:
         cb = torch.empty((B_, G, -(-S // chunk), chunk, chunk),
@@ -123,6 +127,42 @@ def ssd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if pad:
         h_out = h_out[..., :N].contiguous()
     return (y, h_out) if return_state else y
+
+
+def _bwd_scratch(B_: int, S: int, H: int, P: int, G: int, N: int,
+                 chunk: int, dtype: torch.dtype, device):
+    """The backward's scratch, in the order ``ssd_bwd`` takes it: hs, gs,
+    db_part, dc_part, da_part, wpart, rvec, dvec.  bf16 (N padded to a
+    multiple of 8): the states before each chunk and the cotangents after
+    it as hi and lo bf16 copies, the partials of dB and dC one a block of
+    heads (``ssd_bwd_slots`` a group), dA's a chunk, w a chunk and the row
+    kernel's two vectors a head.  f32: the states and cotangents in f32,
+    the partials of dB and dC one a head, dA's; no wpart, rvec, dvec."""
+    n_c = -(-S // chunk)
+
+    def f32(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=device)
+
+    if dtype == torch.bfloat16:
+        hs, gs = (torch.empty((B_, H, n_c, 2, P, N), dtype=torch.bfloat16,
+                              device=device) for _ in range(2))
+        parts = G * build.extension().ssd_bwd_slots(B_, S, H, G, N, chunk)
+        vecs = (f32(B_, H, n_c), f32(B_, H, S), f32(B_, H, S))
+    else:
+        hs, gs = f32(B_, H, n_c, P, N), f32(B_, H, n_c, P, N)
+        parts, vecs = H, (None, None, None)
+    return (hs, gs, f32(B_, S, parts, N), f32(B_, S, parts, N),
+            f32(B_, H, n_c)) + vecs
+
+
+def bwd_scratch_bytes(B_: int, S: int, H: int, P: int, G: int, N: int,
+                      chunk: int, dtype: torch.dtype) -> int:
+    """Bytes of scratch one :func:`ssd_bwd_cuda` call at this shape
+    allocates (bf16 asks the kernels for their partials a group)."""
+    if dtype == torch.bfloat16:
+        N += -N % 8
+    return sum(t.numel() * t.element_size() for t in _bwd_scratch(
+        B_, S, H, P, G, N, chunk, dtype, "meta") if t is not None)
 
 
 def ssd_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -148,25 +188,27 @@ def ssd_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             or d_state.device != x.device or not d_state.is_contiguous()):
         raise ValueError(f"d_state must be contiguous f32 {(B_, H, P, N)}, "
                          f"got {tuple(d_state.shape)} {d_state.dtype}")
-    n_c = -(-S // chunk)
     dev = x.device
-
-    def f32(*shape):
-        return torch.empty(shape, dtype=torch.float32, device=dev)
-
-    # scratch: the states before each chunk and the cotangents after it,
-    # the per-head partials of dB and dC, the per-chunk partials of dA
-    hs, gs = f32(B_, H, n_c, P, N), f32(B_, H, n_c, P, N)
-    db_part, dc_part, da_part = f32(B_, S, H, N), f32(B_, S, H, N), \
-        f32(B_, H, n_c)
+    pad = 0
+    if x.dtype == torch.bfloat16:
+        # the tensor-core kernels copy 16-byte chunks, as ssd_cuda's do
+        pad = -N % 8
+        if pad:  # zero columns of B, C and the states add nothing
+            Bm, Cm = (F.pad(t, (0, pad)) for t in (Bm, Cm))
+            init_state, d_state = (None if t is None else F.pad(t, (0, pad))
+                                   for t in (init_state, d_state))
+        x, Bm, Cm, dy = (_chunk_aligned(t) for t in (x, Bm, Cm, dy))
+    scratch = _bwd_scratch(B_, S, H, P, G, N + pad, chunk, x.dtype, dev)
     dx = torch.empty((B_, S, H, P), dtype=x.dtype, device=dev)
-    dB = torch.empty((B_, S, G, N), dtype=Bm.dtype, device=dev)
+    dB = torch.empty((B_, S, G, N + pad), dtype=Bm.dtype, device=dev)
     dC = torch.empty_like(dB)
-    ddt, dA, d_init = f32(B_, S, H), f32(H), f32(B_, H, P, N)
-    build.extension().ssd_bwd(x, dt, A, Bm, Cm, init_state, dy, d_state, hs,
-                              gs, db_part, dc_part, da_part, dx, ddt, dA, dB,
-                              dC, d_init, chunk)
+    ddt, dA, d_init = (torch.empty(shape, dtype=torch.float32, device=dev)
+                       for shape in ((B_, S, H), (H,), (B_, H, P, N + pad)))
+    build.extension().ssd_bwd(x, dt, A, Bm, Cm, init_state, dy, d_state,
+                              *scratch, dx, ddt, dA, dB, dC, d_init, chunk)
     bwd_launches += 1
+    if pad:
+        dB, dC, d_init = (t[..., :N].contiguous() for t in (dB, dC, d_init))
     return dx, ddt, dA, dB, dC, d_init
 
 

@@ -502,7 +502,8 @@ def test_tensor_core_kernels_are_deterministic(cuda):
     """No atomics: two calls of the bf16 flash backward (G = 8, dk and dv
     summed over a cluster), of the bf16 CE forward, of the bf16 flash
     forward, of the RMSNorm backward (dw summed over partial rows) and
-    forward, and of the bf16 SSD scan give the same bits."""
+    forward, of the bf16 SSD scan, and of the bf16 SSD backward at a group
+    of 64 heads (dB and dC summed over them) give the same bits."""
     g = torch.Generator(device=cuda).manual_seed(9)
     bf = torch.bfloat16
     q, do = (torch.randn((2, 200, 16, 128), generator=g, device=cuda).to(bf)
@@ -546,13 +547,24 @@ def test_tensor_core_kernels_are_deterministic(cuda):
                     kssd.ssd_cuda(xs, dt, A, Bm, Cm, init_state=h0,
                                   return_state=True)):
         assert torch.equal(a, b)
+    # the bf16 SSD backward, 64 heads a group (zamba2-1.2b's H / G), with
+    # an initial state and a final-state cotangent
+    xs, dt, A, Bm, Cm, h0 = _ssd_inputs((1, 300, 64, 64, 1, 64, 128), bf,
+                                        cuda, seed=10, state=True)
+    dy = torch.randn(xs.shape, generator=g, device=cuda).to(bf)
+    dh = torch.randn(h0.shape, generator=g, device=cuda) * 0.1
+    kw = dict(init_state=h0, d_state=dh)
+    for a, b in zip(kssd.ssd_bwd_cuda(xs, dt, A, Bm, Cm, dy, **kw),
+                    kssd.ssd_bwd_cuda(xs, dt, A, Bm, Cm, dy, **kw)):
+        assert torch.equal(a, b)
 
 
 def test_tensor_core_kernels_fit_without_spills(cuda):
     """Every redesigned kernel (tensor-core flash forward and backward, CE
-    forward, RMSNorm backward and forward, tensor-core SSD scan) and the
-    SSD backward's kernels keep their state in registers (no local
-    memory) and fit at least one block a SM at their launch size."""
+    forward, RMSNorm backward and forward, tensor-core SSD scan and SSD
+    backward) and the f32 SSD backward's kernels keep their state in
+    registers (no local memory) and fit at least one block a SM at their
+    launch size."""
     from repro_torch.kernels import build
     rows = build.extension().kernel_info()
     names = [name for name, _ in rows]
@@ -571,14 +583,33 @@ def test_tensor_core_kernels_fit_without_spills(cuda):
             assert f"rmsnorm_fwd_kernel<{dtype},{nv}>" in names
     for n in (32, 64, 128):
         assert f"ssd_scan_tc_kernel<{n}>" in names
+    # the f32 SSD backward
+    assert "ssd_bwd_chunk_kernel<f32>" in names
+    for way in ("fwd", "rev"):
+        for nj in (2, 4):
+            assert f"ssd_state_pass_kernel<f32,{way},{nj}>" in names
     for dtype in ("bf16", "f32"):
-        for name in ("ssd_bwd_chunk_kernel", "ssd_bwd_reduce_kernel"):
-            assert f"{name}<{dtype}>" in names
-        for way in ("fwd", "rev"):
-            for nj in (2, 4):
-                assert f"ssd_state_pass_kernel<{dtype},{way},{nj}>" in names
+        assert f"ssd_bwd_reduce_kernel<{dtype}>" in names
+    # the bf16 SSD backward at each padding of N
+    for n in (32, 64, 128):
+        for name in (f"ssd_bwd_state_tc_kernel<{n},fwd>",
+                     f"ssd_bwd_state_tc_kernel<{n},rev>",
+                     f"ssd_bwd_row_tc_kernel<{n}>",
+                     f"ssd_bwd_col_tc_kernel<{n}>"):
+            assert name in names
+    info = dict(rows)
     # the SSD scan's design point at zamba2-1.2b's shape: two blocks a SM
-    assert dict(rows)["ssd_scan_tc_kernel<64>"][5] >= 2
+    assert info["ssd_scan_tc_kernel<64>"][5] >= 2
+    # the bf16 SSD backward's: at zamba2-1.2b's N 64 two blocks a SM of
+    # every kernel (the state passes' 256 blocks fill the card twice); at
+    # mamba2-130m's N 128 the chunk kernels' tiles take 138 KB of shared
+    # memory, one block a SM (and the state passes' 96 blocks take one SM
+    # each)
+    for name in ("state_tc_kernel<64,fwd>", "state_tc_kernel<64,rev>",
+                 "row_tc_kernel<64>", "col_tc_kernel<64>"):
+        assert info[f"ssd_bwd_{name}"][5] >= 2, name
+    for name in ("row", "col"):
+        assert info[f"ssd_bwd_{name}_tc_kernel<128>"][3] > 113 * 1024
     # the flash forward's design point: two blocks of 4 warps a SM
     assert dict(rows)["flash_fwd_tc_kernel<128>"][5] >= 2
     for name, (regs, local, _, _, _, blocks) in rows:
