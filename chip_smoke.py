@@ -24,13 +24,23 @@ Phases, each of which fails the run (non-zero exit, no final result line):
    loss heads, T 8192 x D 768 x V 50280 and T 8192 x D 2048 x V 32000;
    RMSNorm and flash also at the zamba2-1.2b / mamba2-130m prefill
    shapes and at the prefills of SERVE_ARCHS: RMSNorm at D 2560, 5120,
-   6144; flash at G 1, 12, 16 and mixtral's 4608 queries, window 4096)
+   6144; flash at G 1, 12, 16 and mixtral's 4608 queries, window 4096;
+   and at whisper-tiny's and llava-next's: RMSNorm at D 384 over 4 x 1500
+   and 4 x 448 rows, and 4 x 3392 rows of D 4096; flash over whisper's
+   1500 frames, non-causal (the encoder, the cross-attention) and its
+   decoder's cache, and llava's 3392 queries; cross entropy at the loss
+   heads of whisper (V 51865, D 384), llava, mixtral and qwen3-moe (V
+   151936); the f32 rows of the new flash shapes checked, not timed)
    and, for training, the RMSNorm and flash-attention backward
    kernels (the latter's device time split by kernel under the
    profiler) and the flash forward's ``lse``, also at the SSM models'
    training shapes (RMSNorm backward at D 768, 1536, 2048, 4096 over
    8192 rows; flash forward with ``lse`` and backward at zamba2's 4 x
-   2048, 32/32 heads of 64), the f32 RMSNorm backward held against
+   2048, 32/32 heads of 64) and at this slice's (RMSNorm backward at the
+   new RMSNorm shapes; flash forward with ``lse`` and backward over
+   whisper's encoder, cross-attention and 448-token decoder, llava's 4 x
+   3392 and mixtral's 1 x 4608 with its window), the f32 RMSNorm backward
+   held against
    ``rmsnorm_bwd_ref`` evaluated in f64; then the SSD chunked scan
    (phase "ssd": ``y`` and the final state against ``ssd_ref`` on the
    SSD_CASES of tests/test_kernels.py, S < chunk, an ``init_state``
@@ -53,12 +63,17 @@ Phases, each of which fails the run (non-zero exit, no final result line):
    at 32 of 64 layers, mixtral-8x7b at 12 of 32 (batch 1, P = 4608) and
    qwen3-moe-235b-a22b at 6 of 94 through ``num_layers`` (their bf16
    weights and the f32 temporaries of their initialisation would not fit
-   the card); launch counters reset just before each and read just
-   after, and held against the counts the code implies;
+   the card); then whisper-tiny (P = 448 decoder tokens, 1500 frames) and
+   llava-next-mistral-7b (2880 patches + P = 512 tokens) at full size
+   (phases "serving_whisper", "serving_llava"); launch counters reset
+   just before each and read just after, and held against the counts the
+   code implies;
 5. end to end, each model as it was served: (a) prefill logits through
    the kernels against ``use_kernels=False``; (b) decode at position S
    after a prefill of S tokens against a prefill of S + 1 tokens (for
-   the SSM models S + 1 = 2049, one past a chunk boundary; for the MoE
+   the SSM models S + 1 = 2049, one past a chunk boundary; for whisper
+   decode reads the cross cache as prefill left it; for llava S counts
+   the 2880 patches; for the MoE
    models at capacity factor E / K, where nothing drops: a longer
    prefill may drop its last token from a full expert, decode never
    does); both at relative L2 <= 5e-2.  MoE rows also log the share of
@@ -93,7 +108,15 @@ Phases, each of which fails the run (non-zero exit, no final result line):
    memory as phase 7, with one more step under the profiler (the SSD
    kernels picked out), and "end_to_end_training_<arch>" as above at 4 x
    2048 tokens (mamba2 at 2 layers, zamba2 at 7: one application of the
-   shared block and a mamba block after it);
+   shared block and a mamba block after it); then "training_whisper"
+   (full size, 4 x 448 over 1500 frames), "training_llava" (full width,
+   LLAVA_TRAIN_LAYERS layers, 4 x (2880 + 512)), "training_mixtral" (3
+   layers, 1 x 4608) and "training_qwen3_moe" (1 layer, 4 x 512), each
+   with its "end_to_end_training_<arch>" (whisper at full size, llava at
+   2 layers, the MoE archs at their training depth and capacity factor
+   E / K, where nothing drops, with the routing flips between the paths
+   and the share the configs' own factor drops; whisper's key-bias
+   gradients, zero but for rounding, held against the value bias's);
 9. training_carousel: ``run_training`` on the Data Carousel, as its
    defaults run it (8 shards, 4 drives, 1 ms a tape read, fault rate
    0.02), at full width and depth, 3 steps of 4 x 512 tokens; launches
@@ -121,8 +144,8 @@ counters reset just before it and read just after.
 
 It prints a ``{"kernel_info": [...]}`` line, a ``{"kernels": [...]}`` line
 and, last, ``{"ok": true, ...}``.
-A kernel's ``launches`` there is the sum of its counts over the eight
-serving runs, the three training runs of phases 7 and 8 and the runs of
+A kernel's ``launches`` there is the sum of its counts over the ten
+serving runs, the seven training runs of phases 7 and 8 and the runs of
 phases 9-11; ``ssd_scan``'s row is the zamba2-1.2b prefill shape,
 ``ssd_scan_bwd``'s zamba2-1.2b's training shape.  Weights are random,
 made on the card from a seed; data is synthetic, from a seed; nothing is
@@ -132,6 +155,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -183,6 +207,24 @@ SERVE_ARCHS = [("qwen1.5-4b", None, BATCH, PROMPT),
                ("qwen1.5-32b", 32, BATCH, PROMPT),
                ("mixtral-8x7b", 12, 1, MIXTRAL_PROMPT),
                ("qwen3-moe-235b-a22b", 6, BATCH, PROMPT)]
+# whisper-tiny (encoder-decoder) and llava-next-mistral-7b (VLM): served
+# at full size, batch 4, 32 tokens (whisper: a 448-token decoder prompt
+# over 1500 frames; llava: 2880 patches + 512 text tokens); trained 3
+# steps of 4 x 448 (whisper, full size) and 4 x (2880 + 512) (llava, at
+# LLAVA_TRAIN_LAYERS: ~12 B a parameter of training state, 2.6 GB a layer
+# and 3.1 GB of embeddings); their gradient checks at full size (whisper)
+# and 2 layers (llava)
+WHISPER, LLAVA = "whisper-tiny", "llava-next-mistral-7b"
+WHISPER_PROMPT, LLAVA_PROMPT = 448, 512
+LLAVA_PATCHES = 2880
+LLAVA_TRAIN_LAYERS, LLAVA_E2E_LAYERS = 26, 2
+# MoE training at full width: arch, phase tag, layers (the deepest whose
+# state fits the card: 17.4 GB a mixtral layer, 29.8 GB a qwen3-moe layer,
+# plus 3.1 and 14.9 GB of embeddings), batch, sequence; mixtral at 1 x
+# 4608 as it is served, so that its 4096-token window bites in the flash
+# backward too
+MOE_TRAIN = [("mixtral-8x7b", "mixtral", 3, 1, 4608),
+             ("qwen3-moe-235b-a22b", "qwen3_moe", 2, 4, 512)]
 TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH = 3, 512, 4
 HALF_STEPS = 3  # warm steps whose two halves are timed alone
 E2E_TRAIN_LAYERS = 2
@@ -233,21 +275,55 @@ FLASH_SERVE = [(BATCH, PROMPT, PROMPT + GEN + 8, hq, hkv, 128, True, 0, 0,
                                         (64, 4))] + [
     (1, MIXTRAL_PROMPT, MIXTRAL_PROMPT + GEN + 8, 32, 8, 128, True, 4096, 0,
      MIXTRAL_PROMPT)]
+# whisper-tiny's prefill: the encoder (non-causal over 1500 frames, no
+# multiple of 64), the cross-attention (448 queries over the 1500 frames)
+# and the decoder's self-attention (a cache of 448 + 40); llava's prefill
+# (2880 patches + 512 tokens over a cache of 3432)
+FLASH_NEW_SERVE = [
+    (BATCH, 1500, 1500, 6, 6, 64, False, 0, 0, None),
+    (BATCH, WHISPER_PROMPT, 1500, 6, 6, 64, False, 0, 0, None),
+    (BATCH, WHISPER_PROMPT, WHISPER_PROMPT + GEN + 8, 6, 6, 64, True, 0, 0,
+     WHISPER_PROMPT),
+    (BATCH, LLAVA_PATCHES + LLAVA_PROMPT, LLAVA_PATCHES + LLAVA_PROMPT + GEN
+     + 8, 32, 8, 128, True, 0, 0, LLAVA_PATCHES + LLAVA_PROMPT)]
 # the yi-6b training shape: self-attention over TRAIN_SEQ, causal
 FLASH_TRAIN = (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 32, 4, 128, True, 0, 0,
                None)
 # zamba2-1.2b's shared block in training: 4 x 2048, 32/32 heads of 64
 FLASH_TRAIN_ZAMBA2 = (TRAIN_BATCH, SSM_TRAIN_SEQ, SSM_TRAIN_SEQ, 32, 32, 64,
                       True, 0, 0, None)
+# whisper-tiny's training shapes: the encoder, the cross-attention, the
+# decoder's self-attention over 448; llava's (4 x 3392, causal) and
+# mixtral's (1 x 4608, window 4096)
+FLASH_TRAIN_NEW = [
+    (BATCH, 1500, 1500, 6, 6, 64, False, 0, 0, None),
+    (BATCH, WHISPER_PROMPT, 1500, 6, 6, 64, False, 0, 0, None),
+    (BATCH, WHISPER_PROMPT, WHISPER_PROMPT, 6, 6, 64, True, 0, 0, None),
+    (BATCH, LLAVA_PATCHES + LLAVA_PROMPT, LLAVA_PATCHES + LLAVA_PROMPT, 32, 8,
+     128, True, 0, 0, None),
+    (1, MIXTRAL_PROMPT, MIXTRAL_PROMPT, 32, 8, 128, True, 4096, 0, None)]
+# the shapes above whose f32 rows are checked but not timed (a large f32
+# call takes a second on the CUDA cores, the plain version as long)
+FLASH_F32_UNTIMED = FLASH_NEW_SERVE + FLASH_TRAIN_NEW
+# the calls a timing graph holds at those shapes: the plain versions
+# (25-130 ms a call at llava's and mixtral's) one a graph
+NEW_SHAPE_CALLS = {"ms": 3, "plain_ms": 1, "library_ms": 3, "fb": 3, "f": 3}
 RMS_MAIN = (BATCH * PROMPT, 4096)  # also the training shape (4 x 512 rows)
 # the zamba2-1.2b / mamba2-130m prefill norms: d_model and the gated norm
 RMS_SSM = [(BATCH * SSM_PROMPT, d) for d in (2048, 4096, 768, 1536)]
 # the qwen1.5-4b, qwen1.5-32b and starcoder2-15b prefill norms
 RMS_SERVE = [(BATCH * PROMPT, d) for d in (2560, 5120, 6144)]
+# whisper-tiny's encoder and decoder rows (D 384), llava's 4 x 3392 rows
+RMS_NEW = [(BATCH * 1500, 384), (BATCH * WHISPER_PROMPT, 384),
+           (BATCH * (LLAVA_PATCHES + LLAVA_PROMPT), 4096)]
 # the backward's sweep: the training shape and the small ragged cases
 # (then the SSM models' training norms, RMS_SSM)
 RMS_TRAIN_SHAPES = [RMS_MAIN, (BATCH, 4096), (8, 128), (3, 7, 384), (1, 513)]
-RMS_SHAPES = RMS_TRAIN_SHAPES + RMS_SSM + RMS_SERVE
+RMS_SHAPES = RMS_TRAIN_SHAPES + RMS_SSM + RMS_SERVE + RMS_NEW
+# the backward at these in bf16 only: its f32 dw sums 13568 rows, and an
+# f32 sum that long lies past 3e-5 of the f64 one even in the plain
+# version (6.1e-5 on an H100; the kernel 9.2e-5)
+RMS_BWD_BF16_ONLY = [(BATCH * (LLAVA_PATCHES + LLAVA_PROMPT), 4096)]
 # B, S, H, P, G, N, chunk: the SSD_CASES of tests/test_kernels.py, S <
 # chunk, then the zamba2-1.2b and mamba2-130m prefill shapes (also their
 # training shapes, 4 x 2048)
@@ -261,8 +337,13 @@ SSD_CASES = [(2, 96, 4, 16, 1, 32, 32), (1, 130, 6, 32, 2, 16, 64),
 CE_MAIN = (TRAIN_BATCH * TRAIN_SEQ, 4096, 64000)
 CE_SSM = [(TRAIN_BATCH * SSM_TRAIN_SEQ, 768, 50280),
           (TRAIN_BATCH * SSM_TRAIN_SEQ, 2048, 32000)]
-CE_SHAPES = [CE_MAIN] + CE_SSM + [(37, 48, 1000), (256, 64, 4099),
-                                  (300, 128, 513)]
+# the loss heads of whisper-tiny (4 x 448, D 384, V 51865), llava (4 x
+# 512 text tokens), mixtral (1 x 4608) and qwen3-moe (4 x 512, V 151936)
+CE_NEW = [(BATCH * WHISPER_PROMPT, 384, 51865),
+          (BATCH * LLAVA_PROMPT, 4096, 32000), (MIXTRAL_PROMPT, 4096, 32000),
+          (BATCH * PROMPT, 4096, 151936)]
+CE_SHAPES = [CE_MAIN] + CE_SSM + CE_NEW + [(37, 48, 1000), (256, 64, 4099),
+                                           (300, 128, 513)]
 
 
 def log(*a) -> None:
@@ -341,16 +422,18 @@ def _bound(n_bytes: float, flops: float, dtype: torch.dtype):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _time_row(row: dict, fns: dict, sets: list, calls: int = 10) -> None:
+def _time_row(row: dict, fns: dict, sets: list, calls=10) -> None:
     """Adds each of ``fns`` (name -> function of one input set) to ``row``:
     its warm time (``sets[0]`` every call, so it sits in L2) as
     ``<name>_warm`` and, when more than one set is given, its cold time
-    (the sets rotated past L2, as HBM serves them) as ``<name>``."""
+    (the sets rotated past L2, as HBM serves them) as ``<name>``.
+    ``calls``: the calls a graph holds, or a dict of them by name."""
     for key, fn in fns.items():
-        row[key + "_warm"] = time_ms(lambda i: fn(*sets[0]), calls=calls)
+        n = calls[key] if isinstance(calls, dict) else calls
+        row[key + "_warm"] = time_ms(lambda i: fn(*sets[0]), calls=n)
         if len(sets) > 1:
             row[key] = time_ms(lambda i: fn(*sets[i]), len(sets),
-                               calls=calls)
+                               calls=n)
         else:
             row[key] = row[key + "_warm"]
 
@@ -386,7 +469,7 @@ def phase_rmsnorm(gen: torch.Generator, failures: list) -> dict:
             n_bytes = 2 * x.numel() * x.element_size() + D * w.element_size()
             is_main = tuple(shape) == RMS_MAIN and dtype == torch.bfloat16
             cold = dtype == torch.bfloat16 and (
-                is_main or tuple(shape) in RMS_SSM + RMS_SERVE)
+                is_main or tuple(shape) in RMS_SSM + RMS_SERVE + RMS_NEW)
             sets = [(x, w)] + ([(x.clone(), w.clone()) for _ in
                                range(cold_sets(n_bytes) - 1)]
                                if cold else [])
@@ -429,7 +512,8 @@ def _sdpa_inputs(q, k, v):
 def phase_flash(gen: torch.Generator, failures: list) -> dict:
     main = None
     worst = 0.0
-    for case in FLASH_CASES + [FLASH_MAIN, FLASH_ZAMBA2] + FLASH_SERVE:
+    for case in (FLASH_CASES + [FLASH_MAIN, FLASH_ZAMBA2] + FLASH_SERVE
+                 + FLASH_NEW_SERVE):
         B, Sq, Sk, Hq, Hkv, D, causal, window, q_off, kv_len = case
         kw = dict(causal=causal, sliding_window=window, q_offset=q_off,
                   kv_len=kv_len)
@@ -451,13 +535,20 @@ def phase_flash(gen: torch.Generator, failures: list) -> dict:
                 * q.element_size()
             is_main = case == FLASH_MAIN and dtype == torch.bfloat16
             cold = dtype == torch.bfloat16 and case in [
-                FLASH_MAIN, FLASH_ZAMBA2] + FLASH_SERVE
+                FLASH_MAIN, FLASH_ZAMBA2] + FLASH_SERVE + FLASH_NEW_SERVE
+            row = {"case": list(case), "dtype": str(dtype)[6:],
+                   "max_abs_err": err, "ok": ok}
+            log_untimed = (dtype == torch.float32
+                           and case in FLASH_F32_UNTIMED)
+            if log_untimed:
+                log("flash", json.dumps(row))
+                if not ok:
+                    failures.append(f"flash {case} {dtype}: max err {err}")
+                continue
             sets = [(q, k, v)] + ([tuple(t.clone() for t in (q, k, v))
                                    for _ in range(cold_sets(n_bytes) - 1)]
                                   if cold else [])
             sets = [s + _sdpa_inputs(*s) for s in sets]
-            row = {"case": list(case), "dtype": str(dtype)[6:],
-                   "max_abs_err": err, "ok": ok}
             # library yardstick: SDPA with the same boolean mask (timed
             # only; the port never calls it)
             _time_row(row, {
@@ -468,7 +559,7 @@ def phase_flash(gen: torch.Generator, failures: list) -> dict:
                 "library_ms": lambda q, k, v, qt, kt, vt:
                     F.scaled_dot_product_attention(qt, kt, vt,
                                                    attn_mask=mask)},
-                sets)
+                sets, NEW_SHAPE_CALLS if case in FLASH_NEW_SERVE else 10)
             del sets
             row["bound_ms"], row["bound_by"] = _bound(
                 n_bytes, 4.0 * B * Hq * pairs * D, dtype)
@@ -490,8 +581,10 @@ def phase_rmsnorm_bwd(gen: torch.Generator, failures: list) -> dict:
     main = None
     worst = 0.0
     eps = 1e-5
-    for shape, dtype in [(s, d) for s in RMS_TRAIN_SHAPES + RMS_SSM
-                         for d in (torch.bfloat16, torch.float32)]:
+    for shape, dtype in [(s, d) for s in RMS_TRAIN_SHAPES + RMS_SSM + RMS_NEW
+                         for d in (torch.bfloat16, torch.float32)
+                         if not (s in RMS_BWD_BF16_ONLY
+                                 and d == torch.float32)]:
         D = shape[-1]
         x, g = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
                 for _ in range(2))
@@ -516,8 +609,8 @@ def phase_rmsnorm_bwd(gen: torch.Generator, failures: list) -> dict:
         n_bytes = (3 * x.numel() * x.element_size() + 2 * D
                    * w.element_size() + 4 * inv.numel())
         is_main = tuple(shape) == RMS_MAIN and dtype == torch.bfloat16
-        cold = dtype == torch.bfloat16 and (is_main
-                                            or tuple(shape) in RMS_SSM)
+        cold = dtype == torch.bfloat16 and (
+            is_main or tuple(shape) in RMS_SSM + RMS_NEW)
         sets = [(x, w, inv_ref, g)] + (
             [tuple(t.clone() for t in (x, w, inv_ref, g))
              for _ in range(cold_sets(n_bytes) - 1)] if cold else [])
@@ -551,12 +644,13 @@ def phase_flash_bwd(gen: torch.Generator, failures: list) -> dict:
     """The forward's ``lse`` against the plain forward's, and the backward
     kernels (dq, dk, dv) against the plain backward on the same out, lse
     and dout, at the CASES and the training shapes (yi-6b's, zamba2's
-    shared block); at the training shapes also the forward writing
-    ``lse`` timed (rows "flash_lse")."""
+    shared block, FLASH_TRAIN_NEW's); at the training shapes also the
+    forward writing ``lse`` timed (rows "flash_lse")."""
     main = None
     fwd_rows = []
     worst = worst_lse = 0.0
-    for case in FLASH_CASES + [FLASH_TRAIN, FLASH_TRAIN_ZAMBA2]:
+    for case in FLASH_CASES + [FLASH_TRAIN, FLASH_TRAIN_ZAMBA2] + \
+            FLASH_TRAIN_NEW:
         B, Sq, Sk, Hq, Hkv, D, causal, window, q_off, kv_len = case
         kw = dict(causal=causal, sliding_window=window, q_offset=q_off,
                   kv_len=kv_len)
@@ -584,16 +678,23 @@ def phase_flash_bwd(gen: torch.Generator, failures: list) -> dict:
             n_bytes = ((4 * q.numel() + 4 * B * keys * Hkv * D)
                        * q.element_size() + 4 * lse.numel())
             is_main = case == FLASH_TRAIN and dtype == torch.bfloat16
-            train = dtype == torch.bfloat16 and case in (FLASH_TRAIN,
-                                                         FLASH_TRAIN_ZAMBA2)
+            train = dtype == torch.bfloat16 and case in [
+                FLASH_TRAIN, FLASH_TRAIN_ZAMBA2] + FLASH_TRAIN_NEW
+            row = {"case": list(case), "dtype": str(dtype)[6:],
+                   "max_abs_err": err, "lse_max_abs_err": err_lse, "ok": ok}
+            if dtype == torch.float32 and case in FLASH_F32_UNTIMED:
+                log("flash_bwd", json.dumps(row))
+                if not ok:
+                    failures.append(f"flash bwd/lse {case} {dtype}: max "
+                                    f"err {err}, lse {err_lse}")
+                continue
             inputs = (q, k, v, o, lse_ref, do)
             sets = [inputs] + ([tuple(t.clone() for t in inputs)
                                 for _ in range(cold_sets(n_bytes) - 1)]
                                if train else [])
-            row = {"case": list(case), "dtype": str(dtype)[6:],
-                   "max_abs_err": err, "lse_max_abs_err": err_lse, "ok": ok}
             # the plain versions take 15-40 ms a call at zamba2's shape
-            calls = 3 if case == FLASH_TRAIN_ZAMBA2 else 10
+            calls = NEW_SHAPE_CALLS if case in FLASH_TRAIN_NEW else (
+                3 if case == FLASH_TRAIN_ZAMBA2 else 10)
             _time_row(row, {
                 "ms": lambda q, k, v, o, lse, do:
                     kflash.flash_attention_bwd_cuda(q, k, v, o, lse, do,
@@ -637,8 +738,9 @@ def phase_flash_bwd(gen: torch.Generator, failures: list) -> dict:
                     "plain_ms": lambda q, k, v, *_:
                         ref.flash_attention_fwd_ref(q, k, v, **kw),
                     "library_ms": lambda q, k, v, qt, kt, vt:
-                        F.scaled_dot_product_attention(qt, kt, vt,
-                                                       is_causal=True)},
+                        F.scaled_dot_product_attention(
+                            qt, kt, vt, is_causal=plain_causal,
+                            attn_mask=None if plain_causal else mask)},
                     sets, calls)
                 fwd["bound_ms"], fwd["bound_by"] = _bound(
                     (2 * q.numel() + 2 * B * keys * Hkv * D)
@@ -646,7 +748,8 @@ def phase_flash_bwd(gen: torch.Generator, failures: list) -> dict:
                     4.0 * B * Hq * pairs * D, dtype)
                 fwd_rows.append(fwd)
             del sets, lib_sets
-    for fwd in fwd_rows:  # yi-6b's training shape, then zamba2's
+    # yi-6b's training shape, zamba2's, then FLASH_TRAIN_NEW's
+    for fwd in fwd_rows:
         log("flash_lse", json.dumps(dict(fwd, max_abs_err=worst_lse)))
     return dict(main, max_abs_err=worst)
 
@@ -676,7 +779,8 @@ def phase_cross_entropy(gen: torch.Generator, failures: list) -> dict:
             row = {"shape": list(shape), "dtype": str(dtype)[6:],
                    "max_abs_err": err, "ok": ok}
             is_main = shape == CE_MAIN and dtype == torch.bfloat16
-            if dtype == torch.bfloat16 and shape in [CE_MAIN] + CE_SSM:
+            if dtype == torch.bfloat16 and shape in [CE_MAIN] + CE_SSM \
+                    + CE_NEW:
                 # library yardstick: logits by cuBLAS, then cross_entropy
                 _time_row(row, {
                     "ms": lambda h, w, t: kce.cross_entropy_cuda(h, w, t),
@@ -831,8 +935,14 @@ def _f32_chunk_rates(case, call) -> dict:
     warps = 8 * -(-S // Q) * H * B
     fma = warps * (64 * 32 * (kp + kn) + 16 * steps)
     lds = warps * (16 * 32 * (kp + kn) + 10 * steps)
-    prof = _profile(call, pick=("ssd_bwd_chunk_kernel",))
-    ms = sum(t for _, t, _ in prof["picked"])
+    for _ in range(2):  # the profiler has come back empty once
+        prof = _profile(call, pick=("ssd_bwd_chunk_kernel",))
+        ms = sum(t for _, t, _ in prof["picked"])
+        if ms > 0:
+            break
+    else:
+        return {"ms": None, "not_measured": "the profiler saw no "
+                "ssd_bwd_chunk_kernel in two tries"}
     mhz = float(subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
          "--format=csv,noheader,nounits"], capture_output=True, text=True,
@@ -936,11 +1046,18 @@ def serving_launches(cfg, gen: int) -> dict:
     """Kernel launches one ``run_serving`` with ``gen`` tokens implies: the
     norms of ``gen`` forwards (one prefill, gen - 1 decode steps); flash
     attention and the SSD scan in the prefill only (decode runs the plain
-    ``_attention_kvseq`` and ``ssd_decode``)."""
+    ``_attention_kvseq`` and ``ssd_decode``).  whisper's encoder runs in
+    the prefill only: two norms and one attention a block and its final
+    norm; a decoder block has three norms and two attentions (self and
+    cross), then the decoder's final norm."""
     L = cfg.num_layers
-    attn = {"dense": L, "moe": L, "ssm": 0,
+    if cfg.family == "encdec":
+        Le = cfg.encoder_layers
+        return {"rmsnorm": 2 * Le + 1 + (3 * L + 1) * gen,
+                "flash_attention": Le + 2 * L, "ssd_scan": 0}
+    attn = {"dense": L, "moe": L, "vlm": L, "ssm": 0,
             "hybrid": L // max(cfg.attn_every, 1)}[cfg.family]
-    ssd = 0 if cfg.family in ("dense", "moe") else L
+    ssd = 0 if cfg.family in ("dense", "moe", "vlm") else L
     # dense and moe: ln1, ln2 a block; mamba: ln and the gated norm a
     # block; the shared block: ln1, ln2 an application; ln_f
     norms = 2 * L + (2 * attn if cfg.family == "hybrid" else 0) + 1
@@ -976,27 +1093,43 @@ def phase_serving(failures: list, arch: str = ARCH, prompt: int = PROMPT,
     return counts
 
 
+def _modality_inputs(cfg, batch: int, gen: torch.Generator) -> dict:
+    """whisper's frames or llava's patch embeddings for ``batch`` prompts,
+    as ``synth_inputs`` draws them from ``gen``; nothing for the other
+    families."""
+    inputs = registry.synth_inputs(gen, cfg, ShapeConfig("e2e", 1, batch,
+                                                         "prefill"),
+                                   device=DEVICE)
+    inputs.pop("tokens")
+    return inputs
+
+
 def _rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
     a, b = a.float(), b.float()
     return float((a - b).norm() / b.norm())
 
 
 @contextlib.contextmanager
-def _recording_routes(routes: list):
-    """Records each ``layers.moe_block`` call's routing (experts, kept
-    pairs) into ``routes`` while the block runs as it would."""
-    block = layers.moe_block
+def _recording_routes(routes: list, replay=None):
+    """Records each ``layers.moe_route`` call's top-K choices (experts,
+    kept pairs) into ``routes``.  With ``replay`` (another run's
+    ``routes``, its calls in the same order), the n-th call routes by the
+    n-th recorded choice instead of its own, weighted by its own gates."""
+    route = layers.moe_route
 
-    def recorded(p, cfg, run, x):
-        r = layers.moe_route(p, cfg, x)
+    def recorded(p, cfg, x):
+        r = route(p, cfg, x)
         routes.append((r.experts, r.keep))
-        return block(p, cfg, run, x)
+        if replay is None:
+            return r
+        gates = torch.softmax(x.float() @ p["router"].float(), dim=-1)
+        return layers.moe_assign(cfg, gates, replay[len(routes) - 1][0])
 
-    layers.moe_block = recorded
+    layers.moe_route = recorded
     try:
         yield routes
     finally:
-        layers.moe_block = block
+        layers.moe_route = route
 
 
 def phase_end_to_end(failures: list, arch: str = ARCH, prompt: int = PROMPT,
@@ -1019,26 +1152,28 @@ def phase_end_to_end(failures: list, arch: str = ARCH, prompt: int = PROMPT,
     g = torch.Generator(device=dev).manual_seed(7)
     toks = torch.randint(0, cfg.vocab_size, (batch, prompt + 1),
                          generator=g, device=dev)
-    max_len = prompt + GEN + 8
+    # whisper's frames or llava's patches, the same for every call
+    mod = _modality_inputs(cfg, batch, g)
+    prompt_in = dict(mod, tokens=toks[:, :prompt])
+    extra = cfg.num_img_patches if cfg.family == "vlm" else 0
+    max_len = prompt + extra + GEN + 8
     kern, plain = RunConfig(), RunConfig(use_kernels=False)
     routes_k, routes_p = [], []
     with torch.inference_mode():
         cache = engine.init_cache(cfg, batch, max_len, dev)
         with _recording_routes(routes_k):
-            lk, cache = registry.prefill(params, cfg, kern,
-                                         {"tokens": toks[:, :prompt]}, cache)
+            lk, cache = registry.prefill(params, cfg, kern, prompt_in, cache)
         with _recording_routes(routes_p):
-            lp, _ = registry.prefill(params, cfg, plain,
-                                     {"tokens": toks[:, :prompt]},
+            lp, _ = registry.prefill(params, cfg, plain, prompt_in,
                                      engine.init_cache(cfg, batch, max_len,
                                                        dev))
         if moe:
             _, cache = registry.prefill(
-                params, cfg_d, kern, {"tokens": toks[:, :prompt]},
+                params, cfg_d, kern, prompt_in,
                 engine.init_cache(cfg, batch, max_len, dev))
         ld, _ = registry.decode(params, cfg_d, kern, toks[:, prompt:], cache,
-                                prompt)
-        ll, _ = registry.prefill(params, cfg_d, kern, {"tokens": toks},
+                                prompt + extra)
+        ll, _ = registry.prefill(params, cfg_d, kern, dict(mod, tokens=toks),
                                  engine.init_cache(cfg, batch, max_len, dev))
         del cache
         # a yardstick for (a), not a check: the plain path with the same
@@ -1049,14 +1184,14 @@ def phase_end_to_end(failures: list, arch: str = ARCH, prompt: int = PROMPT,
         lf = None
         if f32_bytes + F32_MARGIN_BYTES <= free:
             lf, _ = registry.prefill(
-                P.cast_tree(params, torch.float32), cfg, plain,
-                {"tokens": toks[:, :prompt]},
+                P.cast_tree(params, torch.float32), cfg, plain, prompt_in,
                 engine.init_cache(cfg, batch, max_len, dev))
     finite = all(bool(torch.isfinite(t).all()) for t in (lk, lp, ld, ll))
     a = _rel_l2(lk[:, -1], lp[:, -1])
     b = _rel_l2(ld[:, -1], ll[:, -1])
     row = {"arch": arch, "layers": cfg.num_layers, "batch": batch,
-           "prompt": prompt, "kv_cache_dtype": cfg.kv_cache_dtype,
+           "prompt": prompt, "prefix": extra,
+           "kv_cache_dtype": cfg.kv_cache_dtype,
            "kernel_vs_plain_prefill_rel_l2": a,
            "decode_vs_longer_prefill_rel_l2": b, "logits_finite": finite,
            "tol": E2E_TOL}
@@ -1087,7 +1222,7 @@ def phase_end_to_end(failures: list, arch: str = ARCH, prompt: int = PROMPT,
                         f"{E2E_TOL}")
     if not b <= E2E_TOL:
         failures.append(f"{arch}: decode vs prefill rel L2 {b} > {E2E_TOL}")
-    return params, toks[:, :prompt]
+    return params, prompt_in
 
 
 def _profile(fn, top: int = 8, ops: bool = False, pick=()) -> dict:
@@ -1126,23 +1261,26 @@ def _profile(fn, top: int = 8, ops: bool = False, pick=()) -> dict:
     return out
 
 
-def phase_breakdown(params, prompt: torch.Tensor, arch: str = ARCH,
+def phase_breakdown(params, prompt: dict, arch: str = ARCH,
                     label: str = "breakdown", layers=None,
                     ops: bool = False) -> None:
     """Where the time goes in one warm prefill and four warm decode steps
     on the kernel path (torch.profiler; the shapes ran before, so cuBLAS
-    and the allocator are warm); with ``ops`` the top operators too."""
+    and the allocator are warm); with ``ops`` the top operators too.
+    ``prompt`` is the prefill's inputs, tokens and any frames or
+    patches."""
     cfg = _config(arch, layers)
     run = RunConfig()
-    B, S = prompt.shape
+    B, S = prompt["tokens"].shape
+    S += cfg.num_img_patches if cfg.family == "vlm" else 0
     max_len = S + GEN + 8
     with torch.inference_mode():
         cache = engine.init_cache(cfg, B, max_len, torch.device(DEVICE))
         box = {}
 
         def prefill():
-            box["tok"], _ = engine.prefill_step(
-                params, {"tokens": prompt}, cache, cfg=cfg, run=run)
+            box["tok"], _ = engine.prefill_step(params, prompt, cache,
+                                                cfg=cfg, run=run)
 
         def decode4():
             tok = box["tok"]
@@ -1239,10 +1377,22 @@ def training_launches(layers: int, steps: int, arch: str = ARCH) -> dict:
     two norms and SSD scan; the hybrid's shared block (one application
     every ``attn_every`` mamba blocks) is not checkpointed, so its two
     norms and flash attention run once; each block's backward runs once;
-    ln_f is outside the checkpointed blocks; one CE call."""
-    L, family = layers, get_config(arch).family
+    ln_f is outside the checkpointed blocks; one CE call.  MoE and VLM
+    blocks launch what a dense block does.  whisper (``layers`` decoder
+    blocks, the config's encoder blocks, both stacks checkpointed): an
+    encoder block's two norms and one attention, a decoder block's three
+    norms and two attentions (self and cross), and two final norms."""
+    cfg = get_config(arch)
+    L, family = layers, cfg.family
+    if family == "encdec":
+        norms, attn = 2 * cfg.encoder_layers + 3 * L, cfg.encoder_layers \
+            + 2 * L
+        return {k: n * steps for k, n in zip(TRAIN_KERNELS, (
+            2 * norms + 2, norms + 2, 2 * attn, attn, 1, 0, 0))}
+    if family in ("moe", "vlm"):
+        family = "dense"
     attn = {"dense": L, "ssm": 0,
-            "hybrid": L // max(get_config(arch).attn_every, 1)}[family]
+            "hybrid": L // max(cfg.attn_every, 1)}[family]
     ssd = 0 if family == "dense" else L
     remat_attn = attn if family == "dense" else 0  # run again in backward
     norms = 2 * L + (2 * attn if family == "hybrid" else 0) + 1
@@ -1265,7 +1415,8 @@ def read_launches() -> dict:
 
 
 def _timed_run(failures: list, label: str, layers: int, steps: int,
-               arch: str = ARCH, seq_len: int = TRAIN_SEQ, **kw) -> tuple:
+               arch: str = ARCH, seq_len: int = TRAIN_SEQ,
+               global_batch: int = TRAIN_BATCH, **kw) -> tuple:
     """One ``run_training`` of ``arch`` at full width and ``layers``
     layers, counted (launch counters reset just before, read just after,
     held against ``training_launches``), its losses checked finite, and
@@ -1281,7 +1432,7 @@ def _timed_run(failures: list, label: str, layers: int, steps: int,
     t0 = time.perf_counter()
     res = train.run_training(
         arch, smoke=False, num_layers=layers, steps=steps, seq_len=seq_len,
-        global_batch=TRAIN_BATCH, device=DEVICE, on_step=on_step, **kw)
+        global_batch=global_batch, device=DEVICE, on_step=on_step, **kw)
     counts = read_launches()
     want = training_launches(layers, res["steps"], arch)
     if counts != want:
@@ -1358,34 +1509,39 @@ def phase_training(failures: list) -> tuple:
     return counts, steps_s
 
 
-def phase_training_ssm(failures: list, arch: str) -> dict:
-    """``run_training(arch, smoke=False, steps=TRAIN_STEPS, seq_len=
-    SSM_TRAIN_SEQ, global_batch=TRAIN_BATCH, carousel=False)`` at full
-    width and depth, counted and timed as phase "training" is; then one
-    more (warm) step under the profiler, the SSD scan's forward and
-    backward kernels picked out."""
-    cfg = get_config(arch)
-    tag = arch.split("-")[0]
+def phase_training_arch(failures: list, arch: str, layers=None,
+                        seq_len: int = SSM_TRAIN_SEQ,
+                        batch: int = TRAIN_BATCH, label=None) -> dict:
+    """``run_training(arch, smoke=False, num_layers=layers, steps=
+    TRAIN_STEPS, seq_len=seq_len, global_batch=batch, carousel=False)`` at
+    full width (``layers`` None: full depth), counted and timed as phase
+    "training" is; then one more (warm) step under the profiler, the
+    kernels picked out."""
+    cfg = _config(arch, layers)
+    label = label or "training_" + arch.split("-")[0]
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     L = cfg.num_layers
     res, counts, stamps, t0 = _timed_run(
-        failures, f"training_{tag}", L, TRAIN_STEPS, arch=arch,
-        seq_len=SSM_TRAIN_SEQ, carousel=False)
+        failures, label, L, TRAIN_STEPS, arch=arch, seq_len=seq_len,
+        global_batch=batch, carousel=False)
     peak = torch.cuda.max_memory_allocated()
     steps_s = [b - a for a, b in zip(stamps, stamps[1:])]
-    tokens = TRAIN_BATCH * SSM_TRAIN_SEQ
+    # the tokens a step trains on, a VLM's patches included
+    tokens = batch * (seq_len + (cfg.num_img_patches if cfg.family == "vlm"
+                                 else 0))
     run = train.default_run_config(cfg, TRAIN_STEPS)
-    batch = registry.synth_inputs(
+    inputs = registry.synth_inputs(
         torch.Generator(device=DEVICE).manual_seed(TRAIN_STEPS), cfg,
-        ShapeConfig("train", SSM_TRAIN_SEQ, TRAIN_BATCH, "train"), "train",
+        ShapeConfig("train", seq_len, batch, "train"), "train",
         device=DEVICE)
     state = res.pop("state")
-    prof = _profile(lambda: tstep.make_train_step(cfg, run)(state, batch),
+    prof = _profile(lambda: tstep.make_train_step(cfg, run)(state, inputs),
                     top=12, pick=("ssd_", "flash_", "rmsnorm_", "ce_"))
-    log(f"training_{tag}", json.dumps({
-        "arch": arch, "layers": L, "steps": res["steps"],
-        "tokens_per_step": tokens, "losses": res["losses"],
+    log(label, json.dumps({
+        "arch": arch, "layers": L, "steps": res["steps"], "batch": batch,
+        "seq_len": seq_len, "tokens_per_step": tokens,
+        "losses": res["losses"],
         "first_step_s": stamps[0] - t0 if stamps else None,
         "step_s_2_3": steps_s,
         "tokens_per_s": tokens / statistics.mean(steps_s),
@@ -1393,7 +1549,7 @@ def phase_training_ssm(failures: list, arch: str) -> dict:
         "launches": counts,
         "expected_launches": training_launches(L, TRAIN_STEPS, arch),
         "profiled_step": prof}))
-    del state, res, batch
+    del state, res, inputs
     torch.cuda.empty_cache()
     return counts
 
@@ -1406,43 +1562,100 @@ def _tree_items(tree, prefix=""):
         yield prefix, tree
 
 
+def _zero_grad_leaf(name: str, cfg) -> bool:
+    """A key bias adds the same q . b to every key a query sees, which the
+    softmax drops: its gradient is zero but for rounding (whisper's
+    ``bk``), so it has no relative error to speak of."""
+    return cfg.family == "encdec" and name.endswith("/bk")
+
+
 def phase_training_end_to_end(failures: list, arch: str = ARCH,
                               layers: int = E2E_TRAIN_LAYERS,
                               seq_len: int = TRAIN_SEQ,
-                              label: str = "end_to_end_training") -> dict:
+                              label: str = "end_to_end_training",
+                              batch: int = TRAIN_BATCH) -> dict:
     """One ``grads_and_metrics`` through the kernels against one through
     the plain versions, at full width and ``layers`` layers; the kernel
-    run's launches are returned (a comparison's, not the main path's)."""
+    run's launches are returned (a comparison's, not the main path's).
+    An MoE arch runs at capacity factor E / K, where nothing drops; its
+    row logs the top-K choices that differ between the two paths and the
+    share of pairs the config's own factor would drop from the kernel
+    path's choices (each over the forward's and the recompute's calls);
+    the plain path then routes by the kernel path's choices, so that the
+    gradients differ by what the kernels compute and not by a discrete
+    choice that a rounding flips (ROADMAP C5).
+    A gradient that is zero but for rounding (``_zero_grad_leaf``) is
+    held by its distance against the norm of the matching value bias's
+    gradient."""
     cfg = get_config(arch).replace(num_layers=layers)
+    moe = cfg.family == "moe"
+    if moe:
+        cfg = cfg.replace(moe_capacity_factor=cfg.num_experts
+                          / cfg.num_experts_per_tok)
     dev = torch.device(DEVICE)
     params = serve.init_params(cfg, 11, dev)
-    batch = registry.synth_inputs(
+    inputs = registry.synth_inputs(
         torch.Generator(device=dev).manual_seed(12), cfg,
-        ShapeConfig("train", seq_len, TRAIN_BATCH, "train"), "train",
+        ShapeConfig("train", seq_len, batch, "train"), "train",
         device=dev)
     run = train.default_run_config(cfg, TRAIN_STEPS)
+    routes_k, routes_p = [], []
     reset_launches()
-    gk, mk = tstep.grads_and_metrics(params, cfg, run, batch)
+    with _recording_routes(routes_k):
+        gk, mk = tstep.grads_and_metrics(params, cfg, run, inputs)
     counts = read_launches()
-    gp, mp = tstep.grads_and_metrics(params, cfg,
-                                     run.replace(use_kernels=False), batch)
+    with _recording_routes(routes_p, routes_k if moe else None):
+        gp, mp = tstep.grads_and_metrics(
+            params, cfg, run.replace(use_kernels=False), inputs)
     lk, lp = float(mk["loss"]), float(mp["loss"])
     loss_rel = abs(lk - lp) / abs(lp)
-    rel = {name: _rel_l2(a, b) for (name, a), (_, b) in
-           zip(_tree_items(gk), _tree_items(gp))}
+    grads_p = dict(_tree_items(gp))
+    rel, zero = {}, {}
+    for (name, a), (_, b) in zip(_tree_items(gk), _tree_items(gp)):
+        if _zero_grad_leaf(name, cfg):
+            zero[name] = float((a.float() - b.float()).norm() / grads_p[
+                name[:-2] + "bv"].float().norm())
+        else:
+            rel[name] = _rel_l2(a, b)
     finite = all(bool(torch.isfinite(g).all()) for g in P.tree_leaves(gk))
     want = training_launches(layers, 1, arch)
-    log(label, json.dumps({
-        "arch": arch, "layers": layers, "seq_len": seq_len,
-        "loss_kernels": lk, "loss_plain": lp,
-        "loss_rel": loss_rel, "loss_tol": LOSS_TOL, "grad_rel_l2": rel,
-        "worst_leaf": max(rel.items(), key=lambda kv: kv[1]),
-        "ssd_fed_rel_l2": {k: r for k, r in rel.items()
-                           if k.rsplit("/", 1)[-1] in SSD_FED_LEAVES},
-        "grad_tol": E2E_TOL, "grads_finite": finite, "launches": counts}))
+    row = {"arch": arch, "layers": layers, "seq_len": seq_len,
+           "batch": batch, "loss_kernels": lk, "loss_plain": lp,
+           "loss_rel": loss_rel, "loss_tol": LOSS_TOL, "grad_rel_l2": rel,
+           "worst_leaf": max(rel.items(), key=lambda kv: kv[1]),
+           "ssd_fed_rel_l2": {k: r for k, r in rel.items()
+                              if k.rsplit("/", 1)[-1] in SSD_FED_LEAVES},
+           "grad_tol": E2E_TOL, "grads_finite": finite, "launches": counts}
+    if zero:
+        row["zero_grad_leaves_vs_bv_grad"] = zero
+    if moe:
+        own = get_config(arch)
+        E, K = own.num_experts, own.num_experts_per_tok
+        S = seq_len
+        C = max(int(math.ceil(S * K / E * own.moe_capacity_factor)), 1)
+        dropped = pairs = 0
+        for ek, _ in routes_k:
+            per = torch.zeros((ek.shape[0], E), dtype=torch.long,
+                              device=ek.device)
+            per.scatter_add_(1, ek.reshape(ek.shape[0], -1),
+                             torch.ones_like(ek.reshape(ek.shape[0], -1)))
+            dropped += int(torch.clamp(per - C, min=0).sum())
+            pairs += ek.numel()
+        row.update(
+            capacity_factor=cfg.moe_capacity_factor,
+            own_capacity_factor=own.moe_capacity_factor,
+            own_factor_dropped_pair_share=dropped / pairs,
+            plain_routed_by_kernel_choices=True,
+            routing_flips_kernel_vs_plain=sum(
+                int((ek != ep).any(-1).sum())
+                for (ek, _), (ep, _) in zip(routes_k, routes_p)),
+            routed_tokens=sum(ek.shape[0] * ek.shape[1]
+                              for ek, _ in routes_k))
+    log(label, json.dumps(row))
     if not loss_rel <= LOSS_TOL:
         failures.append(f"{label} loss kernels {lk} vs plain {lp}")
-    bad = {k: r for k, r in rel.items() if not r <= E2E_TOL}
+    bad = {k: r for k, r in list(rel.items()) + list(zero.items())
+           if not r <= E2E_TOL}
     if bad or not finite:
         failures.append(f"{label} grads rel L2 > {E2E_TOL}: {bad}, "
                         f"finite={finite}")
@@ -1764,6 +1977,17 @@ def main() -> int:
                             prompt_len, f"parts_{tag}")
         del params, prompt
         log(f"{arch} phases: {time.perf_counter() - t0:.2f} s")
+    for arch, tag, prompt_len in ((WHISPER, "whisper", WHISPER_PROMPT),
+                                  (LLAVA, "llava", LLAVA_PROMPT)):
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        counts.append(phase_serving(failures, arch, prompt_len,
+                                    f"serving_{tag}"))
+        params, prompt = phase_end_to_end(failures, arch, prompt_len,
+                                          f"end_to_end_{tag}")
+        phase_breakdown(params, prompt, arch, f"breakdown_{tag}", ops=True)
+        del params, prompt
+        log(f"{arch} phases: {time.perf_counter() - t0:.2f} s")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     train_counts, train_steps_s = phase_training(failures)
@@ -1774,10 +1998,26 @@ def main() -> int:
     for arch in ("mamba2-130m", "zamba2-1.2b"):
         tag = arch.split("-")[0]
         t0 = time.perf_counter()
-        counts.append(phase_training_ssm(failures, arch))
+        counts.append(phase_training_arch(failures, arch))
         phase_training_end_to_end(failures, arch, SSM_E2E_LAYERS[arch],
                                   SSM_TRAIN_SEQ,
                                   f"end_to_end_training_{tag}")
+        log(f"{arch} training phases: {time.perf_counter() - t0:.2f} s")
+    # whisper at full size (e2e too); llava at LLAVA_TRAIN_LAYERS (e2e at
+    # LLAVA_E2E_LAYERS); the MoE archs at their training depth (e2e too)
+    whisper_layers = get_config(WHISPER).num_layers
+    for arch, tag, layers, e2e_layers, batch, seq in (
+            (WHISPER, "whisper", None, whisper_layers, TRAIN_BATCH,
+             WHISPER_PROMPT),
+            (LLAVA, "llava", LLAVA_TRAIN_LAYERS, LLAVA_E2E_LAYERS,
+             TRAIN_BATCH, LLAVA_PROMPT)) + tuple(
+            (arch, tag, n, n, batch, seq)
+            for arch, tag, n, batch, seq in MOE_TRAIN):
+        t0 = time.perf_counter()
+        counts.append(phase_training_arch(failures, arch, layers, seq, batch,
+                                          f"training_{tag}"))
+        phase_training_end_to_end(failures, arch, e2e_layers, seq,
+                                  f"end_to_end_training_{tag}", batch)
         log(f"{arch} training phases: {time.perf_counter() - t0:.2f} s")
     for name, phase, args in (
             ("training_carousel", phase_training_carousel, (train_steps_s,)),

@@ -1,12 +1,17 @@
 """Batched serving driver: prefill a batch of prompts, decode greedily.
 
 The PyTorch twin of ``repro/launch/serve.py::run_serving``, for every
-ported family: dense (yi-6b, qwen1.5-4b, qwen1.5-32b, starcoder2-15b; a
-bf16 or int8 KV cache), moe (mixtral-8x7b, qwen3-moe-235b-a22b), ssm
-(mamba2-130m, conv tails and SSM state) and hybrid (zamba2-1.2b, both).
-One card holds the model, so there is no mesh and there are no sharding
-rules; ``--layers`` cuts the depth of an arch too deep for the card.
-Weights are random, drawn on the device from a seeded generator.
+family of the zoo: dense (yi-6b, qwen1.5-4b, qwen1.5-32b, starcoder2-15b;
+a bf16 or int8 KV cache), moe (mixtral-8x7b, qwen3-moe-235b-a22b), ssm
+(mamba2-130m, conv tails and SSM state), hybrid (zamba2-1.2b, both),
+encdec (whisper-tiny: the prompt is the decoder's, and the encoder's
+frames come beside it; a self and a cross cache) and vlm
+(llava-next-mistral-7b: the image patches go in front of the prompt, so
+the cache and the decode positions count them).  One card holds the
+model, so there is no mesh and there are no sharding rules; ``--layers``
+cuts the depth of an arch too deep for the card.  Weights are random,
+drawn on the device from a seeded generator, and so are the modality
+inputs.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --full \
         --prompt-len 512 --gen 32 --batch 4
@@ -14,6 +19,8 @@ Weights are random, drawn on the device from a seeded generator.
         --full --prompt-len 2048 --gen 32 --batch 4
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch qwen3-moe-235b-a22b --full --layers 6 --prompt-len 512
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-tiny \
+        --full --prompt-len 448 --gen 32 --batch 4
 """
 from __future__ import annotations
 
@@ -54,10 +61,10 @@ def run_serving(arch: str, *, smoke: bool = True, prompt_len: int = 32,
                 gen: int = 16, batch: int = 4, device: str = "cuda",
                 run: Optional[RunConfig] = None, seed: int = 0,
                 num_layers: Optional[int] = None) -> Dict[str, Any]:
-    """Prefills ``batch`` random prompts of ``prompt_len`` tokens, then
-    decodes ``gen - 1`` more tokens greedily.  Prompts come from ``seed``
-    and weights from ``seed + 1``.  ``num_layers`` cuts the depth (the
-    width stays)."""
+    """Prefills ``batch`` random prompts of ``prompt_len`` tokens (with
+    their frames or image patches), then decodes ``gen - 1`` more tokens
+    greedily.  Prompts come from ``seed`` and weights from ``seed + 1``.
+    ``num_layers`` cuts the depth (the width stays)."""
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
     if num_layers is not None:
         cfg = cfg.replace(num_layers=num_layers)
@@ -70,7 +77,8 @@ def run_serving(arch: str, *, smoke: bool = True, prompt_len: int = 32,
     prompts = registry.synth_inputs(
         torch.Generator(device=dev).manual_seed(seed), cfg, shape,
         "prefill", device=dev)
-    max_len = prompt_len + gen + 8
+    extra = cfg.num_img_patches if cfg.family == "vlm" else 0
+    max_len = prompt_len + extra + gen + 8
     params = init_params(cfg, seed + 1, dev)
     cache = engine.init_cache(cfg, batch, max_len, device=dev)
 
@@ -85,7 +93,8 @@ def run_serving(arch: str, *, smoke: bool = True, prompt_len: int = 32,
         t1 = time.perf_counter()
         for i in range(gen - 1):
             tok, cache = engine.decode_step(params, tok, cache,
-                                            prompt_len + i, cfg=cfg, run=run)
+                                            prompt_len + extra + i,
+                                            cfg=cfg, run=run)
             out_tokens.append(tok)
         _sync(dev)
         t_decode = time.perf_counter() - t1

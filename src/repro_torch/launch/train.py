@@ -14,10 +14,15 @@ the card as it is taken.  ``--no-carousel`` trains on synthetic batches
 instead: batch ``i`` comes from ``synth_inputs`` with seed ``i``, as the
 JAX entry point draws it from ``PRNGKey(i)``.
 
-It trains every family the port registers but MoE: the dense archs
-(yi-6b and the rest), mamba2-130m (SSM) and zamba2-1.2b (hybrid), on
-the card through the kernels (the SSD scan's backward included) or on
-the CPU through their plain versions.  One card holds the model, so
+It trains every family the port registers: the dense archs (yi-6b and
+the rest), the MoE archs (mixtral-8x7b, qwen3-moe-235b-a22b),
+mamba2-130m (SSM), zamba2-1.2b (hybrid), whisper-tiny (encoder-decoder)
+and llava-next-mistral-7b (VLM), on the card through the kernels (the
+SSD scan's backward included) or on the CPU through their plain
+versions.  whisper's batches carry ``frames`` and llava's
+``img_embeds``: from ``synth_inputs`` on synthetic batches, zeros on
+the device beside the carousel's tokens, as the JAX entry point's
+``_modality_extras`` makes them.  One card holds the model, so
 there is no mesh and there are no sharding rules.  Weights are random,
 drawn on the device from a seeded generator.  With ``out_dir`` an
 AsyncCheckpointer saves the state every ``ckpt_every`` steps and after
@@ -67,10 +72,24 @@ def make_carousel_pipeline(cfg, *, seq_len: int, batch_rows: int,
     return stager, delivery
 
 
-def _batch_iter_carousel(delivery: DeliveryIterator,
+def _modality_extras(cfg, batch: int,
+                     device: torch.device) -> Dict[str, torch.Tensor]:
+    """Zero frames (whisper) or image patches (VLM) for a carousel batch of
+    ``batch`` rows, which holds tokens only."""
+    extra = registry.modality_input(cfg)
+    if extra is None:
+        return {}
+    name, n = extra
+    return {name: torch.zeros((batch, n, cfg.d_model), dtype=torch.bfloat16,
+                              device=device)}
+
+
+def _batch_iter_carousel(cfg, delivery: DeliveryIterator,
                          device: torch.device) -> Iterator[Dict[str, Any]]:
     for b in delivery:
-        yield device_put(b, device)
+        out = device_put(b, device)
+        out.update(_modality_extras(cfg, out["tokens"].shape[0], device))
+        yield out
 
 
 def _batch_iter_synth(cfg, shape, device) -> Iterator[Dict[str, Any]]:
@@ -155,7 +174,7 @@ def run_training(
             cfg, seq_len=seq_len, batch_rows=global_batch,
             n_shards=max(8, steps), coarse=coarse,
             tape_latency=tape_latency, drives=drives)
-        batches = _batch_iter_carousel(delivery, dev)
+        batches = _batch_iter_carousel(cfg, delivery, dev)
     else:
         batches = _batch_iter_synth(cfg, shape, dev)
 

@@ -1,13 +1,14 @@
-"""Layers of the decoder, ported from ``repro/models/layers.py``.
+"""Layers of the model zoo, ported from ``repro/models/layers.py``.
 
-What the dense and MoE serving paths run: norms, RoPE, GQA attention
-(full or sliding window) with a bf16 or int8 KV cache, the MLP, the
-top-k MoE block, the embedding and the LM head.  Params are nested dicts
-of tensors in the JAX layout; every forward function takes ``(p, cfg,
-run, ...)`` with ``p`` the param subtree.  The large projections and the
-expert products stay plain ``@`` / ``bmm`` (cuBLAS), as the JAX package
-leaves them to XLA outside any kernel; so do the int8 (de)quantisation
-and the MoE routing, which it computes in jnp.
+Norms, RoPE and sinusoidal positions, GQA attention (causal or not, full
+or sliding window; self- or cross-attention) with a bf16 or int8 KV
+cache, the MLP, the top-k MoE block, the embedding and the LM head.
+Params are nested dicts of tensors in the JAX layout; every forward
+function takes ``(p, cfg, run, ...)`` with ``p`` the param subtree.  The
+large projections and the expert products stay plain ``@`` / ``bmm``
+(cuBLAS), as the JAX package leaves them to XLA outside any kernel; so
+do the int8 (de)quantisation and the MoE routing, which it computes in
+jnp.
 """
 from __future__ import annotations
 
@@ -117,6 +118,18 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
                      dim=-1).to(x.dtype)
 
 
+def sinusoidal_positions(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """positions: (S,).  Returns the (S, d) f32 table [sin | cos] of
+    ``repro/models/layers.py::sinusoidal_positions``; the caller casts it
+    to the activations' dtype before adding it."""
+    pos = positions.float()[:, None]
+    dim = torch.arange(d // 2, dtype=torch.float32,
+                       device=positions.device)[None, :]
+    ang = pos / torch.pow(torch.tensor(10_000.0, device=positions.device),
+                          2 * dim / d)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # KV cache (bf16 or int8-quantised)
 # ---------------------------------------------------------------------------
@@ -208,29 +221,46 @@ def _attention_kvseq(q, k, v, *, causal: bool, q_offset: int,
 def attention(p: Params, cfg: ModelConfig, run: RunConfig, x: torch.Tensor,
               *, pos: int, causal: bool = True,
               cache: Optional[Params] = None,
-              kv_len: Optional[int] = None
+              kv_len: Optional[int] = None,
+              xkv: Optional[torch.Tensor] = None,
+              cache_read_only: bool = False, use_rope: bool = True
               ) -> Tuple[torch.Tensor, Optional[Params]]:
-    """GQA self-attention with an optional one-layer KV cache.
+    """GQA attention with an optional one-layer KV cache.
 
-    x: (B, S, d_model) at absolute positions ``pos .. pos + S - 1``; with a
-    cache, the new K/V are written at ``pos`` and attention reads the
-    whole cache with ``kv_len`` valid entries.  Returns (out, cache).
+    x: (B, S, d_model) at absolute positions ``pos .. pos + S - 1``.  Self-
+    attention (``xkv`` None): with a cache, the new K/V are written at
+    ``pos`` and attention reads the whole cache with ``kv_len`` valid
+    entries.  Cross-attention: K and V come from ``xkv`` (the encoder's
+    output), with no RoPE, and a cache is filled from row 0; with
+    ``cache_read_only`` (decode) the cache is read as it stands and
+    nothing is written.  ``use_rope`` False leaves q and k unrotated.
+    Returns (out, cache).
     """
     B, S, _ = x.shape
     Hq, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     positions = pos + torch.arange(S, device=x.device)
 
     q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
     if "bq" in p:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = rope(q.reshape(B, S, Hq, Dh), positions, cfg.rope_theta)
-    k = rope(k.reshape(B, S, Hkv, Dh), positions, cfg.rope_theta)
-    v = v.reshape(B, S, Hkv, Dh)
-    if cache is not None:
-        cache = cache_update(cache, k, v, pos)
+        q = q + p["bq"]
+    q = q.reshape(B, S, Hq, Dh)
+    if use_rope:
+        q = rope(q, positions, cfg.rope_theta)
+    if cache_read_only:
         k, v = cache_read(cache)
+    else:
+        src = x if xkv is None else xkv
+        k = src @ p["wk"]
+        v = src @ p["wv"]
+        if "bk" in p:
+            k, v = k + p["bk"], v + p["bv"]
+        k = k.reshape(B, -1, Hkv, Dh)
+        v = v.reshape(B, -1, Hkv, Dh)
+        if use_rope and xkv is None:
+            k = rope(k, positions, cfg.rope_theta)
+        if cache is not None:
+            cache = cache_update(cache, k, v, pos if xkv is None else 0)
+            k, v = cache_read(cache)
     k, v = k.to(q.dtype), v.to(q.dtype)
 
     if S == 1:
@@ -278,17 +308,25 @@ class MoERoute(NamedTuple):
 
 def moe_route(p: Params, cfg: ModelConfig, x: torch.Tensor) -> MoERoute:
     """The routing of ``_moe_block_gspmd``: f32 router logits, softmax,
-    top-K (ties to the lower expert, as ``lax.top_k``), the weights
-    renormalised; then in each batch row a stable sort of the (token, k)
-    pairs by expert gives a pair its rank in its expert, and ranks >= C =
-    ceil(S K / E * capacity_factor) drop (the row's latest tokens first).
-    """
-    B, S, _ = x.shape
-    E, K = cfg.num_experts, cfg.num_experts_per_tok
-    C = max(int(math.ceil(S * K / E * cfg.moe_capacity_factor)), 1)
+    top-K (ties to the lower expert, as ``lax.top_k``); then
+    :func:`moe_assign`."""
+    K = cfg.num_experts_per_tok
     gates = torch.softmax(x.float() @ p["router"].float(), dim=-1)
-    top_w, top_e = torch.sort(gates, dim=-1, descending=True, stable=True)
-    top_w, top_e = top_w[..., :K], top_e[..., :K]
+    top_e = torch.sort(gates, dim=-1, descending=True, stable=True)[1]
+    return moe_assign(cfg, gates, top_e[..., :K])
+
+
+def moe_assign(cfg: ModelConfig, gates: torch.Tensor,
+               top_e: torch.Tensor) -> MoERoute:
+    """The route of each token's K chosen experts ``top_e`` (B, S, K):
+    their gates (B, S, E) renormalised over the K; then in each batch row
+    a stable sort of the (token, k) pairs by expert gives a pair its rank
+    in its expert, and ranks >= C = ceil(S K / E * capacity_factor) drop
+    (the row's latest tokens first)."""
+    B, S, K = top_e.shape
+    E = cfg.num_experts
+    C = max(int(math.ceil(S * K / E * cfg.moe_capacity_factor)), 1)
+    top_w = gates.gather(-1, top_e)
     top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
     # a token's pairs by expert: the order in which JAX's scatter-add
     # combines them (its stable sort puts a row's pairs in expert order)
@@ -299,9 +337,9 @@ def moe_route(p: Params, cfg: ModelConfig, x: torch.Tensor) -> MoERoute:
     order = torch.argsort(flat_e, dim=-1, stable=True)
     se = flat_e.gather(1, order)
     first = torch.searchsorted(
-        se, torch.arange(E, device=x.device).expand(B, E).contiguous())
-    rank = torch.arange(S * K, device=x.device) - first.gather(1, se)
-    b = torch.arange(B, device=x.device)[:, None]
+        se, torch.arange(E, device=gates.device).expand(B, E).contiguous())
+    rank = torch.arange(S * K, device=gates.device) - first.gather(1, se)
+    b = torch.arange(B, device=gates.device)[:, None]
     # rank and slot back in (token, k) order
     pos = torch.empty_like(rank).scatter_(1, order, rank)
     pos = pos.reshape(B, S, K)

@@ -1,27 +1,33 @@
 """Model registry: family -> module dispatch, and input synthesis.
 
-Ported from ``repro/models/registry.py`` for the dense, moe, ssm
-(mamba2) and hybrid (zamba2) families; every model module exposes ``param_defs``, ``forward``, ``cache_defs``,
-``prefill`` and ``decode`` with the signatures of the JAX package (``pos``
-is a Python int).
+Ported from ``repro/models/registry.py`` for every family of the zoo:
+dense, moe and vlm (``transformer``), ssm (``mamba2``), hybrid
+(``hybrid``) and encdec (``whisper``).  Every model module exposes
+``param_defs``, ``forward``, ``cache_defs``, ``prefill`` and ``decode``
+with the signatures of the JAX package (``pos`` is a Python int).  The
+modality frontends (whisper's mel conv, llava's vision tower) are stubs,
+as in the JAX package: the inputs carry precomputed frame or patch
+embeddings.
 """
 from __future__ import annotations
 
 from types import ModuleType
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig, RunConfig, ShapeConfig
-from repro_torch.models import hybrid, mamba2, transformer
+from repro_torch.models import hybrid, mamba2, transformer, whisper
 
 Params = Dict[str, Any]
 
 _FAMILY_MODULES: Dict[str, ModuleType] = {
     "dense": transformer,
     "moe": transformer,
+    "vlm": transformer,
     "ssm": mamba2,
     "hybrid": hybrid,
+    "encdec": whisper,
 }
 
 
@@ -35,6 +41,27 @@ def module_for(cfg: ModelConfig) -> ModuleType:
 
 def param_defs(cfg: ModelConfig) -> Params:
     return module_for(cfg).param_defs(cfg)
+
+
+def modality_input(cfg: ModelConfig) -> Optional[Tuple[str, int]]:
+    """The precomputed embeddings a family takes beside its tokens, as
+    (batch key, length): whisper's ``frames``, a VLM's ``img_embeds``;
+    None for the other families."""
+    if cfg.family == "encdec":
+        return "frames", cfg.encoder_frames
+    if cfg.family == "vlm":
+        return "img_embeds", cfg.num_img_patches
+    return None
+
+
+def layer_stacks(cfg: ModelConfig) -> Dict[str, int]:
+    """The subtrees of the param tree stacked on a leading layer axis,
+    with their depths: whisper's encoder and decoder stacks, or every
+    other family's ``blocks``."""
+    if cfg.family == "encdec":
+        return {"enc_blocks": cfg.encoder_layers,
+                "dec_blocks": cfg.num_layers}
+    return {"blocks": cfg.num_layers}
 
 
 def forward(params: Params, cfg: ModelConfig, run: RunConfig,
@@ -59,10 +86,12 @@ def decode(params: Params, cfg: ModelConfig, run: RunConfig,
 def synth_inputs(generator: torch.Generator, cfg: ModelConfig,
                  shape: ShapeConfig, kind: Optional[str] = None,
                  device: str = "cuda") -> Dict[str, Any]:
-    """Random token inputs for one (shape, kind), drawn from
-    ``generator`` (which must live on ``device``): ``tokens`` (B, S), and
-    for ``"train"`` also ``labels`` (B, S) and a float ``loss_mask`` of
-    ones, as in ``repro/models/registry.py::synth_inputs``."""
+    """Random inputs for one (shape, kind), drawn from ``generator``
+    (which must live on ``device``), as in ``repro/models/registry.py::
+    synth_inputs``: ``tokens`` (B, S); for ``"train"`` also ``labels``
+    (B, S) and a float ``loss_mask`` of ones; for whisper ``frames`` (B,
+    encoder_frames, d_model) and for a VLM ``img_embeds`` (B,
+    num_img_patches, d_model), bf16, normal times 0.02."""
     kind = kind or shape.kind
     B, S = shape.global_batch, shape.seq_len
     if kind == "decode":
@@ -78,4 +107,9 @@ def synth_inputs(generator: torch.Generator, cfg: ModelConfig,
                                       generator=generator, device=device)
         out["loss_mask"] = torch.ones((B, S), dtype=torch.float32,
                                       device=device)
+    extra = modality_input(cfg)
+    if extra:
+        name, n = extra
+        out[name] = (torch.randn((B, n, cfg.d_model), generator=generator,
+                                 device=device) * 0.02).to(torch.bfloat16)
     return out

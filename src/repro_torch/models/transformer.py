@@ -1,6 +1,9 @@
-"""Decoder-only transformer, dense and MoE families, ported from
+"""Decoder-only transformer, dense, MoE and VLM families, ported from
 ``repro/models/transformer.py``.  An MoE block has ``block["moe"]`` (top-k
-experts, ``layers.moe_block``) where a dense one has ``block["mlp"]``.
+experts, ``layers.moe_block``) where a dense one has ``block["mlp"]``.  A
+VLM (llava) puts its precomputed patch embeddings (``img_embeds``, cast to
+the activations' dtype) in front of the token embeddings; positions run
+over the whole sequence, so RoPE covers the patches.
 
 Layers are stacked on a leading L axis as in the JAX tree; a Python loop
 over layers takes the place of ``lax.scan``.  ``run.remat="full"`` wraps
@@ -31,9 +34,9 @@ Params = Dict[str, Any]
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "moe", "vlm"):
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (dense and moe only)")
+            f"family {cfg.family!r} is not a decoder-only transformer")
 
 
 def param_defs(cfg: ModelConfig) -> Params:
@@ -104,11 +107,20 @@ def _run_blocks(params: Params, cfg: ModelConfig, run: RunConfig,
     return L.rmsnorm(params["ln_f"], x, cfg, run)
 
 
+def _embed_inputs(params: Params, cfg: ModelConfig,
+                  batch: Dict[str, Any]) -> torch.Tensor:
+    x = L.embed(params["embed"], batch["tokens"])
+    if cfg.family == "vlm" and "img_embeds" in batch:
+        x = torch.cat([batch["img_embeds"].to(x.dtype), x], dim=1)
+    return x
+
+
 def forward(params: Params, cfg: ModelConfig, run: RunConfig,
             batch: Dict[str, Any]) -> torch.Tensor:
-    """Forward over a (B, S) batch -> final hidden states (B, S, d)."""
+    """Forward over a (B, S) batch -> final hidden states (B, S_total, d),
+    S_total counting a VLM's patches."""
     _check_family(cfg)
-    x = L.embed(params["embed"], batch["tokens"])
+    x = _embed_inputs(params, cfg, batch)
     return _run_blocks(params, cfg, run, x, 0, remat=run.remat)
 
 
@@ -119,10 +131,11 @@ def cache_defs(cfg: ModelConfig, batch: int, max_len: int) -> Params:
 def prefill(params: Params, cfg: ModelConfig, run: RunConfig,
             batch: Dict[str, Any], cache: Params
             ) -> Tuple[torch.Tensor, Params]:
-    """Fills the cache from a (B, S) prompt; returns last-position logits
-    (B, 1, V) and the cache (the same object, filled in place)."""
+    """Fills the cache from a (B, S) prompt (after a VLM's patches);
+    returns last-position logits (B, 1, V) and the cache (the same object,
+    filled in place)."""
     _check_family(cfg)
-    x = L.embed(params["embed"], batch["tokens"])
+    x = _embed_inputs(params, cfg, batch)
     S = x.shape[1]
     x = _run_blocks(params, cfg, run, x, 0, cache=cache, kv_len=S)
     return L.logits_out(params["embed"], cfg, run, x[:, -1:]), cache

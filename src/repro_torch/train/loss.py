@@ -106,8 +106,11 @@ def ce_direct(hidden: torch.Tensor, w_vocab: torch.Tensor,
 def lm_loss(params, cfg: ModelConfig, run: RunConfig,
             batch: Dict[str, Any]
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Next-token LM loss: (loss, {"loss", "tokens"})."""
-    x = registry.forward(params, cfg, run, batch)  # (B, S, d)
+    """Next-token LM loss: (loss, {"loss", "tokens"}); a VLM's over its
+    text positions only."""
+    x = registry.forward(params, cfg, run, batch)  # (B, S_total, d)
+    if cfg.family == "vlm":
+        x = x[:, cfg.num_img_patches:]
     B, S, D = x.shape
     hidden = x.reshape(B * S, D)
     targets = batch["labels"].reshape(B * S)

@@ -10,7 +10,9 @@ Gradients are taken on per-layer views.  The params keep their stacked
 (L, ...) leaves; for the backward, each layer's slice becomes a leaf of
 its own (a view that shares the stack's memory) and a hook adds its
 gradient into the layer's slice of one stacked gradient buffer as soon as
-autograd has it.  Indexing the stacks inside the graph instead would make
+autograd has it.  Every stacked subtree of the tree is walked so
+(``registry.layer_stacks``: ``blocks``, or whisper's ``enc_blocks`` and
+``dec_blocks``).  Indexing the stacks inside the graph instead would make
 autograd build a zero tensor of the whole stack for every layer and add
 them up: for the 2.9 GB MLP stacks of yi-6b, 32 whole-stack temporaries
 per leaf per step.
@@ -53,11 +55,11 @@ def _zip_map(f, a, b):
     return f(a, b)
 
 
-def _grad_leaves(params, bufs, num_layers: int):
-    """The params as a tree of fresh leaves that require grad — the
-    blocks as a list of per-layer trees of views into the stacks — each
-    with a hook that adds its gradient into the matching slice of
-    ``bufs``.  Returns (tree, leaves)."""
+def _grad_leaves(params, bufs, stacks: Dict[str, int]):
+    """The params as a tree of fresh leaves that require grad — each
+    stacked subtree named in ``stacks`` as a list of per-layer trees of
+    views into the stacks — each with a hook that adds its gradient into
+    the matching slice of ``bufs``.  Returns (tree, leaves)."""
     leaves: List[torch.Tensor] = []
 
     def leaf(p: torch.Tensor, buf: torch.Tensor) -> torch.Tensor:
@@ -67,10 +69,10 @@ def _grad_leaves(params, bufs, num_layers: int):
         return t
 
     tree = {k: _zip_map(leaf, v, bufs[k])
-            for k, v in params.items() if k != "blocks"}
-    tree["blocks"] = [
-        _zip_map(lambda p, b: leaf(p[i], b[i]), params["blocks"],
-                 bufs["blocks"]) for i in range(num_layers)]
+            for k, v in params.items() if k not in stacks}
+    for k, n in stacks.items():
+        tree[k] = [_zip_map(lambda p, b: leaf(p[i], b[i]), params[k],
+                            bufs[k]) for i in range(n)]
     return tree, leaves
 
 
@@ -93,7 +95,7 @@ def grads_and_metrics(params, cfg: ModelConfig, run: RunConfig,
         lambda p: torch.float32)
     grads = P.tree_map(lambda p: torch.zeros(p.shape, dtype=gdtype(p),
                                              device=p.device), params)
-    tree, _ = _grad_leaves(params, grads, cfg.num_layers)
+    tree, _ = _grad_leaves(params, grads, registry.layer_stacks(cfg))
     if accum == 1:
         loss, aux = lm_loss(tree, cfg, run, batch)
         loss.backward()

@@ -41,6 +41,7 @@ CASES = [
     (1, 96, 160, 4, 2, 64, False, 0, 0, None),
     (1, 80, 80, 40, 40, 32, True, 0, 0, None),
     (2, 70, 90, 4, 2, 16, True, 0, 0, 60),          # yi-6b-smoke head_dim
+    (1, 300, 1500, 6, 6, 64, False, 0, 0, None),    # whisper cross-attention
 ]
 DTYPES = [torch.float32, torch.bfloat16]
 # The backward's tensor-core tiles (64 keys x 32 q rows for dk/dv, 64 q
@@ -261,6 +262,134 @@ def test_moe_block_is_bit_equal_across_runs(cuda, arch, S):
         b = layers.moe_block(p, cfg, RunConfig(), x)
     assert a.shape == x.shape and bool(torch.isfinite(a).all())
     assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "qwen3-moe-235b-a22b"])
+def test_moe_grads_are_bit_equal_across_runs(cuda, arch):
+    """Two ``grads_and_metrics`` of an MoE smoke model that drops pairs
+    give the same gradient bits: the backward of the combine's gather
+    (``index_put_`` with accumulate, atomic on the card) sums only the
+    zeros of dropped pairs where its indices collide."""
+    from repro_torch.models import layers
+
+    # at half the capacity a token's pairs have, pairs drop in every row
+    cfg = get_smoke_config(arch).replace(moe_capacity_factor=0.5)
+    params = serve.init_params(cfg, 1, cuda)
+    batch = registry.synth_inputs(torch.Generator(device=cuda).manual_seed(
+        11), cfg, ShapeConfig("t", 96, 2, "train"), device=cuda)
+    with torch.no_grad():
+        x = params["embed"]["tok"][batch["tokens"]]
+        p0 = {k: v[0] for k, v in params["blocks"]["moe"].items()}
+        assert not bool(layers.moe_route(p0, cfg, x).keep.all())
+    run = RunConfig(ce_block_v=64)
+    ga, ma = tstep.grads_and_metrics(params, cfg, run, batch)
+    gb, mb = tstep.grads_and_metrics(params, cfg, run, batch)
+    assert float(ma["loss"]) == float(mb["loss"])
+    for a, b in zip(tree_leaves(ga), tree_leaves(gb)):
+        assert bool(torch.isfinite(a).all())
+        bits = torch.int16 if a.element_size() == 2 else torch.int32
+        assert torch.equal(a.view(bits), b.view(bits))
+
+
+def _launch_counts():
+    return (krms.launches, krms.bwd_launches, kflash.launches,
+            kflash.bwd_launches, kce.launches)
+
+
+def _reset_launches():
+    for mod in (krms, kflash, kce):
+        mod.launches = 0
+    krms.bwd_launches = kflash.bwd_launches = 0
+
+
+@pytest.mark.parametrize("arch", ["whisper-tiny", "llava-next-mistral-7b"])
+def test_smoke_encdec_and_vlm_serving_kernels_match_plain(cuda, arch):
+    """A prefill (whisper: its encoder and the cross cache; llava: the
+    patches in front of the prompt) and a decode step through the kernels
+    against the plain versions, and ``run_serving`` on the card, counted:
+    flash in the prefill only; whisper's encoder norms in the prefill
+    only."""
+    cfg = get_smoke_config(arch)
+    params = serve.init_params(cfg, 1, cuda)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    inputs = registry.synth_inputs(g, cfg, ShapeConfig("t", 41, 2,
+                                                       "prefill"),
+                                   device=cuda)
+    toks = inputs.pop("tokens")
+    extra = cfg.num_img_patches if cfg.family == "vlm" else 0
+    out = {}
+    for name, run in (("kernel", RunConfig()),
+                      ("plain", RunConfig(use_kernels=False))):
+        cache = engine.init_cache(cfg, 2, 40 + extra + 8, cuda)
+        with torch.inference_mode():
+            lp, cache = registry.prefill(params, cfg, run,
+                                         dict(inputs, tokens=toks[:, :40]),
+                                         cache)
+            ld, _ = registry.decode(params, cfg, run, toks[:, 40:], cache,
+                                    40 + extra)
+        out[name] = (lp, ld)
+    for a, b in zip(out["kernel"], out["plain"]):
+        torch.testing.assert_close(a, b, rtol=3e-2, atol=3e-2)
+    _reset_launches()
+    res = serve.run_serving(arch, smoke=True, prompt_len=40, gen=4,
+                            batch=2, device="cuda")
+    assert res["generated"] == (2, 4)
+    L = cfg.num_layers
+    if cfg.family == "encdec":
+        Le = cfg.encoder_layers
+        want = (2 * Le + 1 + 4 * (3 * L + 1), 0, Le + 2 * L, 0, 0)
+    else:
+        want = (4 * (2 * L + 1), 0, L, 0, 0)
+    assert _launch_counts() == want
+
+
+@pytest.mark.parametrize("arch", ["whisper-tiny", "llava-next-mistral-7b"])
+def test_smoke_encdec_and_vlm_training_on_card(cuda, arch):
+    """Smoke training on the card, synthetic and carousel-fed, launches
+    what the code implies and gives finite losses; one step's gradients
+    agree with the plain path's (loss 1e-2, leaves relative L2 5e-2;
+    whisper's key biases, whose gradients are zero but for rounding,
+    against the norm of the value bias's)."""
+    cfg = get_smoke_config(arch)
+    L = cfg.num_layers
+    if cfg.family == "encdec":
+        n, a = 2 * cfg.encoder_layers + 3 * L, cfg.encoder_layers + 2 * L
+        want = (2 * n + 2, n + 2, 2 * a, a, 1)
+    else:
+        want = (4 * L + 1, 2 * L + 1, 2 * L, L, 1)
+    for carousel in (False, True):
+        _reset_launches()
+        res = train.run_training(arch, smoke=True, steps=2, seq_len=48,
+                                 global_batch=2, carousel=carousel,
+                                 device="cuda")
+        assert res["steps"] == 2
+        assert all(torch.isfinite(torch.tensor(res["losses"])))
+        assert _launch_counts() == tuple(2 * w for w in want)
+
+    params = serve.init_params(cfg, 1, cuda)
+    batch = registry.synth_inputs(torch.Generator(device=cuda).manual_seed(
+        8), cfg, ShapeConfig("t", 48, 2, "train"), device=cuda)
+    gk, mk = tstep.grads_and_metrics(params, cfg, RunConfig(ce_block_v=64),
+                                     batch)
+    gp, mp = tstep.grads_and_metrics(
+        params, cfg, RunConfig(ce_block_v=64, use_kernels=False), batch)
+    torch.testing.assert_close(mk["loss"], mp["loss"], rtol=1e-2, atol=0)
+
+    def leaves(tree, prefix=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from leaves(v, f"{prefix}/{k}")
+            else:
+                yield f"{prefix}/{k}", v
+
+    grads_p = dict(leaves(gp))
+    for name, a in leaves(gk):
+        b = grads_p[name]
+        assert bool(torch.isfinite(a).all()), name
+        ref_norm = (grads_p[name[:-2] + "bv"] if name.endswith("/bk")
+                    else b).float().norm()
+        assert float((a.float() - b.float()).norm() / ref_norm) <= 5e-2, \
+            name
 
 
 # ---------------------------------------------------------------------------

@@ -149,13 +149,14 @@ def test_default_device_without_cuda_raises(monkeypatch):
 
 
 def test_unported_configs_raise():
-    """The families still to port (encoder-decoder, VLM) raise; a cache
-    dtype other than bf16 and int8 raises; an int8 cache has the JAX
-    structure (int8 K/V, f32 scales per (token, head))."""
+    """A family the zoo does not have raises (every family of the JAX
+    registry is ported); a cache dtype other than bf16 and int8 raises; an
+    int8 cache has the JAX structure (int8 K/V, f32 scales per (token,
+    head))."""
     cfg = get_smoke_config(ARCH)
-    for family in ("encdec", "vlm"):
-        with pytest.raises(NotImplementedError):
-            treg.param_defs(cfg.replace(family=family))
+    with pytest.raises(NotImplementedError):
+        treg.param_defs(cfg.replace(family="rwkv"))
+    assert set(treg._FAMILY_MODULES) == set(jreg._FAMILY_MODULES)
     with pytest.raises(NotImplementedError):
         tengine.init_cache(cfg.replace(kv_cache_dtype="float8"), 1, 4,
                            device="cpu")
