@@ -137,10 +137,24 @@ Phases, each of which fails the run (non-zero exit, no final result line):
    leaves relative L2 5e-2) and against "full" (printed), launches equal to
    "full"'s; then step time, peak memory and allocator retries of "full"
    and "dots" at REMAT_LAYERS layers, and one more step of each under
-   ``torch.profiler`` (wall, device time, busy share).
+   ``torch.profiler`` (wall, device time, busy share);
+13. cost_model: each timed run of phases 4, 7 and 8 (ten served models,
+   seven trained ones) counted again by the dry run's cost model
+   (``launch/dryrun.py::count_cell`` over ``launch/cost.py``, kernel
+   mode, on the meta device: no card, no allocation) at the same config,
+   depth, batch and length: the prefill and one decode step of a served
+   model, one step of a trained one.  Logs FLOPs, bytes, the bound at the
+   H100's data-sheet rates (``launch/mesh.py``) and its dominant term,
+   ``bound_share`` (the bound over the measured prefill, decode step or
+   step), and the counted peak beside ``max_memory_allocated`` and their
+   ratio (logged, not checked).  Fails when a kernel's counted calls over
+   the run differ from the launch counters the run read on the card, or
+   a count is not finite and positive.
 
 Phases 9-11 drive the entry point; each of their runs has its launch
-counters reset just before it and read just after.
+counters reset just before it and read just after.  Every kernel's bound
+(its ``work`` formula in ``kernels/``, over ``launch/mesh.py``'s rates)
+is the one the cost model charges a call of it.
 
 It prints a ``{"kernel_info": [...]}`` line, a ``{"kernels": [...]}`` line
 and, last, ``{"ok": true, ...}``.
@@ -177,7 +191,8 @@ from repro_torch.kernels import flash_attention as kflash  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import rmsnorm as krms  # noqa: E402
 from repro_torch.kernels import ssd_scan as kssd  # noqa: E402
-from repro_torch.launch import serve, train  # noqa: E402
+from repro_torch.launch import dryrun, serve, train  # noqa: E402
+from repro_torch.launch import mesh  # noqa: E402
 from repro_torch.models import layers  # noqa: E402
 from repro_torch.models import params as P  # noqa: E402
 from repro_torch.models import registry  # noqa: E402
@@ -185,10 +200,7 @@ from repro_torch.optim import adamw_update  # noqa: E402
 from repro_torch.serve import engine  # noqa: E402
 from repro_torch.train import step as tstep  # noqa: E402
 
-# H100 SXM published dense peaks (NVIDIA data sheet) at the 700 W limit.
-HBM_BYTES_PER_S = 3.35e12
 L2_BYTES = 50 * 2**20
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.bfloat16: 2e-2, torch.float32: 3e-5}
 SSD_TOL = {torch.bfloat16: 3e-2, torch.float32: 3e-4}
 E2E_TOL = 5e-2
@@ -251,6 +263,9 @@ CKPT_STEPS, CKPT_EVERY, CKPT_RESUME_STEPS = 4, 2, 2
 # of the card's 85.0 GB, so the whole model
 REMAT_LAYERS, REMAT_STEPS = 32, 3
 DEVICE = "cuda"
+# every timed serving and training run, as phase "cost_model" counts it
+# again: label, arch, layers, kind, batch, length, times, peak, launches
+TIMED_RUNS: list = []
 
 # B, Sq, Sk, Hq, Hkv, D, causal, window, q_off, kv_len: the six CASES of
 # tests/test_kernels.py, then the yi-6b prefill (cache of PROMPT + GEN + 8).
@@ -417,9 +432,9 @@ def _close(a: torch.Tensor, b: torch.Tensor, tol: float):
 
 
 def _bound(n_bytes: float, flops: float, dtype: torch.dtype):
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    """(ms, "bytes" or "operations"): ``launch/mesh.py``'s H100 bound."""
+    t, by = mesh.bound_s(n_bytes, flops, dtype)
+    return t * 1e3, by
 
 
 def _time_row(row: dict, fns: dict, sets: list, calls=10) -> None:
@@ -466,7 +481,7 @@ def phase_rmsnorm(gen: torch.Generator, failures: list) -> dict:
             torch.cuda.synchronize()
             ok, err = _close(got, want, TOL[dtype])
             worst = max(worst, err)
-            n_bytes = 2 * x.numel() * x.element_size() + D * w.element_size()
+            flops, n_bytes = krms.work(x, w)
             is_main = tuple(shape) == RMS_MAIN and dtype == torch.bfloat16
             cold = dtype == torch.bfloat16 and (
                 is_main or tuple(shape) in RMS_SSM + RMS_SERVE + RMS_NEW)
@@ -481,8 +496,7 @@ def phase_rmsnorm(gen: torch.Generator, failures: list) -> dict:
                 "library_ms": lambda x, w: F.rms_norm(x, (D,), w, eps)},
                 sets)
             del sets
-            row["bound_ms"], row["bound_by"] = _bound(
-                n_bytes, 3 * x.numel(), dtype)
+            row["bound_ms"], row["bound_by"] = _bound(n_bytes, flops, dtype)
             log("rmsnorm", json.dumps(row))
             if not ok:
                 failures.append(f"rmsnorm {shape} {dtype}: max err {err}")
@@ -518,10 +532,6 @@ def phase_flash(gen: torch.Generator, failures: list) -> dict:
         kw = dict(causal=causal, sliding_window=window, q_offset=q_off,
                   kv_len=kv_len)
         mask = _flash_mask(Sq, Sk, causal, window, q_off, kv_len)
-        # the work this call needs: (query, key) pairs that are visible,
-        # and the key rows that at least one query can see
-        pairs = int(mask.sum())
-        keys = int(mask.any(0).sum())
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v = (torch.randn((B, S, H, D), generator=gen,
                                    device="cuda").to(dtype)
@@ -531,8 +541,9 @@ def phase_flash(gen: torch.Generator, failures: list) -> dict:
             torch.cuda.synchronize()
             ok, err = _close(got, want, TOL[dtype])
             worst = max(worst, err)
-            n_bytes = (2 * q.numel() + 2 * B * keys * Hkv * D) \
-                * q.element_size()
+            # the work this call needs: the visible (query, key) pairs and
+            # the key rows that at least one query can see
+            flops, n_bytes = kflash.work(q, k, **kw)
             is_main = case == FLASH_MAIN and dtype == torch.bfloat16
             cold = dtype == torch.bfloat16 and case in [
                 FLASH_MAIN, FLASH_ZAMBA2] + FLASH_SERVE + FLASH_NEW_SERVE
@@ -561,8 +572,7 @@ def phase_flash(gen: torch.Generator, failures: list) -> dict:
                                                    attn_mask=mask)},
                 sets, NEW_SHAPE_CALLS if case in FLASH_NEW_SERVE else 10)
             del sets
-            row["bound_ms"], row["bound_by"] = _bound(
-                n_bytes, 4.0 * B * Hq * pairs * D, dtype)
+            row["bound_ms"], row["bound_by"] = _bound(n_bytes, flops, dtype)
             log("flash", json.dumps(row))
             if not ok:
                 failures.append(f"flash {case} {dtype}: max err {err}")
@@ -606,8 +616,7 @@ def phase_rmsnorm_bwd(gen: torch.Generator, failures: list) -> dict:
 
         ok, err = errors(got, *_close(inv, inv_ref, TOL[torch.float32]))
         worst = max(worst, err)
-        n_bytes = (3 * x.numel() * x.element_size() + 2 * D
-                   * w.element_size() + 4 * inv.numel())
+        flops, n_bytes = krms.bwd_work(x, w)
         is_main = tuple(shape) == RMS_MAIN and dtype == torch.bfloat16
         cold = dtype == torch.bfloat16 and (
             is_main or tuple(shape) in RMS_SSM + RMS_NEW)
@@ -630,8 +639,7 @@ def phase_rmsnorm_bwd(gen: torch.Generator, failures: list) -> dict:
                  lambda x, w: F.rms_norm(x, (D,), w, eps),
                  lambda x, w: (x, w), g, lib_sets)
         del sets, lib_sets
-        row["bound_ms"], row["bound_by"] = _bound(
-            n_bytes, 8 * x.numel(), dtype)
+        row["bound_ms"], row["bound_by"] = _bound(n_bytes, flops, dtype)
         log("rmsnorm_bwd", json.dumps(row))
         if not ok:
             failures.append(f"rmsnorm_bwd {shape} {dtype}: max err {err}")
@@ -655,8 +663,6 @@ def phase_flash_bwd(gen: torch.Generator, failures: list) -> dict:
         kw = dict(causal=causal, sliding_window=window, q_offset=q_off,
                   kv_len=kv_len)
         mask = _flash_mask(Sq, Sk, causal, window, q_off, kv_len)
-        pairs = int(mask.sum())
-        keys = int(mask.any(0).sum())
         for dtype in (torch.bfloat16, torch.float32):
             q, do = (torch.randn((B, Sq, Hq, D), generator=gen,
                                  device="cuda").to(dtype) for _ in range(2))
@@ -675,8 +681,7 @@ def phase_flash_bwd(gen: torch.Generator, failures: list) -> dict:
                 ok_i, err_i = _close(a, b, TOL[dtype])
                 ok, err = ok and ok_i, max(err, err_i)
             worst, worst_lse = max(worst, err), max(worst_lse, err_lse)
-            n_bytes = ((4 * q.numel() + 4 * B * keys * Hkv * D)
-                       * q.element_size() + 4 * lse.numel())
+            flops, n_bytes = kflash.bwd_work(q, k, **kw)
             is_main = case == FLASH_TRAIN and dtype == torch.bfloat16
             train = dtype == torch.bfloat16 and case in [
                 FLASH_TRAIN, FLASH_TRAIN_ZAMBA2] + FLASH_TRAIN_NEW
@@ -715,8 +720,7 @@ def phase_flash_bwd(gen: torch.Generator, failures: list) -> dict:
                          attn_mask=None if plain_causal else mask),
                      lambda qt, kt, vt: (qt, kt, vt), do.transpose(1, 2),
                      lib_sets, calls)
-            row["bound_ms"], row["bound_by"] = _bound(
-                n_bytes, 10.0 * B * Hq * pairs * D, dtype)
+            row["bound_ms"], row["bound_by"] = _bound(n_bytes, flops, dtype)
             if is_main:
                 # device time of each of the backward's kernels in one call
                 row["split"] = _profile(
@@ -742,10 +746,9 @@ def phase_flash_bwd(gen: torch.Generator, failures: list) -> dict:
                             qt, kt, vt, is_causal=plain_causal,
                             attn_mask=None if plain_causal else mask)},
                     sets, calls)
-                fwd["bound_ms"], fwd["bound_by"] = _bound(
-                    (2 * q.numel() + 2 * B * keys * Hkv * D)
-                    * q.element_size() + 4 * lse.numel(),
-                    4.0 * B * Hq * pairs * D, dtype)
+                fwd_flops, fwd_bytes = kflash.work(q, k, lse=True, **kw)
+                fwd["bound_ms"], fwd["bound_by"] = _bound(fwd_bytes,
+                                                          fwd_flops, dtype)
                 fwd_rows.append(fwd)
             del sets, lib_sets
     # yi-6b's training shape, zamba2's, then FLASH_TRAIN_NEW's
@@ -789,10 +792,9 @@ def phase_cross_entropy(gen: torch.Generator, failures: list) -> dict:
                     "library_ms": lambda h, w, t: F.cross_entropy(
                         torch.matmul(h, w.t()).float(), t,
                         reduction="none")}, [(h, w, t)], calls=3)
-                n_bytes = ((T + V) * D * h.element_size() + 8 * T
-                           + 8 * T)
-                row["bound_ms"], row["bound_by"] = _bound(
-                    n_bytes, 2.0 * T * V * D, dtype)
+                flops, n_bytes = kce.work(h, w)
+                row["bound_ms"], row["bound_by"] = _bound(n_bytes, flops,
+                                                          dtype)
             if is_main:
                 main = row
             log("cross_entropy", json.dumps(row))
@@ -813,21 +815,6 @@ def _ssd_inputs(gen: torch.Generator, case, dtype):
     return ((rn(B, S, H, P) * 0.5).to(dtype), F.softplus(rn(B, S, H)),
             -torch.exp(rn(H) * 0.3), (rn(B, S, G, N) * 0.3).to(dtype),
             (rn(B, S, G, N) * 0.3).to(dtype))
-
-
-def _ssd_work(case, x_bytes: int):
-    """(bytes, FLOPs) one SSD call needs: x, dt, B and C read once, y and
-    the final state written once; C Bᵀ once per group over the causal
-    (i, j) pairs of each chunk, the intra-chunk product over those pairs,
-    the inter-chunk output and the state update."""
-    B, S, H, P, G, N, Q = case
-    pairs = sum(q * (q + 1) // 2 for q in
-                [Q] * (S // Q) + ([S % Q] if S % Q else []))
-    n_bytes = (2 * B * S * H * P * x_bytes + 4 * B * S * H
-               + 2 * B * S * G * N * x_bytes + 4 * B * H * P * N)
-    flops = (2.0 * B * G * pairs * N + 2.0 * B * H * pairs * P
-             + 4.0 * B * H * S * N * P)
-    return n_bytes, flops
 
 
 def phase_ssd(gen: torch.Generator, failures: list) -> dict:
@@ -853,7 +840,7 @@ def phase_ssd(gen: torch.Generator, failures: list) -> dict:
             row = {"case": list(case), "dtype": str(dtype)[6:],
                    "max_abs_err": err, "ok": ok}
             del got, want
-            n_bytes, flops = _ssd_work(case, x.element_size())
+            flops, n_bytes = kssd.work(x, Bm, chunk=chunk)
             model = case in (SSD_ZAMBA2, SSD_MAMBA2)
             if model and dtype == torch.bfloat16:
                 inputs = (x, dt, A, Bm, Cm)
@@ -898,23 +885,6 @@ def phase_ssd(gen: torch.Generator, failures: list) -> dict:
             failures.append(f"ssd init_state chain {dtype}: y err {err_y}, "
                             f"state err {err_h}")
     return dict(main, max_abs_err=worst)
-
-
-def _ssd_bwd_work(case, x_bytes: int):
-    """(bytes, FLOPs) one SSD backward needs, as ``_ssd_work`` counts them:
-    x, dy, dt, B and C read once, dx, ddt, dB and dC written once (no
-    initial state, as in training); C Bᵀ once per group and dy xᵀ per head
-    over the causal pairs, the three products of the pairs with dy, B and
-    C (dx, dC, dB), and five of S x N x P per head: the states recomputed
-    forward and backward and the inter-chunk terms of dx, dC and dB."""
-    B, S, H, P, G, N, Q = case
-    pairs = sum(q * (q + 1) // 2 for q in
-                [Q] * (S // Q) + ([S % Q] if S % Q else []))
-    n_bytes = (3 * B * S * H * P * x_bytes + 2 * 4 * B * S * H
-               + 4 * B * S * G * N * x_bytes)
-    flops = (2.0 * B * G * pairs * N + 2.0 * B * H * pairs * (2 * P + 2 * N)
-             + 10.0 * B * H * S * N * P)
-    return n_bytes, flops
 
 
 def _f32_chunk_rates(case, call) -> dict:
@@ -1004,7 +974,7 @@ def phase_ssd_bwd(gen: torch.Generator, failures: list) -> dict:
                 row["plain_f32_vs_f64"] = errors(plain)[2]
                 del plain
             del got, want
-            n_bytes, flops = _ssd_bwd_work(case, x.element_size())
+            flops, n_bytes = kssd.bwd_work(x, Bm, chunk=chunk)
             if case in (SSD_ZAMBA2, SSD_MAMBA2) and dtype == torch.bfloat16:
                 inputs = (x, dt, A, Bm, Cm, dy)
                 sets = [inputs] + [tuple(t.clone() for t in inputs)
@@ -1088,6 +1058,11 @@ def phase_serving(failures: list, arch: str = ARCH, prompt: int = PROMPT,
                                tokens_in_range=in_range)))
     if counts != want:
         failures.append(f"{arch} launch counts {counts} != expected {want}")
+    TIMED_RUNS.append(dict(
+        label=label, arch=arch, layers=layers, kind="serve", batch=batch,
+        length=prompt, prefill_s=res["prefill_s"],
+        decode_step_s=res["decode_s"] / (GEN - 1),
+        peak_bytes=res["peak_mem_bytes"], launches=counts, steps=1))
     if not in_range or tuple(tok.shape) != (batch, GEN):
         failures.append(f"{arch} bad tokens: shape {tuple(tok.shape)}")
     return counts
@@ -1369,7 +1344,8 @@ TRAIN_KERNELS = ("rmsnorm", "rmsnorm_bwd", "flash_attention",
                  "ssd_scan_bwd")
 
 
-def training_launches(layers: int, steps: int, arch: str = ARCH) -> dict:
+def training_launches(layers: int, steps: int, arch: str = ARCH,
+                      cfg=None) -> dict:
     """Kernel launches of ``steps`` training steps of ``arch`` at
     ``layers`` layers: per step, with remat "full" or "dots", each block's
     forward runs twice (the forward, then the recompute in the backward):
@@ -1381,8 +1357,9 @@ def training_launches(layers: int, steps: int, arch: str = ARCH) -> dict:
     blocks launch what a dense block does.  whisper (``layers`` decoder
     blocks, the config's encoder blocks, both stacks checkpointed): an
     encoder block's two norms and one attention, a decoder block's three
-    norms and two attentions (self and cross), and two final norms."""
-    cfg = get_config(arch)
+    norms and two attentions (self and cross), and two final norms.
+    ``cfg``: the config, if not ``arch``'s (a smoke config)."""
+    cfg = cfg or get_config(arch)
     L, family = layers, cfg.family
     if family == "encdec":
         norms, attn = 2 * cfg.encoder_layers + 3 * L, cfg.encoder_layers \
@@ -1472,6 +1449,11 @@ def phase_training(failures: list) -> tuple:
             cfg, TRAIN_STEPS).opt_state_dtype,
         "launches": counts,
         "expected_launches": training_launches(L, TRAIN_STEPS)}))
+    TIMED_RUNS.append(dict(
+        label="training", arch=ARCH, layers=None, kind="train",
+        batch=TRAIN_BATCH, length=TRAIN_SEQ,
+        step_s=statistics.mean(steps_s), peak_bytes=peak, launches=counts,
+        steps=res["steps"]))
 
     run = train.default_run_config(cfg, TRAIN_STEPS)
     batch = registry.synth_inputs(
@@ -1549,9 +1531,81 @@ def phase_training_arch(failures: list, arch: str, layers=None,
         "launches": counts,
         "expected_launches": training_launches(L, TRAIN_STEPS, arch),
         "profiled_step": prof}))
+    TIMED_RUNS.append(dict(
+        label=label, arch=arch, layers=layers, kind="train", batch=batch,
+        length=seq_len, step_s=statistics.mean(steps_s), peak_bytes=peak,
+        launches=counts, steps=res["steps"]))
     del state, res, inputs
     torch.cuda.empty_cache()
     return counts
+
+
+def _cost_part(res: dict, measured_s: float) -> dict:
+    """One counted call beside its measured time: the roofline of
+    ``launch/dryrun.py`` at the H100's data-sheet rates, and the bound's
+    share of the measured time."""
+    rf = dryrun.roofline_terms({"chips": 1, "hlo_flops": res["flops"],
+                                "hlo_bytes": res["hbm_bytes"],
+                                "collective_total": 0.0})
+    return {"flops": res["flops"], "bytes": res["hbm_bytes"],
+            "peak_bytes": res["peak_bytes"], "bound_s": rf["bound_s"],
+            "dominant": rf["dominant"], "measured_s": measured_s,
+            "bound_share": rf["bound_s"] / measured_s}
+
+
+def phase_cost_model(failures: list) -> None:
+    """Each run of TIMED_RUNS counted again by the dry run's cost model
+    (``launch/dryrun.py::count_cell``, kernel mode, on the meta device) at
+    its config, depth, batch and length: a serving run's prefill (its
+    cache as ``run_serving`` sizes it) and one decode step, a training
+    run's step.  Logs FLOPs, bytes, the bound and its dominant term, the
+    bound's share of the measured time (prefill_s, a decode step, the
+    mean of steps 2-3), and the counted peak beside the run's
+    ``max_memory_allocated`` (which also holds the weights' initialisation
+    and, serving, the whole generation).  Fails when a count is not finite
+    and positive, or when the calls of a kernel over the run (one prefill
+    and GEN - 1 decode steps, or every step) differ from the launch
+    counters the run read on the card."""
+    for r in TIMED_RUNS:
+        cfg = _config(r["arch"], r["layers"])
+        B, n = r["batch"], r["length"]
+        if r["kind"] == "serve":
+            max_len = n + (cfg.num_img_patches if cfg.family == "vlm"
+                           else 0) + GEN + 8
+            pre = dryrun.count_cell(cfg, ShapeConfig("serve", n, B,
+                                                     "prefill"),
+                                    max_len=max_len)
+            dec = dryrun.count_cell(cfg, ShapeConfig("serve", max_len, B,
+                                                     "decode"))
+            parts = {"prefill": _cost_part(pre, r["prefill_s"]),
+                     "decode_step": _cost_part(dec, r["decode_step_s"])}
+            names = set(pre["calls"]) | set(dec["calls"]) | set(r["launches"])
+            calls = {k: pre["calls"].get(k, 0) + (GEN - 1)
+                     * dec["calls"].get(k, 0) for k in names}
+            peak = max(pre["peak_bytes"], dec["peak_bytes"])
+        else:
+            run = train.default_run_config(cfg, TRAIN_STEPS)
+            st = dryrun.count_cell(cfg, ShapeConfig("train", n, B, "train"),
+                                   run)
+            parts = {"step": _cost_part(st, r["step_s"])}
+            names = set(st["calls"]) | set(r["launches"])
+            calls = {k: r["steps"] * st["calls"].get(k, 0) for k in names}
+            peak = st["peak_bytes"]
+        launches = {k: r["launches"].get(k, 0) for k in names}
+        row = dict(label=r["label"], arch=r["arch"],
+                   layers=cfg.num_layers, batch=B, length=n, **parts,
+                   calls=calls, launches=launches, peak_bytes=peak,
+                   measured_peak_bytes=r["peak_bytes"],
+                   peak_ratio=peak / r["peak_bytes"])
+        log("cost_model", json.dumps(row))
+        if calls != launches:
+            failures.append(f"cost_model {r['label']}: calls {calls} != "
+                            f"launches {launches}")
+        for name, p in parts.items():
+            if not all(math.isfinite(p[k]) and p[k] > 0
+                       for k in ("flops", "bytes", "peak_bytes",
+                                 "bound_s")):
+                failures.append(f"cost_model {r['label']} {name}: {p}")
 
 
 def _tree_items(tree, prefix=""):
@@ -2027,6 +2081,9 @@ def main() -> int:
         t0 = time.perf_counter()
         counts += phase(failures, *args)
         log(f"{name} phase: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    phase_cost_model(failures)
+    log(f"cost_model phase: {time.perf_counter() - t0:.2f} s")
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

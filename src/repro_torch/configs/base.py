@@ -4,13 +4,15 @@
 ``repro/configs/base.py`` (the port imports nothing from ``repro``), with
 the same fields, so one arch is described the same way in both packages.
 ``RunConfig`` keeps only the fields the ported serving and training paths
-read, with the JAX defaults.
+read, with the JAX defaults.  ``SHAPES``, ``cell_is_runnable`` and
+``all_cells`` are copies too: the same four input shapes, the same
+documented skips and the same reasons.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 
 @dataclass
@@ -100,6 +102,14 @@ class ShapeConfig:
     kind: str  # train | prefill | decode
 
 
+SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
 @dataclass
 class RunConfig:
     """Knobs of one run of the ported paths (the JAX defaults of
@@ -164,3 +174,28 @@ def get_smoke_config(name: str) -> ModelConfig:
 def list_archs() -> List[str]:
     _ensure_loaded()
     return sorted(_REGISTRY)
+
+
+# Which (arch, shape) cells are runnable; the rest are documented skips.
+PURE_ATTENTION_FAMILIES = ("dense", "moe", "encdec", "vlm")
+
+
+def cell_is_runnable(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """Return (runnable, reason-if-skipped) for an (arch x shape) cell."""
+    if shape.name == "long_500k" and cfg.family in PURE_ATTENTION_FAMILIES:
+        return False, (
+            "long_500k requires sub-quadratic attention / bounded state; "
+            f"{cfg.name} is pure full-attention (see DESIGN.md skip list)"
+        )
+    return True, ""
+
+
+def all_cells() -> List[Tuple[str, str, bool, str]]:
+    """Every (arch, shape) pair with runnability flag + skip reason."""
+    out = []
+    for arch in list_archs():
+        cfg = get_config(arch)
+        for sname, shape in SHAPES.items():
+            ok, why = cell_is_runnable(cfg, shape)
+            out.append((arch, sname, ok, why))
+    return out

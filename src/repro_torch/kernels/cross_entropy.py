@@ -31,6 +31,15 @@ launches = 0  # kernel launches since the last reset (set to 0 to reset)
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
+def work(hidden: torch.Tensor, w_vocab: torch.Tensor) -> Tuple[float, int]:
+    """(FLOPs, bytes) of one call: the ``2 T V D`` of the logits; hidden
+    and w_vocab read once, the int64 targets read and the f32 nll and lse
+    written once."""
+    T, D = hidden.shape
+    V = w_vocab.shape[0]
+    return 2.0 * T * V * D, (T + V) * D * hidden.element_size() + 16 * T
+
+
 def cross_entropy_cuda(hidden: torch.Tensor, w_vocab: torch.Tensor,
                        targets: torch.Tensor
                        ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -36,11 +36,13 @@ row with no valid key differs between kernel and plain version (see the
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels import meter
 from repro_torch.kernels import ref
 
 # kernel launches since the last reset (set to 0 to reset)
@@ -49,6 +51,61 @@ bwd_launches = 0  # backward (one count per call of its kernels)
 
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPES = (torch.float32, torch.bfloat16)
+
+
+@functools.lru_cache(maxsize=256)
+def visible(Sq: int, Sk: int, *, causal: bool = True, q_offset: int = 0,
+            kv_len: Optional[int] = None,
+            sliding_window: int = 0) -> Tuple[int, int]:
+    """(pairs, keys): the (query, key) pairs the masks leave visible, and
+    the key rows at least one query sees.  Query i sits at position
+    ``q_offset + i``; key j is visible when j < kv_len, j <= that position
+    (causal) and j > that position - window (sliding window).  Plain
+    Python, so that a cost counter sees no tensor op of its own."""
+    kv_len = Sk if kv_len is None else int(kv_len)
+    pairs = keys = 0
+    top = -1  # the last key row counted
+    for pos in range(int(q_offset), int(q_offset) + Sq):
+        lo = max(pos - sliding_window + 1, 0) if sliding_window else 0
+        hi = min(pos, kv_len - 1) if causal else kv_len - 1
+        if hi < lo:
+            continue
+        pairs += hi - lo + 1
+        # lo and hi never fall as pos grows: the rows' union grows at the top
+        keys += max(hi - max(lo, top + 1) + 1, 0)
+        top = max(top, hi)
+    return pairs, keys
+
+
+def _work(q, k, mask: dict, reads: int, flops_per_pair: float,
+          lse: bool) -> Tuple[float, int]:
+    B, Sq, Hq, D = q.shape
+    pairs, keys = visible(Sq, k.shape[1], **mask)
+    n_bytes = (reads * q.numel() + reads * B * keys * k.shape[2] * D) \
+        * q.element_size() + (4 * B * Sq * Hq if lse else 0)
+    return flops_per_pair * B * Hq * pairs * D, n_bytes
+
+
+def work(q: torch.Tensor, k: torch.Tensor, *, causal: bool = True,
+         q_offset: int = 0, kv_len: Optional[int] = None,
+         sliding_window: int = 0, lse: bool = False) -> Tuple[float, int]:
+    """(FLOPs, bytes) of one forward: 4 FLOPs a visible (query, key) pair
+    and head dimension (Q Kᵀ and P V); q read and o written once, K and V
+    read once over the key rows some query sees, and with ``lse`` the f32
+    statistic written."""
+    return _work(q, k, dict(causal=causal, q_offset=q_offset, kv_len=kv_len,
+                            sliding_window=sliding_window), 2, 4.0, lse)
+
+
+def bwd_work(q: torch.Tensor, k: torch.Tensor, *, causal: bool = True,
+             q_offset: int = 0, kv_len: Optional[int] = None,
+             sliding_window: int = 0) -> Tuple[float, int]:
+    """(FLOPs, bytes) of one backward: 10 FLOPs a visible pair and head
+    dimension (Q Kᵀ recomputed, dP, dV, dQ, dK); q, o, dout read and dq
+    written, K, V read and dk, dv written over the key rows some query
+    sees, and the f32 ``lse`` read once."""
+    return _work(q, k, dict(causal=causal, q_offset=q_offset, kv_len=kv_len,
+                            sliding_window=sliding_window), 4, 10.0, True)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, name: str,
@@ -182,12 +239,14 @@ class FlashAttentionFn(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         dout = dout.to(q.dtype).contiguous()
         opts = ctx.opts
-        if ctx.kernel:
-            dq, dk, dv = flash_attention_bwd_cuda(
-                q, k, v, out, lse, dout, causal=opts["causal"],
-                q_offset=opts["q_offset"], kv_len=opts["kv_len"],
-                sliding_window=opts["sliding_window"])
-        else:
-            dq, dk, dv = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout,
-                                                     **opts)
+        mask = {key: opts[key] for key in ("causal", "q_offset", "kv_len",
+                                           "sliding_window")}
+        with meter.charge("flash_attention_bwd",
+                          lambda: bwd_work(q, k, **mask)):
+            if ctx.kernel:
+                dq, dk, dv = flash_attention_bwd_cuda(q, k, v, out, lse,
+                                                      dout, **mask)
+            else:
+                dq, dk, dv = ref.flash_attention_bwd_ref(q, k, v, out, lse,
+                                                         dout, **opts)
         return dq, dk, dv, None, None

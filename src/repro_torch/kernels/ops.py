@@ -14,6 +14,10 @@ reads.  Otherwise they call the forward alone, so serving pays nothing
 for training.  On the plain path ``ssd``'s Function takes its gradients
 from ``ref.ssd_bwd_ref``, the hand-derived formulas the kernel follows
 (tests hold them against ``jax.vjp`` and torch autograd of ``ssd_ref``).
+
+Each entry that has a kernel reports its call to an active cost counter
+(``kernels/meter.py``) with the work of the function it computes, on the
+kernel path and the plain path alike.
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ import torch
 
 from repro_torch.kernels import cross_entropy as _ce
 from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import meter
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import rmsnorm as _rmsnorm
 from repro_torch.kernels import ssd_scan as _ssd
@@ -44,11 +49,13 @@ def _needs_grad(*ts: torch.Tensor) -> bool:
 def rmsnorm(x, w, *, eps: float = 1e-6,
             use_kernels: Optional[bool] = None) -> torch.Tensor:
     kernel = _kernel_path(x, use_kernels)
-    if _needs_grad(x, w):
-        return _rmsnorm.RMSNormFn.apply(x, w, eps, kernel)
-    if kernel:
-        return _rmsnorm.rmsnorm_cuda(x, w, eps)
-    return _ref.rmsnorm_ref(x, w, eps)
+    grad = _needs_grad(x, w)
+    with meter.charge("rmsnorm", lambda: _rmsnorm.work(x, w, inv=grad)):
+        if grad:
+            return _rmsnorm.RMSNormFn.apply(x, w, eps, kernel)
+        if kernel:
+            return _rmsnorm.rmsnorm_cuda(x, w, eps)
+        return _ref.rmsnorm_ref(x, w, eps)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
@@ -58,12 +65,15 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
     kernel = _kernel_path(q, use_kernels)
     opts = dict(causal=causal, q_offset=q_offset, kv_len=kv_len,
                 sliding_window=sliding_window)
-    if _needs_grad(q, k, v):
-        return _flash.FlashAttentionFn.apply(q, k, v, kernel,
-                                             dict(opts, block_k=block_k))
-    if kernel:
-        return _flash.flash_attention_cuda(q, k, v, **opts)
-    return _ref.flash_attention_ref(q, k, v, block_k=block_k, **opts)
+    grad = _needs_grad(q, k, v)
+    with meter.charge("flash_attention",
+                      lambda: _flash.work(q, k, lse=grad, **opts)):
+        if grad:
+            return _flash.FlashAttentionFn.apply(q, k, v, kernel,
+                                                 dict(opts, block_k=block_k))
+        if kernel:
+            return _flash.flash_attention_cuda(q, k, v, **opts)
+        return _ref.flash_attention_ref(q, k, v, block_k=block_k, **opts)
 
 
 def ssd(x, dt, A, Bm, Cm, *, chunk: int = 128, init_state=None,
@@ -71,16 +81,19 @@ def ssd(x, dt, A, Bm, Cm, *, chunk: int = 128, init_state=None,
     """The chunked SSD scan (Mamba2 prefill and training): the CUDA kernel
     or ``ssd_ref``."""
     kernel = _kernel_path(x, use_kernels)
-    if _needs_grad(*(t for t in (x, dt, A, Bm, Cm, init_state)
-                     if t is not None)):
-        y, h = _ssd.SSDFn.apply(x, dt, A, Bm, Cm, init_state, chunk, kernel)
-        return (y, h) if return_state else y
-    if kernel:
-        return _ssd.ssd_cuda(x, dt, A, Bm, Cm, chunk=chunk,
-                             init_state=init_state,
-                             return_state=return_state)
-    return _ref.ssd_ref(x, dt, A, Bm, Cm, chunk=chunk, init_state=init_state,
-                        return_state=return_state)
+    with meter.charge("ssd_scan", lambda: _ssd.work(
+            x, Bm, chunk=chunk, init_state=init_state is not None)):
+        if _needs_grad(*(t for t in (x, dt, A, Bm, Cm, init_state)
+                         if t is not None)):
+            y, h = _ssd.SSDFn.apply(x, dt, A, Bm, Cm, init_state, chunk,
+                                    kernel)
+            return (y, h) if return_state else y
+        if kernel:
+            return _ssd.ssd_cuda(x, dt, A, Bm, Cm, chunk=chunk,
+                                 init_state=init_state,
+                                 return_state=return_state)
+        return _ref.ssd_ref(x, dt, A, Bm, Cm, chunk=chunk,
+                            init_state=init_state, return_state=return_state)
 
 
 def ssd_decode(x, dt, A, Bm, Cm, h):
@@ -96,7 +109,9 @@ def cross_entropy(hidden, w_vocab, targets, valid=None, *,
     kernel).  The kernel multiplies in f32 whatever ``mode`` says, as
     ``cross_entropy_pallas`` does; the plain path takes ``mode``."""
     if _kernel_path(hidden, use_kernels):
-        nll, _ = _ce.cross_entropy_cuda(hidden, w_vocab, targets)
+        with meter.charge("cross_entropy",
+                          lambda: _ce.work(hidden, w_vocab)):
+            nll, _ = _ce.cross_entropy_cuda(hidden, w_vocab, targets)
         if valid is None:
             return nll.mean()
         vf = valid.float()

@@ -25,6 +25,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels import meter
 from repro_torch.kernels import ref
 
 # kernel launches since the last reset (set to 0 to reset)
@@ -32,6 +33,26 @@ launches = 0  # forward
 bwd_launches = 0  # backward
 
 _DTYPES = (torch.float32, torch.bfloat16)
+
+
+def work(x: torch.Tensor, w: torch.Tensor, *,
+         inv: bool = False) -> Tuple[float, int]:
+    """(FLOPs, bytes) of one forward at x's and w's shapes and dtypes:
+    3 FLOPs an element; x and w read once, y (and with ``inv`` the f32
+    per-row statistic) written once."""
+    D = x.shape[-1]
+    rows = x.numel() // D if D else 0
+    n_bytes = 2 * x.numel() * x.element_size() + D * w.element_size()
+    return 3.0 * x.numel(), n_bytes + (4 * rows if inv else 0)
+
+
+def bwd_work(x: torch.Tensor, w: torch.Tensor) -> Tuple[float, int]:
+    """(FLOPs, bytes) of one backward: 8 FLOPs an element; x, g, w and
+    the f32 ``inv`` read once, dx and dw written once."""
+    D = x.shape[-1]
+    rows = x.numel() // D if D else 0
+    return 8.0 * x.numel(), (3 * x.numel() * x.element_size()
+                             + 2 * D * w.element_size() + 4 * rows)
 
 
 def _check(x: torch.Tensor, w: torch.Tensor, name: str) -> int:
@@ -113,8 +134,9 @@ class RMSNormFn(torch.autograd.Function):
     def backward(ctx, g):
         x, w, inv = ctx.saved_tensors
         g = g.to(x.dtype).contiguous()
-        if ctx.kernel:
-            dx, dw = rmsnorm_bwd_cuda(x, w, inv, g)
-        else:
-            dx, dw = ref.rmsnorm_bwd_ref(x, w, inv, g)
+        with meter.charge("rmsnorm_bwd", lambda: bwd_work(x, w)):
+            if ctx.kernel:
+                dx, dw = rmsnorm_bwd_cuda(x, w, inv, g)
+            else:
+                dx, dw = ref.rmsnorm_bwd_ref(x, w, inv, g)
         return dx, dw, None, None

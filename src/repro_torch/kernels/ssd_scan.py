@@ -41,12 +41,13 @@ tensors to the plain versions.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import build
+from repro_torch.kernels import meter
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import _chunk_aligned
 
@@ -57,6 +58,49 @@ bwd_launches = 0  # backward (one count per call of its kernels)
 MAX_CHUNK = 128
 MAX_STATE = 128
 _DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _causal_pairs(S: int, chunk: int) -> int:
+    """The causal (i, j) pairs inside the chunks of a sequence of S."""
+    return sum(q * (q + 1) // 2 for q in
+               [chunk] * (S // chunk) + ([S % chunk] if S % chunk else []))
+
+
+def work(x: torch.Tensor, Bm: torch.Tensor, *, chunk: int = 128,
+         init_state: bool = False) -> Tuple[float, int]:
+    """(FLOPs, bytes) of one scan: x, dt, B and C read once, y and the
+    final state written once (and with ``init_state`` the initial state
+    read); C Bᵀ once per group over the causal (i, j) pairs of each
+    chunk, the intra-chunk product over those pairs, the inter-chunk
+    output and the state update."""
+    B, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    xb = x.element_size()
+    pairs = _causal_pairs(S, chunk)
+    n_bytes = (2 * B * S * H * P * xb + 4 * B * S * H + 2 * B * S * G * N * xb
+               + 4 * B * H * P * N * (2 if init_state else 1))
+    flops = (2.0 * B * G * pairs * N + 2.0 * B * H * pairs * P
+             + 4.0 * B * H * S * N * P)
+    return flops, n_bytes
+
+
+def bwd_work(x: torch.Tensor, Bm: torch.Tensor, *,
+             chunk: int = 128) -> Tuple[float, int]:
+    """(FLOPs, bytes) of one backward, counted as :func:`work` counts: x,
+    dy, dt, B and C read once, dx, ddt, dB and dC written once (no initial
+    state, as in training); C Bᵀ once per group and dy xᵀ per head over
+    the causal pairs, the three products of the pairs with dy, B and C
+    (dx, dC, dB), and five of S x N x P per head: the states recomputed
+    forward and backward and the inter-chunk terms of dx, dC and dB."""
+    B, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    xb = x.element_size()
+    pairs = _causal_pairs(S, chunk)
+    n_bytes = (3 * B * S * H * P * xb + 2 * 4 * B * S * H
+               + 4 * B * S * G * N * xb)
+    flops = (2.0 * B * G * pairs * N + 2.0 * B * H * pairs * (2 * P + 2 * N)
+             + 10.0 * B * H * S * N * P)
+    return flops, n_bytes
 
 
 def _check(x, dt, A, Bm, Cm, init_state, chunk: int) -> None:
@@ -242,8 +286,10 @@ class SSDFn(torch.autograd.Function):
         if d_state is not None:
             d_state = d_state.float().contiguous()
         bwd = ssd_bwd_cuda if ctx.kernel else ref.ssd_bwd_ref
-        dx, ddt, dA, dB, dC, d_init = bwd(
-            x, dt, A, Bm, Cm, dy, chunk=ctx.chunk, init_state=init_state,
-            d_state=d_state)
+        with meter.charge("ssd_scan_bwd",
+                          lambda: bwd_work(x, Bm, chunk=ctx.chunk)):
+            dx, ddt, dA, dB, dC, d_init = bwd(
+                x, dt, A, Bm, Cm, dy, chunk=ctx.chunk, init_state=init_state,
+                d_state=d_state)
         return (dx, ddt, dA, dB, dC,
                 None if init_state is None else d_init, None, None)

@@ -53,6 +53,13 @@ def tree_leaves(tree: Tree):
         yield tree
 
 
+def abstract(defs: Tree, device: Union[str, torch.device] = "meta") -> Tree:
+    """Empty tensors of each def's shape and dtype (on ``meta``: shapes
+    and dtypes only, nothing allocated) — what the dry run counts on."""
+    return tree_map(lambda d: torch.empty(d.shape, dtype=d.dtype,
+                                          device=device), defs)
+
+
 def param_count(defs: Tree) -> int:
     return sum(math.prod(d.shape) for d in tree_leaves(defs))
 

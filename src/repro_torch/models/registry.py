@@ -83,6 +83,33 @@ def decode(params: Params, cfg: ModelConfig, run: RunConfig,
     return module_for(cfg).decode(params, cfg, run, tokens, cache, pos)
 
 
+def input_specs(cfg: ModelConfig, shape: ShapeConfig,
+                device: str = "meta") -> Dict[str, Any]:
+    """Empty inputs of one step of ``shape.kind`` (on ``meta``: nothing
+    allocated), for the dry run, as ``repro/models/registry.py::
+    input_specs`` gives them and in the dtypes ``synth_inputs`` draws:
+    train ``tokens``, ``labels`` (B, S) and a f32 ``loss_mask``; prefill
+    ``tokens``; both with whisper's ``frames`` or a VLM's ``img_embeds``
+    (bf16).  Decode: ``tokens`` (B, 1) and ``pos``, the Python int
+    ``seq_len - 1``: the new token's position in a cache of seq_len."""
+    B, S = shape.global_batch, shape.seq_len
+
+    def empty(*size, dtype=torch.int64):
+        return torch.empty(size, dtype=dtype, device=device)
+
+    if shape.kind == "decode":
+        return {"tokens": empty(B, 1), "pos": S - 1}
+    specs: Dict[str, Any] = {"tokens": empty(B, S)}
+    if shape.kind == "train":
+        specs["labels"] = empty(B, S)
+        specs["loss_mask"] = empty(B, S, dtype=torch.float32)
+    extra = modality_input(cfg)
+    if extra:
+        name, n = extra
+        specs[name] = empty(B, n, cfg.d_model, dtype=torch.bfloat16)
+    return specs
+
+
 def synth_inputs(generator: torch.Generator, cfg: ModelConfig,
                  shape: ShapeConfig, kind: Optional[str] = None,
                  device: str = "cuda") -> Dict[str, Any]:

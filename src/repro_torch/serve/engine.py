@@ -22,6 +22,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
         lambda d: torch.zeros(d.shape, dtype=d.dtype, device=device), defs)
 
 
+def abstract_cache(cfg: ModelConfig, batch: int, max_len: int,
+                   device: Union[str, torch.device] = "meta") -> Cache:
+    """The cache as empty tensors (on ``meta``: nothing allocated), for
+    the dry run."""
+    return P.abstract(registry.cache_defs(cfg, batch, max_len), device)
+
+
 def prefill_step(params, batch: Dict[str, Any], cache: Cache, *,
                  cfg: ModelConfig, run: RunConfig
                  ) -> Tuple[torch.Tensor, Cache]:

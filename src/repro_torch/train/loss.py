@@ -20,6 +20,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.kernels import cross_entropy as _kce
+from repro_torch.kernels import meter
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref
 from repro_torch.models import layers as L
@@ -43,11 +44,13 @@ class CEBlockwiseFn(torch.autograd.Function):
                 ce_dtype: torch.dtype, kernel: bool):
         hc, wc = hidden.to(ce_dtype), w_vocab.to(ce_dtype)
         if kernel:
-            nll, lse = _kce.cross_entropy_cuda(hc.contiguous(),
-                                               wc.contiguous(), targets)
-        else:
-            nll, lse = ref.cross_entropy_stats_ref(hc, wc, targets,
-                                                   block_v=block_v)
+            hc, wc = hc.contiguous(), wc.contiguous()
+        with meter.charge("cross_entropy", lambda: _kce.work(hc, wc)):
+            if kernel:
+                nll, lse = _kce.cross_entropy_cuda(hc, wc, targets)
+            else:
+                nll, lse = ref.cross_entropy_stats_ref(hc, wc, targets,
+                                                       block_v=block_v)
         ctx.block_v, ctx.ce_dtype = block_v, ce_dtype
         ctx.save_for_backward(hidden, w_vocab, targets, valid, lse)
         return _masked_mean(nll, valid)
