@@ -149,9 +149,22 @@ Phases, each of which fails the run (non-zero exit, no final result line):
    step), and the counted peak beside ``max_memory_allocated`` and their
    ratio (logged, not checked).  Fails when a kernel's counted calls over
    the run differ from the launch counters the run read on the card, or
-   a count is not finite and positive.
+   a count is not finite and positive;
+14. mesh: the mesh path at world size 1, a one-rank process group over
+   NCCL with the sharding rules over it (as ``run_serving`` and
+   ``run_training`` run; ``launch/mesh.py``, ``sharding/``): yi-6b served
+   at full size (4 x 512, MESH_GEN tokens) and trained (MESH_TRAIN_LAYERS
+   layers, MESH_STEPS steps) under the rules and without: tokens, logits,
+   losses, params and moments bit for bit, the mesh runs' launches held
+   against the formulas and the cost model's calls counted under the same
+   rules; then mixtral-8x7b (12 / 3 layers, 2 x 1024) and qwen3-moe (6 /
+   2, 4 x 512) at batch > 1, where the MoE block takes the shardmap path
+   (one route of a rank's B x S tokens, capacity over them): prefill
+   logits and one ``grads_and_metrics`` through the kernels against the
+   plain versions (the plain path routed by the kernel path's choices),
+   relative L2 5e-2, loss 1e-2.
 
-Phases 9-11 drive the entry point; each of their runs has its launch
+Phases 9-11 and 14's two yi-6b mesh runs drive the entry point; each of their runs has its launch
 counters reset just before it and read just after.  Every kernel's bound
 (its ``work`` formula in ``kernels/``, over ``launch/mesh.py``'s rates)
 is the one the cost model charges a call of it.
@@ -159,8 +172,8 @@ is the one the cost model charges a call of it.
 It prints a ``{"kernel_info": [...]}`` line, a ``{"kernels": [...]}`` line
 and, last, ``{"ok": true, ...}``.
 A kernel's ``launches`` there is the sum of its counts over the ten
-serving runs, the seven training runs of phases 7 and 8 and the runs of
-phases 9-11; ``ssd_scan``'s row is the zamba2-1.2b prefill shape,
+serving runs, the seven training runs of phases 7 and 8, the runs of
+phases 9-11 and phase 14's two yi-6b runs; ``ssd_scan``'s row is the zamba2-1.2b prefill shape,
 ``ssd_scan_bwd``'s zamba2-1.2b's training shape.  Weights are random,
 made on the card from a seed; data is synthetic, from a seed; nothing is
 downloaded.
@@ -180,6 +193,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 from torch.utils.cpp_extension import CUDA_HOME  # noqa: E402
 
@@ -198,6 +212,7 @@ from repro_torch.models import params as P  # noqa: E402
 from repro_torch.models import registry  # noqa: E402
 from repro_torch.optim import adamw_update  # noqa: E402
 from repro_torch.serve import engine  # noqa: E402
+from repro_torch.sharding import batch_split, use_rules  # noqa: E402
 from repro_torch.train import step as tstep  # noqa: E402
 
 L2_BYTES = 50 * 2**20
@@ -238,6 +253,13 @@ LLAVA_TRAIN_LAYERS, LLAVA_E2E_LAYERS = 26, 2
 MOE_TRAIN = [("mixtral-8x7b", "mixtral", 3, 1, 4608),
              ("qwen3-moe-235b-a22b", "qwen3_moe", 2, 4, 512)]
 TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH = 3, 512, 4
+# the mesh phase: yi-6b served at full size and trained at MESH_TRAIN_LAYERS
+# for MESH_STEPS steps; the MoE archs (arch, tag, served layers, trained
+# layers, batch, length) at batch > 1, where the shardmap path's capacity
+# over a rank's B * S tokens differs from the per-row one
+MESH_GEN, MESH_TRAIN_LAYERS, MESH_STEPS = 4, 4, 2
+MESH_MOE = [("mixtral-8x7b", "mixtral", 12, 3, 2, 1024),
+            ("qwen3-moe-235b-a22b", "qwen3_moe", 6, 2, 4, 512)]
 HALF_STEPS = 3  # warm steps whose two halves are timed alone
 E2E_TRAIN_LAYERS = 2
 # SSM / hybrid training at full width and depth, 4 x 2048 tokens a step;
@@ -1955,6 +1977,205 @@ def phase_remat_dots(failures: list) -> list:
     return []  # its launches are comparisons, not the main path's
 
 
+def _mesh_serve(params, cfg, prompt: dict, rules) -> tuple:
+    """One prefill and MESH_GEN - 1 greedy decode steps, under ``rules``
+    (the mesh path) or with none; (tokens, every step's logits)."""
+    B, S = prompt["tokens"].shape
+    run = RunConfig()
+    ctx = use_rules(rules) if rules is not None else contextlib.nullcontext()
+    with torch.inference_mode(), ctx, batch_split(B, ()):
+        cache = engine.init_cache(cfg, B, S + MESH_GEN + 8, DEVICE)
+        logits, cache = registry.prefill(params, cfg, run, prompt, cache)
+        outs = [logits]
+        toks = [logits[:, -1].argmax(-1, keepdim=True)]
+        for i in range(MESH_GEN - 1):
+            logits, cache = registry.decode(params, cfg, run, toks[-1],
+                                            cache, S + i)
+            outs.append(logits)
+            toks.append(logits[:, -1].argmax(-1, keepdim=True))
+    return torch.cat(toks, dim=1), outs
+
+
+def _mesh_train(cfg, rules, steps: int) -> tuple:
+    """``steps`` train steps from one seeded state on seeded batches,
+    under ``rules`` or with none; (losses, state)."""
+    run = train.default_run_config(cfg, TRAIN_STEPS)
+    dev = torch.device(DEVICE)
+    ctx = use_rules(rules) if rules is not None else contextlib.nullcontext()
+    losses = []
+    with ctx:
+        state = tstep.init_state(torch.Generator(device=dev).manual_seed(3),
+                                 cfg, run)
+        fn = tstep.make_train_step(cfg, run)
+        for i in range(steps):
+            b = registry.synth_inputs(
+                torch.Generator(device=dev).manual_seed(20 + i), cfg,
+                ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train"),
+                "train", device=dev)
+            state, m = fn(state, b)
+            losses.append(m["loss"])
+    return losses, state
+
+
+def _counted_calls(rules, cfg, shape, run=None, **kw) -> dict:
+    with use_rules(rules):
+        return dryrun.count_cell(cfg, shape, run, **kw)["calls"]
+
+
+def phase_mesh(failures: list) -> list:
+    """The mesh path at world size 1: a one-rank process group over NCCL
+    (``launch/mesh.py::make_host_mesh``) and the sharding rules over it,
+    as ``run_serving`` and ``run_training`` run.  (a) yi-6b served at full
+    size (one prefill of BATCH x PROMPT, MESH_GEN - 1 decode steps) and
+    trained (MESH_STEPS steps, MESH_TRAIN_LAYERS layers) under the rules
+    and with none: tokens, logits, losses, params and moments bit for bit;
+    the mesh runs' launches, counted, held against the formulas and
+    against the cost model's calls counted under the same rules.  (b) For
+    MESH_MOE, at batch > 1: under the rules the MoE block takes the
+    shardmap path (one route of the B * S tokens, capacity over them): the
+    prefill at the served depth and one ``grads_and_metrics`` at the
+    trained depth through the kernels against the plain versions, the
+    plain path routed by the kernel path's choices (ROADMAP C5), at §2's
+    limits (logits and gradient leaves relative L2 5e-2, loss 1e-2).
+    Returns the launches of (a)'s mesh runs."""
+    dev = torch.device(DEVICE)
+    rules = serve.host_rules(None, dev)
+    counts_out = []
+    cfg = get_config(ARCH)
+    params = serve.init_params(cfg, 1, dev)
+    prompt = registry.synth_inputs(
+        torch.Generator(device=dev).manual_seed(7), cfg,
+        ShapeConfig("serve", PROMPT, BATCH, "prefill"), "prefill",
+        device=dev)
+    reset_launches()
+    tok_m, out_m = _mesh_serve(params, cfg, prompt, rules)
+    counts = read_launches()
+    tok_n, out_n = _mesh_serve(params, cfg, prompt, None)
+    want = serving_launches(cfg, MESH_GEN)
+    got = {k: counts[k] for k in want}
+    max_len = PROMPT + MESH_GEN + 8
+    pre = _counted_calls(rules, cfg, ShapeConfig("serve", PROMPT, BATCH,
+                                                 "prefill"), max_len=max_len)
+    dec = _counted_calls(rules, cfg, ShapeConfig("serve", max_len, BATCH,
+                                                 "decode"))
+    calls = {k: pre.get(k, 0) + (MESH_GEN - 1) * dec.get(k, 0)
+             for k in want}
+    same = torch.equal(tok_m, tok_n) and all(
+        torch.equal(a, b) for a, b in zip(out_m, out_n))
+    row = {"arch": ARCH, "layers": cfg.num_layers, "batch": BATCH,
+           "prompt": PROMPT, "gen": MESH_GEN, "mesh": dict(
+               rules.mesh.shape), "backend": str(dist.get_backend()),
+           "tokens_and_logits_bit_equal": same, "launches": got,
+           "expected_launches": want, "cost_model_calls": calls}
+    log("mesh_serving", json.dumps(row))
+    if not same:
+        failures.append("mesh serving differs from the path without rules")
+    if got != want or calls != want:
+        failures.append(f"mesh serving launches {got}, cost model {calls},"
+                        f" expected {want}")
+    counts_out.append(got)
+    del params, out_m, out_n
+    torch.cuda.empty_cache()
+
+    tcfg = cfg.replace(num_layers=MESH_TRAIN_LAYERS)
+    reset_launches()
+    loss_m, st_m = _mesh_train(tcfg, rules, MESH_STEPS)
+    counts = read_launches()
+    loss_n, st_n = _mesh_train(tcfg, None, MESH_STEPS)
+    want = training_launches(MESH_TRAIN_LAYERS, MESH_STEPS, ARCH)
+    run = train.default_run_config(tcfg, TRAIN_STEPS)
+    st = _counted_calls(rules, tcfg, ShapeConfig(
+        "train", TRAIN_SEQ, TRAIN_BATCH, "train"), run)
+    calls = {k: MESH_STEPS * st.get(k, 0) for k in want}
+    same = all(torch.equal(a, b) for a, b in zip(loss_m, loss_n)) and all(
+        torch.equal(a, b) for a, b in zip(P.tree_leaves(
+            {"p": st_m["params"], "m": st_m["opt"]["m"]}), P.tree_leaves(
+            {"p": st_n["params"], "m": st_n["opt"]["m"]})))
+    row = {"arch": ARCH, "layers": MESH_TRAIN_LAYERS, "steps": MESH_STEPS,
+           "batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ,
+           "losses": [float(x) for x in loss_m],
+           "losses_params_moments_bit_equal": same, "launches": counts,
+           "expected_launches": want, "cost_model_calls": calls}
+    log("mesh_training", json.dumps(row))
+    if not same:
+        failures.append("mesh training differs from the path without rules")
+    if counts != want or calls != want:
+        failures.append(f"mesh training launches {counts}, cost model "
+                        f"{calls}, expected {want}")
+    counts_out.append(counts)
+    del st_m, st_n
+    torch.cuda.empty_cache()
+
+    for arch, tag, n_serve, n_train, batch, seq in MESH_MOE:
+        _mesh_moe(failures, rules, arch, tag, n_serve, n_train, batch, seq)
+    return counts_out
+
+
+def _mesh_moe(failures, rules, arch, tag, n_serve, n_train, batch, seq):
+    dev = torch.device(DEVICE)
+    cfg = _config(arch, n_serve)
+    params = serve.init_params(cfg, 1, dev)
+    g = torch.Generator(device=dev).manual_seed(9)
+    prompt = {"tokens": torch.randint(0, cfg.vocab_size, (batch, seq),
+                                      generator=g, device=dev)}
+    kern, plain = RunConfig(), RunConfig(use_kernels=False)
+    routes_k, routes_p = [], []
+    with torch.inference_mode(), use_rules(rules), batch_split(batch, ()):
+        mk = lambda: engine.init_cache(cfg, batch, seq + 8, dev)
+        with _recording_routes(routes_k):
+            lk, _ = registry.prefill(params, cfg, kern, prompt, mk())
+        with _recording_routes(routes_p, routes_k):
+            lp, _ = registry.prefill(params, cfg, plain, prompt, mk())
+    one_row = all(ek.shape[:2] == (1, batch * seq) for ek, _ in routes_k)
+    kept = sum(int(k.sum()) for _, k in routes_k)
+    pairs = sum(k.numel() for _, k in routes_k)
+    a = _rel_l2(lk[:, -1], lp[:, -1])
+    finite = bool(torch.isfinite(lk).all())
+    del params, lk, lp
+    torch.cuda.empty_cache()
+
+    tcfg = _config(arch, n_train)
+    tparams = serve.init_params(tcfg, 11, dev)
+    inputs = registry.synth_inputs(
+        torch.Generator(device=dev).manual_seed(12), tcfg,
+        ShapeConfig("train", seq, batch, "train"), "train", device=dev)
+    run = train.default_run_config(tcfg, TRAIN_STEPS)
+    tk, tp = [], []
+    with use_rules(rules):
+        with _recording_routes(tk):
+            gk, mk_ = tstep.grads_and_metrics(tparams, tcfg, run, inputs)
+        with _recording_routes(tp, tk):
+            gp, mp_ = tstep.grads_and_metrics(
+                tparams, tcfg, run.replace(use_kernels=False), inputs)
+    lk_, lp_ = float(mk_["loss"]), float(mp_["loss"])
+    loss_rel = abs(lk_ - lp_) / abs(lp_)
+    rel = {name: _rel_l2(x, y) for (name, x), (_, y) in
+           zip(_tree_items(gk), _tree_items(gp))}
+    gfinite = all(bool(torch.isfinite(t).all()) for t in P.tree_leaves(gk))
+    row = {"arch": arch, "batch": batch, "seq_len": seq,
+           "served_layers": n_serve, "trained_layers": n_train,
+           "capacity_factor": cfg.moe_capacity_factor,
+           "routed_as_one_row_of_B_times_S": one_row,
+           "capacity": math.ceil(batch * seq * cfg.num_experts_per_tok
+                                 / cfg.num_experts
+                                 * cfg.moe_capacity_factor),
+           "prefill_dropped_pair_share": 1 - kept / pairs,
+           "kernel_vs_plain_prefill_rel_l2": a, "logits_finite": finite,
+           "loss_kernels": lk_, "loss_plain": lp_, "loss_rel": loss_rel,
+           "worst_leaf": max(rel.items(), key=lambda kv: kv[1]),
+           "grads_finite": gfinite, "grad_tol": E2E_TOL,
+           "loss_tol": LOSS_TOL, "plain_routed_by_kernel_choices": True}
+    log(f"mesh_{tag}", json.dumps(row))
+    bad = {k: r for k, r in rel.items() if not r <= E2E_TOL}
+    if not (one_row and finite and gfinite and a <= E2E_TOL
+            and loss_rel <= LOSS_TOL and not bad):
+        failures.append(f"mesh_{tag}: one row {one_row}, prefill rel L2 "
+                        f"{a}, loss rel {loss_rel}, leaves {bad}, finite "
+                        f"{finite} / {gfinite}")
+    del tparams, gk, gp
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run",
@@ -2084,6 +2305,9 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_cost_model(failures)
     log(f"cost_model phase: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    counts += phase_mesh(failures)
+    log(f"mesh phase: {time.perf_counter() - t0:.2f} s")
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -2112,6 +2336,8 @@ def main() -> int:
     log(smi)
     log(json.dumps({"kernel_info": kernel_info}))
     log(json.dumps({"kernels": kernels}))
+    if dist.is_initialized():
+        dist.destroy_process_group()
     if failures:
         for f in failures:
             print("FAILED:", f, file=sys.stderr)

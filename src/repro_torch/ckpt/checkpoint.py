@@ -17,6 +17,14 @@ Layout (one directory per step, committed atomically by rename):
 * ``load_checkpoint``: rebuilds the tree, its leaves moved to a given
   device.
 
+Under sharding rules (``defs``: the tree's ParamDefs, None for a leaf the
+mesh does not split) a tree holds each rank's blocks.  Saving gathers
+each leaf whole, one leaf at a time, on every rank (a collective), and
+rank 0 alone writes it: the on-disk format does not change.  Loading
+reads each leaf whole and keeps this rank's block: a checkpoint loads on
+any mesh (the elastic restart of ``load_checkpoint(shardings=...)``),
+whatever mesh wrote it.
+
 Trees are nested dict / list / tuple of tensor leaves; a numpy array or
 a Python int (saved as a 0-d int32, as the JAX optimizer keeps its step)
 is a leaf too.  bf16, which numpy lacks, is stored as its raw bytes (a
@@ -37,6 +45,9 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from repro_torch.sharding import rules as S
 
 
 def _flatten(tree: Any, prefix: str = "") -> List[Tuple[str, Any]]:
@@ -114,8 +125,34 @@ def _from_disk(arr: np.ndarray, dtype_name: str) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
-def _host_leaves(tree: Any):
-    return [(path, *_to_host(x)) for path, x in _flatten(tree)]
+def _writer() -> bool:
+    """Whether this process writes checkpoints: rank 0 of a process group,
+    or a process with none."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _leaf_defs(tree: Any, defs: Any) -> List[Any]:
+    """Each leaf's def in ``_flatten`` order (None throughout without
+    defs)."""
+    n = len(_flatten(tree))
+    if defs is None:
+        return [None] * n
+    out = [d for _, d in _flatten(defs)]
+    assert len(out) == n, (len(out), n)
+    return out
+
+
+def _host_leaves(tree: Any, defs: Any = None):
+    """Every leaf on the host; under rules each leaf is gathered whole
+    first (on every rank) and copied by the writer alone."""
+    out = []
+    for (path, x), d in zip(_flatten(tree), _leaf_defs(tree, defs)):
+        if d is not None and S.sharded():
+            with torch.no_grad():
+                x = S.gather(x, d)
+        if _writer():
+            out.append((path, *_to_host(x)))
+    return out
 
 
 def _write(root: str, leaves, structure, step: int,
@@ -147,9 +184,14 @@ def _write(root: str, leaves, structure, step: int,
 
 
 def save_checkpoint(root: str, tree: Any, step: int,
-                    meta: Optional[Dict[str, Any]] = None) -> str:
-    """Atomic synchronous save. Returns the committed directory."""
-    return _write(root, _host_leaves(tree), _structure(tree), step, meta)
+                    meta: Optional[Dict[str, Any]] = None,
+                    defs: Any = None) -> Optional[str]:
+    """Atomic synchronous save. Returns the committed directory (None on
+    a rank that does not write)."""
+    leaves = _host_leaves(tree, defs)
+    if not _writer():
+        return None
+    return _write(root, leaves, _structure(tree), step, meta)
 
 
 def latest_step(root: str) -> Optional[int]:
@@ -164,11 +206,12 @@ def latest_step(root: str) -> Optional[int]:
 
 
 def load_checkpoint(root: str, step: Optional[int] = None, *,
-                    device: Union[str, torch.device, None] = None
-                    ) -> Tuple[Any, Dict[str, Any]]:
+                    device: Union[str, torch.device, None] = None,
+                    defs: Any = None) -> Tuple[Any, Dict[str, Any]]:
     """Returns (tree, manifest meta with ``"step"``).  Leaves are CPU
     tensors, moved to ``device`` when one is given; an int saved as a
-    leaf comes back as a 0-d int32 tensor."""
+    leaf comes back as a 0-d int32 tensor.  With ``defs`` under sharding
+    rules each leaf is cut to this rank's block."""
     if step is None:
         step = latest_step(root)
         if step is None:
@@ -176,9 +219,15 @@ def load_checkpoint(root: str, step: Optional[int] = None, *,
     d = _step_dir(root, step)
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
+    r = S.current_rules()
+    leaf_defs = ([None] * len(manifest["leaves"]) if defs is None
+                 else [x for _, x in _flatten(defs)])
     q: "queue.SimpleQueue" = queue.SimpleQueue()
-    for leaf in manifest["leaves"]:
+    for leaf, ld in zip(manifest["leaves"], leaf_defs):
         t = _from_disk(np.load(os.path.join(d, leaf["file"])), leaf["dtype"])
+        if ld is not None and S.sharded():
+            part = r.local_shard(t, ld.logical, ld.shape)
+            t = t if part is t else part.clone()
         q.put(t if device is None else t.to(device))
     tree = _rebuild(manifest["structure"], q)
     manifest["meta"]["step"] = manifest["step"]
@@ -228,15 +277,18 @@ class AsyncCheckpointer:
                 self._err = e
 
     def save(self, tree: Any, step: int,
-             meta: Optional[Dict[str, Any]] = None) -> None:
-        """Copies every leaf to the host (synchronously), then queues the
-        write."""
+             meta: Optional[Dict[str, Any]] = None,
+             defs: Any = None) -> None:
+        """Copies every leaf to the host (synchronously; under rules with
+        ``defs``, gathered whole first on every rank), then queues the
+        write (on the writing rank)."""
         if self._err is not None:
             raise RuntimeError("async checkpoint failed") from self._err
         t0 = time.perf_counter()
-        leaves = _host_leaves(tree)
+        leaves = _host_leaves(tree, defs)
         self.copy_s.append(time.perf_counter() - t0)
-        self._q.put((leaves, _structure(tree), step, meta))
+        if _writer():
+            self._q.put((leaves, _structure(tree), step, meta))
 
     def close(self) -> None:
         self._q.put(None)

@@ -26,8 +26,10 @@ plain path op by op, as ``hlo_cost`` counts the JAX program);
 arguments' bytes, the outputs' (each storage once, aliases of the
 arguments included, as XLA counts donated outputs), the counted peak,
 and the peak less the arguments and the outputs that are new as
-``temp_bytes``.  ``--multi-pod`` and ``--both-meshes`` wait for the
-device mesh (ROADMAP A9).  The JAX dry run's unrolled build of one cell
+``temp_bytes``.  ``--multi-pod`` and ``--both-meshes`` wait for
+per-device counts: the meshes and their specs exist
+(``launch/mesh.py::make_production_mesh``, ``sharding/rules.py``), but
+a cell is still counted whole on one card.  The JAX dry run's unrolled build of one cell
 (``scan_layers``, an XLA workaround) has no counterpart: the port's
 layers are a Python loop.
 """

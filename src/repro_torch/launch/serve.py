@@ -7,11 +7,22 @@ a bf16 or int8 KV cache), moe (mixtral-8x7b, qwen3-moe-235b-a22b), ssm
 encdec (whisper-tiny: the prompt is the decoder's, and the encoder's
 frames come beside it; a self and a cross cache) and vlm
 (llava-next-mistral-7b: the image patches go in front of the prompt, so
-the cache and the decode positions count them).  One card holds the
-model, so there is no mesh and there are no sharding rules; ``--layers``
-cuts the depth of an arch too deep for the card.  Weights are random,
-drawn on the device from a seeded generator, and so are the modality
-inputs.
+the cache and the decode positions count them).  ``--layers`` cuts the
+depth of an arch too deep for the card.  Weights are random, drawn on the
+device from a seeded generator, and so are the modality inputs.
+
+As the JAX driver does, it runs under sharding rules on a (data, model)
+mesh over every rank of the world (``launch/mesh.py::make_host_mesh``):
+the ranks of ``torchrun``, each on ``cuda:LOCAL_RANK``, or one rank.
+Each rank holds its blocks of the weights (gathered a layer at a time),
+serves its data rows of the one global prompt batch (drawn whole on every
+rank from the seed) with a cache of its rows, and the tokens are gathered
+to every rank; rank 0 prints.  Under rules MoE prefill takes the
+shardmap path (capacity over a rank's B_local * S tokens), decode the
+gspmd one.
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
+        --arch mixtral-8x7b --full --model 4
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --full \
         --prompt-len 512 --gen 32 --batch 4
@@ -29,22 +40,32 @@ import time
 from typing import Any, Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import (RunConfig, ShapeConfig, get_config,
                                       get_smoke_config)
+from repro_torch.launch.mesh import local_device, make_host_mesh
 from repro_torch.models import params as P
 from repro_torch.models import registry
 from repro_torch.serve import engine
+from repro_torch.sharding import ShardingRules, batch_split, use_rules
 
 
 def resolve_device(device: str) -> torch.device:
-    """The device to run on; a CUDA device that is absent raises (the
-    port never moves to the CPU unasked)."""
+    """The device to run on, a bare ``"cuda"`` pinned to this rank's card;
+    a CUDA device that is absent raises (the port never moves to the CPU
+    unasked)."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device!r} asked for, but CUDA is not "
                            "available; pass device='cpu' to run on the CPU")
-    return dev
+    return local_device(device)
+
+
+def host_rules(model: Optional[int], dev: torch.device) -> ShardingRules:
+    """Sharding rules over the host mesh of every rank (``model`` ranks a
+    model group), its collectives on ``dev``'s type."""
+    return ShardingRules(make_host_mesh(model, device=dev.type))
 
 
 def _sync(dev: torch.device) -> None:
@@ -60,11 +81,14 @@ def init_params(cfg, seed: int, device: torch.device):
 def run_serving(arch: str, *, smoke: bool = True, prompt_len: int = 32,
                 gen: int = 16, batch: int = 4, device: str = "cuda",
                 run: Optional[RunConfig] = None, seed: int = 0,
-                num_layers: Optional[int] = None) -> Dict[str, Any]:
+                num_layers: Optional[int] = None,
+                model: Optional[int] = None) -> Dict[str, Any]:
     """Prefills ``batch`` random prompts of ``prompt_len`` tokens (with
     their frames or image patches), then decodes ``gen - 1`` more tokens
-    greedily.  Prompts come from ``seed`` and weights from ``seed + 1``.
-    ``num_layers`` cuts the depth (the width stays)."""
+    greedily, under sharding rules on the host mesh (``model`` ranks a
+    model group; see the module doc).  Prompts come from ``seed`` and
+    weights from ``seed + 1``.  ``num_layers`` cuts the depth (the width
+    stays)."""
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
     if num_layers is not None:
         cfg = cfg.replace(num_layers=num_layers)
@@ -72,17 +96,25 @@ def run_serving(arch: str, *, smoke: bool = True, prompt_len: int = 32,
     dev = resolve_device(device)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
+    rules = host_rules(model, dev)
+    with use_rules(rules):
+        return _serve(arch, cfg, run, dev, rules, prompt_len, gen, batch,
+                      seed)
 
+
+def _serve(arch, cfg, run, dev, rules, prompt_len, gen, batch, seed):
     shape = ShapeConfig("serve", prompt_len, batch, "prefill")
     prompts = registry.synth_inputs(
         torch.Generator(device=dev).manual_seed(seed), cfg, shape,
         "prefill", device=dev)
+    split = rules.local_batch(prompts)
+    prompts, rows, axes = split or (prompts, batch, ())
     extra = cfg.num_img_patches if cfg.family == "vlm" else 0
     max_len = prompt_len + extra + gen + 8
     params = init_params(cfg, seed + 1, dev)
-    cache = engine.init_cache(cfg, batch, max_len, device=dev)
+    cache = engine.init_cache(cfg, rows, max_len, device=dev)
 
-    with torch.inference_mode():
+    with torch.inference_mode(), batch_split(rows, axes):
         _sync(dev)
         t0 = time.perf_counter()
         tok, cache = engine.prefill_step(params, prompts, cache, cfg=cfg,
@@ -98,10 +130,11 @@ def run_serving(arch: str, *, smoke: bool = True, prompt_len: int = 32,
             out_tokens.append(tok)
         _sync(dev)
         t_decode = time.perf_counter() - t1
-    seq = torch.cat(out_tokens, dim=1)
+        seq = rules.all_gather(torch.cat(out_tokens, dim=1), 0, axes)
     res = {
         "arch": arch,
         "layers": cfg.num_layers,
+        "mesh": dict(rules.mesh.shape),
         "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                    else "cpu"),
         "generated": tuple(seq.shape),
@@ -127,13 +160,17 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the depth to this many layers")
+    ap.add_argument("--model", type=int, default=None,
+                    help="ranks a model group (default 1: data parallel)")
     args = ap.parse_args(argv)
     res = run_serving(args.arch, smoke=args.smoke,
                       prompt_len=args.prompt_len, gen=args.gen,
                       batch=args.batch, device=args.device, seed=args.seed,
-                      num_layers=args.layers)
+                      num_layers=args.layers, model=args.model)
     res.pop("tokens")
-    print(res)
+    if dist.get_rank() == 0:
+        print(res)
+    dist.destroy_process_group()
     return 0
 
 

@@ -22,14 +22,28 @@ SSD scan's backward included) or on the CPU through their plain
 versions.  whisper's batches carry ``frames`` and llava's
 ``img_embeds``: from ``synth_inputs`` on synthetic batches, zeros on
 the device beside the carousel's tokens, as the JAX entry point's
-``_modality_extras`` makes them.  One card holds the model, so
-there is no mesh and there are no sharding rules.  Weights are random,
-drawn on the device from a seeded generator.  With ``out_dir`` an
-AsyncCheckpointer saves the state every ``ckpt_every`` steps and after
-the last; ``resume`` loads the newest checkpoint and trains ``steps``
-more from its step.  As in the JAX
-package, a resumed run restarts its batch stream: synthetic batches from
-index 0, the carousel from its first shard.
+``_modality_extras`` makes them.  Weights are random, drawn on the
+device from a seeded generator.  With ``out_dir`` an AsyncCheckpointer
+saves the state every ``ckpt_every`` steps and after the last;
+``resume`` loads the newest checkpoint and trains ``steps`` more from
+its step.  As in the JAX package, a resumed run restarts its batch
+stream: synthetic batches from index 0, the carousel from its first
+shard.
+
+As the JAX driver does, it trains under sharding rules on a (data,
+model) mesh over every rank of the world (``launch/mesh.py``): the ranks
+of ``torchrun``, each on ``cuda:LOCAL_RANK``, or one rank.  The state
+holds each rank's blocks (drawn sharded), and each data rank trains on
+its rows of the global batch that a one-rank run sees
+(``train/step.py``).  Synthetic batches are drawn whole on every rank
+from the same seed.  The carousel's landing order depends on its
+threads' timing, so rank 0 alone stages the corpus and broadcasts each
+batch to the other ranks.  Checkpoints are gathered whole and written by
+rank 0, in the one-rank format; a resume reshards them onto the mesh
+that loads them.
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+        --arch yi-6b --full --steps 3 --seq-len 512 --global-batch 4
 """
 from __future__ import annotations
 
@@ -38,6 +52,7 @@ import time
 from typing import Any, Callable, Dict, Iterator, List, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.carousel.delivery import DeliveryIterator, device_put
 from repro_torch.carousel.stager import Stager
@@ -47,9 +62,10 @@ from repro_torch.ckpt import AsyncCheckpointer, latest_step, load_checkpoint
 from repro_torch.configs.base import (RunConfig, ShapeConfig, get_config,
                                       get_smoke_config)
 from repro_torch.data.synthetic import build_cold_store
-from repro_torch.launch.serve import resolve_device
+from repro_torch.launch.serve import host_rules, resolve_device
 from repro_torch.models import registry
-from repro_torch.train.step import init_state, make_train_step
+from repro_torch.sharding import use_rules
+from repro_torch.train.step import init_state, make_train_step, state_defs
 
 
 def make_carousel_pipeline(cfg, *, seq_len: int, batch_rows: int,
@@ -84,12 +100,45 @@ def _modality_extras(cfg, batch: int,
                               device=device)}
 
 
-def _batch_iter_carousel(cfg, delivery: DeliveryIterator,
+def _batch_iter_carousel(cfg, delivery: Optional[DeliveryIterator],
                          device: torch.device) -> Iterator[Dict[str, Any]]:
-    for b in delivery:
-        out = device_put(b, device)
+    """The delivery's batches on ``device`` (rank 0's, broadcast to every
+    rank; ``delivery`` is None on the other ranks)."""
+    own = (device_put(b, device) for b in delivery) \
+        if delivery is not None else None
+    for out in _broadcast_batches(own, device):
         out.update(_modality_extras(cfg, out["tokens"].shape[0], device))
         yield out
+
+
+_CAROUSEL_KEYS = (("tokens", torch.int32), ("labels", torch.int32),
+                  ("loss_mask", torch.float32))
+
+
+def _broadcast_batches(batches: Optional[Iterator[Dict[str, Any]]],
+                       device: torch.device) -> Iterator[Dict[str, Any]]:
+    """Rank 0 takes each carousel batch from ``batches`` and broadcasts it
+    to every rank of the world (the other ranks pass None); a batch of 0
+    rows ends the stream.  At world size 1 the batches pass through."""
+    if dist.get_world_size() == 1:
+        yield from batches
+        return
+    rank = dist.get_rank()
+    while True:
+        b = next(batches, None) if rank == 0 else None
+        head = torch.zeros(2, dtype=torch.int64, device=device)
+        if b is not None:
+            head[0], head[1] = b["tokens"].shape
+        dist.broadcast(head, 0)
+        n, seq = int(head[0]), int(head[1])
+        if n == 0:
+            return
+        if rank != 0:
+            b = {k: torch.empty((n, seq), dtype=dt, device=device)
+                 for k, dt in _CAROUSEL_KEYS}
+        for k, _ in _CAROUSEL_KEYS:
+            dist.broadcast(b[k], 0)
+        yield b
 
 
 def _batch_iter_synth(cfg, shape, device) -> Iterator[Dict[str, Any]]:
@@ -141,26 +190,41 @@ def run_training(
     on_step: Optional[Callable[[int, Dict[str, float]], None]] = None,
     device: str = "cuda",
     num_layers: Optional[int] = None,
+    model: Optional[int] = None,
 ) -> Dict[str, Any]:
-    """Trains ``steps`` steps and returns the JAX entry point's result
-    keys.  ``num_layers`` cuts the depth (the width stays).  With the
+    """Trains ``steps`` steps, under sharding rules on the host mesh
+    (``model`` ranks a model group; see the module doc), and returns the
+    JAX entry point's result keys (``state`` holds this rank's blocks).
+    ``num_layers`` cuts the depth (the width stays).  With the
     carousel the result also holds ``"carousel"``: the delivery's time
     to the first batch, the host time each step waited in ``next()`` on
     the batch iterator, the tape's reads and failed reads, the stager's
-    hedges, shards landed, and rows delivered against rows received.
-    With ``out_dir`` it holds ``"checkpoint"``: each save's host-copy and
-    writer times and the bytes written."""
+    hedges, shards landed, and rows delivered against rows received (rank
+    0's; None on the other ranks).  With ``out_dir`` it holds
+    ``"checkpoint"``: each save's host-copy and writer times and the
+    bytes written."""
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
     if num_layers is not None:
         cfg = cfg.replace(num_layers=num_layers)
-    shape = ShapeConfig("train", seq_len, global_batch, "train")
     run = run or default_run_config(cfg, steps)
     dev = resolve_device(device)
+    rules = host_rules(model, dev)
+    with use_rules(rules):
+        return _train(arch, cfg, run, dev, steps, seq_len, global_batch,
+                      out_dir, resume, carousel, coarse, ckpt_every,
+                      tape_latency, drives, on_step)
+
+
+def _train(arch, cfg, run, dev, steps, seq_len, global_batch, out_dir,
+           resume, carousel, coarse, ckpt_every, tape_latency, drives,
+           on_step) -> Dict[str, Any]:
+    shape = ShapeConfig("train", seq_len, global_batch, "train")
     step_fn = make_train_step(cfg, run)
+    sdefs = state_defs(cfg)
 
     start_step = 0
     if resume and out_dir and latest_step(out_dir) is not None:
-        state, meta = load_checkpoint(out_dir, device=dev)
+        state, meta = load_checkpoint(out_dir, device=dev, defs=sdefs)
         state["opt"]["step"] = int(state["opt"]["step"])
         start_step = int(meta["step"])
     else:
@@ -169,7 +233,9 @@ def run_training(
 
     ckpt = AsyncCheckpointer(out_dir, keep=3) if out_dir else None
     stager = delivery = None
-    if carousel:
+    if carousel and dist.get_rank() != 0:
+        batches = _batch_iter_carousel(cfg, None, dev)
+    elif carousel:
         stager, delivery = make_carousel_pipeline(
             cfg, seq_len=seq_len, batch_rows=global_batch,
             n_shards=max(8, steps), coarse=coarse,
@@ -199,10 +265,12 @@ def run_training(
             if on_step:
                 on_step(done, {"loss": loss})
             if ckpt and done % ckpt_every == 0:
-                ckpt.save(state, done, meta={"loss": loss, "arch": arch})
+                ckpt.save(state, done, meta={"loss": loss, "arch": arch},
+                          defs=sdefs)
         if ckpt:
             ckpt.save(state, done, meta={
-                "loss": losses[-1] if losses else None, "arch": arch})
+                "loss": losses[-1] if losses else None, "arch": arch},
+                defs=sdefs)
     finally:
         if ckpt:
             ckpt.close()
@@ -220,7 +288,8 @@ def run_training(
         "state": state,
     }
     if carousel:
-        out["carousel"] = _carousel_stats(stager, delivery, next_wait_s)
+        out["carousel"] = (None if stager is None else
+                           _carousel_stats(stager, delivery, next_wait_s))
     if ckpt:
         out["checkpoint"] = {"copy_s": ckpt.copy_s, "write_s": ckpt.write_s,
                              "bytes_written": ckpt.bytes_written}
@@ -241,15 +310,19 @@ def main(argv=None) -> int:
     ap.add_argument("--coarse", action="store_true",
                     help="pre-iDDS baseline: wait for the whole dataset")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--model", type=int, default=None,
+                    help="ranks a model group (default 1: data parallel)")
     args = ap.parse_args(argv)
     res = run_training(args.arch, smoke=args.smoke, steps=args.steps,
                        seq_len=args.seq_len, global_batch=args.global_batch,
                        out_dir=args.out, resume=args.resume,
                        carousel=args.carousel, coarse=args.coarse,
-                       device=args.device)
+                       device=args.device, model=args.model)
     res.pop("state")
     res.pop("losses")
-    print(res)
+    if dist.get_rank() == 0:
+        print(res)
+    dist.destroy_process_group()
     return 0
 
 

@@ -43,6 +43,8 @@ def param_defs(cfg: ModelConfig) -> Params:
 def _shared_attn(p: Params, cfg: ModelConfig, run: RunConfig,
                  x: torch.Tensor, pos: int, cache_l: Optional[Params],
                  kv_len: Optional[int]) -> torch.Tensor:
+    """``p``: the shared block's weights, whole (``registry`` gathers every
+    subtree but the layer stack)."""
     h = L.rmsnorm(p["ln1"], x, cfg, run)
     h, _ = L.attention(p["attn"], cfg, run, h, pos=pos, cache=cache_l,
                        kv_len=kv_len)

@@ -21,7 +21,9 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import NEG_INF, attention_mask
+from repro_torch.models import params as P
 from repro_torch.models.params import pdef
+from repro_torch.sharding import rules as SR
 
 Params = Dict[str, Any]
 
@@ -32,56 +34,68 @@ Params = Dict[str, Any]
 
 
 def norm_defs(L: int, d: int):
-    return pdef((L, d) if L else (d,), init="ones")
+    return pdef((L, d) if L else (d,),
+                ("layers", None) if L else (None,), init="ones")
 
 
 def attention_defs(cfg: ModelConfig, L: int) -> Params:
     d, qd, kvd = cfg.d_model, cfg.q_dim, cfg.kv_dim
     lead = (L,) if L else ()
+    ll = ("layers",) if L else ()
     out: Params = {
-        "wq": pdef(lead + (d, qd), init="scaled"),
-        "wk": pdef(lead + (d, kvd), init="scaled"),
-        "wv": pdef(lead + (d, kvd), init="scaled"),
-        "wo": pdef(lead + (qd, d), init="scaled"),
+        "wq": pdef(lead + (d, qd), ll + ("embed", "qkv"), init="scaled"),
+        "wk": pdef(lead + (d, kvd), ll + ("embed", "qkv"), init="scaled"),
+        "wv": pdef(lead + (d, kvd), ll + ("embed", "qkv"), init="scaled"),
+        "wo": pdef(lead + (qd, d), ll + ("qkv", "embed"), init="scaled"),
     }
     if cfg.qkv_bias:
-        out["bq"] = pdef(lead + (qd,), init="zeros")
-        out["bk"] = pdef(lead + (kvd,), init="zeros")
-        out["bv"] = pdef(lead + (kvd,), init="zeros")
+        out["bq"] = pdef(lead + (qd,), ll + ("qkv",), init="zeros")
+        out["bk"] = pdef(lead + (kvd,), ll + ("qkv",), init="zeros")
+        out["bv"] = pdef(lead + (kvd,), ll + ("qkv",), init="zeros")
     return out
 
 
 def mlp_defs(cfg: ModelConfig, L: int) -> Params:
     d, f = cfg.d_model, cfg.d_ff
     lead = (L,) if L else ()
+    ll = ("layers",) if L else ()
     out: Params = {
-        "w_up": pdef(lead + (d, f), init="scaled"),
-        "w_down": pdef(lead + (f, d), init="scaled"),
+        "w_up": pdef(lead + (d, f), ll + ("embed", "ffn"), init="scaled"),
+        "w_down": pdef(lead + (f, d), ll + ("ffn", "embed"), init="scaled"),
     }
     if cfg.gated_mlp:
-        out["w_gate"] = pdef(lead + (d, f), init="scaled")
+        out["w_gate"] = pdef(lead + (d, f), ll + ("embed", "ffn"),
+                             init="scaled")
     if cfg.mlp_bias:
-        out["b_up"] = pdef(lead + (f,), init="zeros")
-        out["b_down"] = pdef(lead + (d,), init="zeros")
+        out["b_up"] = pdef(lead + (f,), ll + ("ffn",), init="zeros")
+        out["b_down"] = pdef(lead + (d,), ll + (None,), init="zeros")
     return out
 
 
 def moe_defs(cfg: ModelConfig, L: int) -> Params:
     """The router is f32, as in the JAX defs; the experts are stacked on
-    an E axis: ``w_gate``/``w_up`` (L, E, d, f), ``w_down`` (L, E, f, d)."""
+    an E axis: ``w_gate``/``w_up`` (L, E, d, f), ``w_down`` (L, E, f, d).
+    Expert weights carry BOTH "expert" and "ffn" tags; the rules shard on
+    whichever divides: qwen3-moe (128e) on the expert dim, mixtral (8e <
+    16) on the per-expert ffn dim."""
     d, f, E = cfg.d_model, cfg.d_ff, cfg.num_experts
     return {
-        "router": pdef((L, d, E), init="scaled", dtype=torch.float32),
-        "w_gate": pdef((L, E, d, f), init="scaled"),
-        "w_up": pdef((L, E, d, f), init="scaled"),
-        "w_down": pdef((L, E, f, d), init="scaled"),
+        "router": pdef((L, d, E), ("layers", "embed", None),
+                       init="scaled", dtype=torch.float32),
+        "w_gate": pdef((L, E, d, f), ("layers", "expert", "embed", "ffn"),
+                       init="scaled"),
+        "w_up": pdef((L, E, d, f), ("layers", "expert", "embed", "ffn"),
+                     init="scaled"),
+        "w_down": pdef((L, E, f, d), ("layers", "expert", "ffn", "embed"),
+                       init="scaled"),
     }
 
 
 def embed_defs(cfg: ModelConfig) -> Params:
-    out = {"tok": pdef((cfg.vocab_size, cfg.d_model))}
+    out = {"tok": pdef((cfg.vocab_size, cfg.d_model), ("vocab", "embed"))}
     if not cfg.tie_embeddings:
-        out["lm_head"] = pdef((cfg.vocab_size, cfg.d_model), init="scaled")
+        out["lm_head"] = pdef((cfg.vocab_size, cfg.d_model),
+                              ("vocab", "embed"), init="scaled")
     return out
 
 
@@ -140,16 +154,19 @@ def kv_cache_defs(cfg: ModelConfig, L: int, batch: int,
     """One stack of per-layer KV caches: bf16 K/V, or int8 K/V with an f32
     scale per (token, head)."""
     shp = (L, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    lg = ("layers", "batch", "kv_seq", "heads", None)
     if cfg.kv_cache_dtype == "int8":
-        return {"k": pdef(shp, init="zeros", dtype=torch.int8),
-                "v": pdef(shp, init="zeros", dtype=torch.int8),
-                "k_scale": pdef(shp[:-1], init="zeros", dtype=torch.float32),
-                "v_scale": pdef(shp[:-1], init="zeros", dtype=torch.float32)}
+        return {"k": pdef(shp, lg, init="zeros", dtype=torch.int8),
+                "v": pdef(shp, lg, init="zeros", dtype=torch.int8),
+                "k_scale": pdef(shp[:-1], lg[:-1], init="zeros",
+                                dtype=torch.float32),
+                "v_scale": pdef(shp[:-1], lg[:-1], init="zeros",
+                                dtype=torch.float32)}
     if cfg.kv_cache_dtype != "bfloat16":
         raise NotImplementedError(
             f"kv_cache_dtype {cfg.kv_cache_dtype!r} is not ported")
-    return {"k": pdef(shp, init="zeros", dtype=torch.bfloat16),
-            "v": pdef(shp, init="zeros", dtype=torch.bfloat16)}
+    return {"k": pdef(shp, lg, init="zeros", dtype=torch.bfloat16),
+            "v": pdef(shp, lg, init="zeros", dtype=torch.bfloat16)}
 
 
 def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -274,7 +291,8 @@ def attention(p: Params, cfg: ModelConfig, run: RunConfig, x: torch.Tensor,
             q, k, v, causal=causal, q_offset=pos, kv_len=kv_len,
             sliding_window=cfg.sliding_window, block_k=run.attn_block_k,
             use_kernels=run.use_kernels)
-    return out.reshape(B, S, Hq * Dh) @ p["wo"], cache
+    y = out.reshape(B, S, Hq * Dh) @ p["wo"]
+    return SR.constrain(y, "batch", None, None), cache
 
 
 # ---------------------------------------------------------------------------
@@ -292,7 +310,7 @@ def mlp(p: Params, cfg: ModelConfig, run: RunConfig,
     y = h @ p["w_down"]
     if "b_down" in p:
         y = y + p["b_down"]
-    return y
+    return SR.constrain(y, "batch", None, None)
 
 
 class MoERoute(NamedTuple):
@@ -347,37 +365,148 @@ def moe_assign(cfg: ModelConfig, gates: torch.Tensor,
     return MoERoute(top_e, top_w, slot, pos < C, C)
 
 
-def moe_block(p: Params, cfg: ModelConfig, run: RunConfig,
-              x: torch.Tensor) -> torch.Tensor:
-    """Top-K MoE with the semantics of ``_moe_block_gspmd`` (one card, no
-    mesh).  Kept pairs are copied into an (E, B, C, d) grid; each expert
-    runs its gated MLP on its B*C slots in one ``bmm``; a token's kept
-    outputs, each times its weight (both in the output dtype), are summed
-    in expert order, one rounding a step, as JAX's scatter-add does.  No
-    atomics: a row's bits do not vary from run to run."""
+def _experts_combine(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                     r: MoERoute, keep: torch.Tensor, slot: torch.Tensor,
+                     n_exp: int, per_exp: int) -> torch.Tensor:
+    """Kept pairs of ``x`` (B, S, d) copied into an (n_exp, per_exp, d)
+    grid at ``slot``; each expert's gated MLP on its rows in one ``bmm``;
+    a token's kept outputs, each times its weight (both in the output
+    dtype), summed in expert order, one rounding a step, as JAX's
+    scatter-add does.  No atomics: a row's bits do not vary from run to
+    run."""
     B, S, d = x.shape
-    E, K = cfg.num_experts, cfg.num_experts_per_tok
+    K = cfg.num_experts_per_tok
     a = act_fn(cfg.act)
-    r = moe_route(p, cfg, x)
-    n_slots = E * B * r.capacity
+    n_slots = n_exp * per_exp
     # dropped pairs are written to one spare row past the grid
-    dest = torch.where(r.keep, r.slot, n_slots).reshape(-1)
+    dest = torch.where(keep, slot, n_slots).reshape(-1)
     xe = x.new_zeros((n_slots + 1, d))
     xe[dest] = x[:, :, None].expand(B, S, K, d).reshape(-1, d)
-    xe = xe[:n_slots].view(E, B * r.capacity, d)
+    xe = xe[:n_slots].view(n_exp, per_exp, d)
     h = a(torch.bmm(xe, p["w_gate"])) * torch.bmm(xe, p["w_up"])
     ye = torch.bmm(h, p["w_down"]).view(n_slots, d)
     # a dropped pair reads slot 0 at weight 0, as JAX's clipped slot does
-    w = torch.where(r.keep, r.weights, 0.0).to(ye.dtype)
-    contrib = ye[torch.where(r.keep, r.slot, 0)] * w[..., None]
+    w = torch.where(keep, r.weights, 0.0).to(ye.dtype)
+    contrib = ye[torch.where(keep, slot, 0)] * w[..., None]
     y = contrib[:, :, 0]
     for k in range(1, K):
         y = y + contrib[:, :, k]
-    return y.to(x.dtype)
+    return y
+
+
+def moe_layer_defs(cfg: ModelConfig) -> Params:
+    """The defs of one layer's MoE weights (no layer dim)."""
+    return P.unstack(moe_defs(cfg, 1))
+
+
+def moe_uses_shardmap(run: RunConfig, x: torch.Tensor) -> bool:
+    """The dispatch of ``repro/models/layers.py::moe_block``: under rules
+    with a "model" axis, prefill and training (S > 1) take the shardmap
+    path; decode (S = 1) and calls without rules the gspmd one."""
+    r = SR.current_rules()
+    return (run.moe_impl == "shardmap" and r is not None
+            and "model" in r.mesh.shape and x.shape[1] > 1)
+
+
+def moe_block(p: Params, cfg: ModelConfig, run: RunConfig,
+              x: torch.Tensor) -> torch.Tensor:
+    """Top-K MoE.  ``p`` is this rank's block of the layer's MoE weights
+    (the whole layer without rules); the path gathers what it needs:
+
+    shardmap (``_moe_block_shardmap``): the experts' "model" split stays
+      (a rank runs its own experts, or all experts on its ffn slice); the
+      rest is gathered.
+    gspmd (``_moe_block_gspmd``): everything is gathered; each batch row
+      routes on its own."""
+    shardmap = moe_uses_shardmap(run, x)
+    if SR.sharded():
+        p = SR.gather_params(p, moe_layer_defs(cfg),
+                             keep=("model",) if shardmap else ())
+    return (_moe_block_shardmap if shardmap else _moe_block_gspmd)(
+        p, cfg, run, x)
+
+
+def _moe_block_gspmd(p: Params, cfg: ModelConfig, run: RunConfig,
+                     x: torch.Tensor) -> torch.Tensor:
+    """The semantics of ``_moe_block_gspmd``: each batch row routes its S
+    tokens with capacity C = ceil(S K / E * factor).  Kept pairs go into
+    an (E, B, C, d) grid; each expert runs its B*C slots in one ``bmm``."""
+    B = x.shape[0]
+    r = moe_route(p, cfg, x)
+    y = _experts_combine(p, cfg, x, r, r.keep, r.slot, cfg.num_experts,
+                         B * r.capacity)
+    return SR.constrain(y.to(x.dtype), "batch", None, None)
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Identity; the backward sums the cotangent over the "model" axis.
+    Wraps what the shardmap block reads replicated over "model" (its
+    input, the router): each model rank's local experts give a part of
+    its gradient, as ``shard_map``'s transpose sums the cotangent of an
+    input its spec replicates."""
+
+    @staticmethod
+    def forward(ctx, x, rules):
+        ctx.rules = rules
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.rules.all_reduce(g.clone(), ("model",)), None
+
+
+class _SumOverModel(torch.autograd.Function):
+    """All-reduce (sum) over the "model" axis; the backward passes each
+    rank's cotangent unchanged (the compute after it is replicated over
+    "model", so every rank holds the same cotangent), as ``lax.psum``'s
+    transpose inside ``shard_map`` does."""
+
+    @staticmethod
+    def forward(ctx, y, rules):
+        return rules.all_reduce(y.clone(), ("model",))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _moe_block_shardmap(p: Params, cfg: ModelConfig, run: RunConfig,
+                        x: torch.Tensor) -> torch.Tensor:
+    """The semantics of ``_moe_block_shardmap``: the rank routes its T =
+    B_local * S tokens as one row, with capacity C = ceil(T K / E *
+    factor) over them; it runs only its local experts (E % n_model == 0:
+    experts ``[m E_loc, (m + 1) E_loc)`` of model rank m) or all E on its
+    ffn slice, and one all-reduce over "model" adds the disjoint (or
+    f-partial) outputs.  ``p``: the experts' local blocks, the router
+    whole."""
+    rules = SR.current_rules()
+    B, Sq, d = x.shape
+    E = cfg.num_experts
+    n_model = rules.mesh.shape["model"]
+    e_sharded = n_model > 1 and E % n_model == 0
+    E_loc = E // n_model if e_sharded else E
+    if n_model > 1 and not e_sharded \
+            and p["w_gate"].shape[-1] * n_model != cfg.d_ff:
+        raise ValueError(f"the shardmap MoE splits E {E} or d_ff "
+                         f"{cfg.d_ff} over model {n_model}: neither divides")
+    base = rules.mesh.coord("model") * E_loc if e_sharded else 0
+    xt = x.reshape(1, B * Sq, d)
+    if n_model > 1:
+        xt = _CopyToModel.apply(xt, rules)
+        p = {**p, "router": _CopyToModel.apply(p["router"], rules)}
+    r = moe_route(p, cfg, xt)
+    C = r.capacity
+    keep = r.keep & (r.experts >= base) & (r.experts < base + E_loc)
+    # one row: slot = expert * C + rank; local experts from 0
+    slot = r.slot - base * C
+    y = _experts_combine(p, cfg, xt, r, keep, slot, E_loc, C)
+    if n_model > 1:
+        y = _SumOverModel.apply(y, rules)
+    return SR.constrain(y.reshape(B, Sq, d).to(x.dtype), "batch", None, None)
 
 
 def embed(p: Params, tokens: torch.Tensor) -> torch.Tensor:
-    return p["tok"][tokens]
+    return SR.constrain(p["tok"][tokens], "batch", None, None)
 
 
 def lm_head_weight(p: Params, cfg: ModelConfig) -> torch.Tensor:
@@ -387,4 +516,5 @@ def lm_head_weight(p: Params, cfg: ModelConfig) -> torch.Tensor:
 def logits_out(p: Params, cfg: ModelConfig, run: RunConfig,
                x: torch.Tensor) -> torch.Tensor:
     y = x @ lm_head_weight(p, cfg).t()
-    return y.float() if run.logits_in_fp32 else y
+    y = y.float() if run.logits_in_fp32 else y
+    return SR.constrain(y, "batch", None, "vocab")

@@ -9,7 +9,8 @@ over layers on views of the stacked leaves takes the place of
 ``lax.scan``.  The decode state is O(1): conv tails (W - 1 tokens) and
 the f32 SSM state (H, P, N) per layer, written in place into the stacked
 cache.  Training checkpoints each block whole unless ``run.remat`` is
-"none" (``run_layers``).
+"none" (``run_layers``).  Under sharding rules a block gathers its
+layer's weights from this rank's blocks when it starts.
 """
 from __future__ import annotations
 
@@ -17,12 +18,12 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
-from repro_torch.models.params import layer, pdef
+from repro_torch.models.params import layer, pdef, unstack
+from repro_torch.sharding import rules as SR
 
 Params = Dict[str, Any]
 G = 1  # number of B/C groups (mamba2 default ngroups=1)
@@ -31,26 +32,28 @@ G = 1  # number of B/C groups (mamba2 default ngroups=1)
 def block_defs(cfg: ModelConfig, n: int) -> Params:
     d, din = cfg.d_model, cfg.ssm_inner
     N, H, W = cfg.ssm_state, cfg.ssm_heads, cfg.ssm_conv
-    lead = (n,) if n else ()
+    lead, ll = ((n,), ("layers",)) if n else ((), ())
     f32 = torch.float32
     return {
         "ln": L.norm_defs(n, d),
-        "w_z": pdef(lead + (d, din), init="scaled"),
-        "w_x": pdef(lead + (d, din), init="scaled"),
-        "w_B": pdef(lead + (d, G * N), init="scaled"),
-        "w_C": pdef(lead + (d, G * N), init="scaled"),
-        "w_dt": pdef(lead + (d, H), init="scaled"),
-        "conv_x": pdef(lead + (W, din), init="scaled"),
-        "conv_B": pdef(lead + (W, G * N), init="scaled"),
-        "conv_C": pdef(lead + (W, G * N), init="scaled"),
-        "conv_x_b": pdef(lead + (din,), init="zeros"),
-        "conv_B_b": pdef(lead + (G * N,), init="zeros"),
-        "conv_C_b": pdef(lead + (G * N,), init="zeros"),
-        "A_log": pdef(lead + (H,), init="ssm_a", dtype=f32),
-        "D": pdef(lead + (H,), init="ones", dtype=f32),
-        "dt_bias": pdef(lead + (H,), init="ssm_dt", dtype=f32),
-        "norm": pdef(lead + (din,), init="ones"),
-        "w_out": pdef(lead + (din, d), init="scaled"),
+        "w_z": pdef(lead + (d, din), ll + ("embed", "ffn"), init="scaled"),
+        "w_x": pdef(lead + (d, din), ll + ("embed", "ffn"), init="scaled"),
+        "w_B": pdef(lead + (d, G * N), ll + ("embed", None), init="scaled"),
+        "w_C": pdef(lead + (d, G * N), ll + ("embed", None), init="scaled"),
+        "w_dt": pdef(lead + (d, H), ll + ("embed", None), init="scaled"),
+        "conv_x": pdef(lead + (W, din), ll + (None, "ffn"), init="scaled"),
+        "conv_B": pdef(lead + (W, G * N), ll + (None, None), init="scaled"),
+        "conv_C": pdef(lead + (W, G * N), ll + (None, None), init="scaled"),
+        "conv_x_b": pdef(lead + (din,), ll + ("ffn",), init="zeros"),
+        "conv_B_b": pdef(lead + (G * N,), ll + (None,), init="zeros"),
+        "conv_C_b": pdef(lead + (G * N,), ll + (None,), init="zeros"),
+        "A_log": pdef(lead + (H,), ll + (None,), init="ssm_a", dtype=f32),
+        "D": pdef(lead + (H,), ll + (None,), init="ones", dtype=f32),
+        "dt_bias": pdef(lead + (H,), ll + (None,), init="ssm_dt",
+                        dtype=f32),
+        "norm": pdef(lead + (din,), ll + ("ffn",), init="ones"),
+        "w_out": pdef(lead + (din, d), ll + ("ffn", "embed"),
+                      init="scaled"),
     }
 
 
@@ -87,6 +90,8 @@ def block_fwd(p: Params, cfg: ModelConfig, run: RunConfig, x: torch.Tensor,
     None for a plain forward."""
     Bb, S, _ = x.shape
     N, H, P = cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    if SR.sharded():
+        p = SR.gather_params(p, unstack(block_defs(cfg, 1)))
     h = L.rmsnorm(p["ln"], x, cfg, run)
 
     z = h @ p["w_z"]
@@ -122,7 +127,7 @@ def block_fwd(p: Params, cfg: ModelConfig, run: RunConfig, x: torch.Tensor,
 
     y = ops.rmsnorm(y * F.silu(z.float()).to(y.dtype), p["norm"],
                     eps=cfg.norm_eps, use_kernels=run.use_kernels)
-    out = y @ p["w_out"]
+    out = SR.constrain(y @ p["w_out"], "batch", None, None)
     if state is not None:
         state["tail_x"].copy_(tx)
         state["tail_B"].copy_(tb)
@@ -135,12 +140,16 @@ def state_defs(cfg: ModelConfig, n: int, batch: int) -> Params:
     """Decode-state ParamDefs for n stacked mamba blocks."""
     N, H, P, W = cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_conv
     din = cfg.ssm_inner
-    lead = (n,) if n else ()
+    lead, ll = ((n,), ("layers",)) if n else ((), ())
     return {
-        "tail_x": pdef(lead + (batch, W - 1, din), init="zeros"),
-        "tail_B": pdef(lead + (batch, W - 1, G * N), init="zeros"),
-        "tail_C": pdef(lead + (batch, W - 1, G * N), init="zeros"),
-        "ssm": pdef(lead + (batch, H, P, N), init="zeros",
+        "tail_x": pdef(lead + (batch, W - 1, din),
+                       ll + ("batch", None, "ffn"), init="zeros"),
+        "tail_B": pdef(lead + (batch, W - 1, G * N),
+                       ll + ("batch", None, None), init="zeros"),
+        "tail_C": pdef(lead + (batch, W - 1, G * N),
+                       ll + ("batch", None, None), init="zeros"),
+        "ssm": pdef(lead + (batch, H, P, N),
+                    ll + ("batch", "heads_ssm", "ssm_p", None), init="zeros",
                     dtype=torch.float32),
     }
 
@@ -158,7 +167,7 @@ def run_layers(params: Params, cfg: ModelConfig, run: RunConfig,
     for i in range(lo, hi):
         p_l = layer(params["blocks"], i)
         if remat:
-            x = checkpoint(block_fwd, p_l, cfg, run, x, use_reentrant=False)
+            x = SR.checkpoint(block_fwd, p_l, cfg, run, x)
         else:
             s_l = None if state is None else layer(state, i)
             x = block_fwd(p_l, cfg, run, x, s_l)

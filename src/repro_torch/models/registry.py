@@ -8,6 +8,11 @@ with the signatures of the JAX package (``pos`` is a Python int).  The
 modality frontends (whisper's mel conv, llava's vision tower) are stubs,
 as in the JAX package: the inputs carry precomputed frame or patch
 embeddings.
+
+Under sharding rules ``params`` holds this rank's blocks of each weight;
+``forward``, ``prefill`` and ``decode`` gather every subtree but the
+layer stacks (``gather_top``; the stacks a layer at a time, inside the
+blocks).
 """
 from __future__ import annotations
 
@@ -18,6 +23,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, RunConfig, ShapeConfig
 from repro_torch.models import hybrid, mamba2, transformer, whisper
+from repro_torch.sharding import rules as SR
 
 Params = Dict[str, Any]
 
@@ -64,9 +70,19 @@ def layer_stacks(cfg: ModelConfig) -> Dict[str, int]:
     return {"blocks": cfg.num_layers}
 
 
+def gather_top(params: Params, cfg: ModelConfig) -> Params:
+    """Under sharding rules, the tree with every subtree but the layer
+    stacks gathered whole; ``params`` itself without rules."""
+    if not SR.sharded():
+        return params
+    defs, stacks = param_defs(cfg), layer_stacks(cfg)
+    return {k: v if k in stacks else SR.gather_params(v, defs[k])
+            for k, v in params.items()}
+
+
 def forward(params: Params, cfg: ModelConfig, run: RunConfig,
             batch: Dict[str, Any]) -> torch.Tensor:
-    return module_for(cfg).forward(params, cfg, run, batch)
+    return module_for(cfg).forward(gather_top(params, cfg), cfg, run, batch)
 
 
 def cache_defs(cfg: ModelConfig, batch: int, max_len: int) -> Params:
@@ -75,12 +91,14 @@ def cache_defs(cfg: ModelConfig, batch: int, max_len: int) -> Params:
 
 def prefill(params: Params, cfg: ModelConfig, run: RunConfig,
             batch: Dict[str, Any], cache: Params):
-    return module_for(cfg).prefill(params, cfg, run, batch, cache)
+    return module_for(cfg).prefill(gather_top(params, cfg), cfg, run, batch,
+                                   cache)
 
 
 def decode(params: Params, cfg: ModelConfig, run: RunConfig,
            tokens: torch.Tensor, cache: Params, pos: int):
-    return module_for(cfg).decode(params, cfg, run, tokens, cache, pos)
+    return module_for(cfg).decode(gather_top(params, cfg), cfg, run, tokens,
+                                  cache, pos)
 
 
 def input_specs(cfg: ModelConfig, shape: ShapeConfig,

@@ -17,18 +17,23 @@ recomputed.
 ``params["blocks"]`` may also be a list of per-layer trees (views into the
 stacks): the training step passes that, so that autograd takes each
 layer's gradient on its own view instead of on the whole stack.
+
+Under sharding rules each block gathers its layer's weights from this
+rank's blocks when it starts (inside the checkpointed function, so remat
+gathers again in the backward); the MoE block gathers its own.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+from torch.utils.checkpoint import (CheckpointPolicy,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.models import layers as L
 from repro_torch.models import params as P
+from repro_torch.sharding import rules as SR
 
 Params = Dict[str, Any]
 
@@ -61,6 +66,10 @@ def param_defs(cfg: ModelConfig) -> Params:
 def _block(p_l: Params, cfg: ModelConfig, run: RunConfig, x: torch.Tensor,
            pos: int, cache_l: Optional[Params], kv_len: Optional[int]
            ) -> torch.Tensor:
+    if SR.sharded():
+        defs = P.unstack(param_defs(cfg)["blocks"])
+        p_l = {k: v if k == "moe" else SR.gather_params(v, defs[k])
+               for k, v in p_l.items()}
     h = L.rmsnorm(p_l["ln1"], x, cfg, run)
     h, _ = L.attention(p_l["attn"], cfg, run, h, pos=pos, cache=cache_l,
                        kv_len=kv_len)
@@ -99,9 +108,9 @@ def _run_blocks(params: Params, cfg: ModelConfig, run: RunConfig,
         p_l = blocks[i] if isinstance(blocks, list) else P.layer(blocks, i)
         c_l = None if cache is None else P.layer(cache, i)
         if remat != "none" and torch.is_grad_enabled():
-            ctx = {"context_fn": _dots_context} if remat == "dots" else {}
-            x = checkpoint(_block, p_l, cfg, run, x, pos, c_l, kv_len,
-                           use_reentrant=False, **ctx)
+            x = SR.checkpoint(
+                _block, p_l, cfg, run, x, pos, c_l, kv_len,
+                context_fn=_dots_context if remat == "dots" else None)
         else:
             x = _block(p_l, cfg, run, x, pos, c_l, kv_len)
     return L.rmsnorm(params["ln_f"], x, cfg, run)

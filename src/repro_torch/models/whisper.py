@@ -20,11 +20,11 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.models import layers as L
 from repro_torch.models import params as P
+from repro_torch.sharding import rules as SR
 
 Params = Dict[str, Any]
 
@@ -62,7 +62,7 @@ def _call(fn, run: RunConfig, *args):
     if run.remat not in ("none", "full", "dots"):
         raise ValueError(f"unknown remat {run.remat!r}")
     if run.remat != "none" and torch.is_grad_enabled():
-        return checkpoint(fn, *args, use_reentrant=False)
+        return SR.checkpoint(fn, *args)
     return fn(*args)
 
 
@@ -73,8 +73,17 @@ def _add_positions(x: torch.Tensor, pos: int, cfg: ModelConfig
         x.dtype)[None]
 
 
+def _gathered(p: Params, cfg: ModelConfig, stack: str) -> Params:
+    """A layer of ``stack`` gathered from this rank's blocks (under
+    sharding rules; ``p`` itself without)."""
+    if not SR.sharded():
+        return p
+    return SR.gather_params(p, P.unstack(param_defs(cfg)[stack]))
+
+
 def _enc_block(p: Params, cfg: ModelConfig, run: RunConfig,
                x: torch.Tensor) -> torch.Tensor:
+    p = _gathered(p, cfg, "enc_blocks")
     a = L.rmsnorm(p["ln1"], x, cfg, run)
     a, _ = L.attention(p["attn"], cfg, run, a, pos=0, causal=False,
                        use_rope=False)
@@ -99,6 +108,7 @@ def _dec_block(p: Params, cfg: ModelConfig, run: RunConfig, x: torch.Tensor,
                pos: int, enc_out: Optional[torch.Tensor],
                self_c: Optional[Params], cross_c: Optional[Params],
                kv_len: Optional[int]) -> torch.Tensor:
+    p = _gathered(p, cfg, "dec_blocks")
     h = L.rmsnorm(p["ln1"], x, cfg, run)
     h, _ = L.attention(p["self_attn"], cfg, run, h, pos=pos, cache=self_c,
                        kv_len=kv_len, use_rope=False)

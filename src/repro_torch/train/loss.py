@@ -25,10 +25,16 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import ref
 from repro_torch.models import layers as L
 from repro_torch.models import registry
+from repro_torch.sharding import rules as S
 
 
-def _masked_mean(nll: torch.Tensor,
-                 valid: Optional[torch.Tensor]) -> torch.Tensor:
+def _masked_mean(nll: torch.Tensor, valid: Optional[torch.Tensor],
+                 denom: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean NLL over the valid positions; with ``denom`` (a rank's share
+    of a batch split over ranks: the global count of valid positions) the
+    local sum over it, which the ranks' sum makes the global mean."""
+    if denom is not None:
+        return (nll if valid is None else nll * valid).sum() / denom
     if valid is not None:
         return (nll * valid).sum() / torch.clamp(valid.sum(), min=1.0)
     return nll.mean()
@@ -41,7 +47,7 @@ class CEBlockwiseFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, hidden, w_vocab, targets, valid, block_v: int,
-                ce_dtype: torch.dtype, kernel: bool):
+                ce_dtype: torch.dtype, kernel: bool, denom=None):
         hc, wc = hidden.to(ce_dtype), w_vocab.to(ce_dtype)
         if kernel:
             hc, wc = hc.contiguous(), wc.contiguous()
@@ -52,17 +58,20 @@ class CEBlockwiseFn(torch.autograd.Function):
                 nll, lse = ref.cross_entropy_stats_ref(hc, wc, targets,
                                                        block_v=block_v)
         ctx.block_v, ctx.ce_dtype = block_v, ce_dtype
-        ctx.save_for_backward(hidden, w_vocab, targets, valid, lse)
-        return _masked_mean(nll, valid)
+        ctx.save_for_backward(hidden, w_vocab, targets, valid, lse, denom)
+        return _masked_mean(nll, valid, denom)
 
     @staticmethod
     def backward(ctx, g):
-        hidden, w_vocab, targets, valid, lse = ctx.saved_tensors
+        hidden, w_vocab, targets, valid, lse, denom = ctx.saved_tensors
         ce_dtype = ctx.ce_dtype
         T, D = hidden.shape
         V = w_vocab.shape[0]
         bv = min(ctx.block_v, V)
-        if valid is not None:
+        if denom is not None:
+            coef = ((g / denom).expand(T) if valid is None
+                    else g * valid / denom)[:, None]
+        elif valid is not None:
             coef = (g * valid / torch.clamp(valid.sum(), min=1.0))[:, None]
         else:
             coef = (g / T).expand(T)[:, None]
@@ -79,23 +88,25 @@ class CEBlockwiseFn(torch.autograd.Function):
             dlogits = (coef * probs).to(ce_dtype).float()
             dh += dlogits @ wb
             dw[v0:v0 + n] = (dlogits.t() @ hf).to(w_vocab.dtype)
-        return dh.to(hidden.dtype), dw, None, None, None, None, None
+        return dh.to(hidden.dtype), dw, None, None, None, None, None, None
 
 
 def ce_blockwise(hidden: torch.Tensor, w_vocab: torch.Tensor,
                  targets: torch.Tensor, valid: Optional[torch.Tensor],
                  block_v: int = 8192, ce_dtype: torch.dtype = torch.bfloat16,
-                 *, use_kernels: Optional[bool] = None) -> torch.Tensor:
+                 *, use_kernels: Optional[bool] = None,
+                 denom: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean NLL over valid positions.  hidden: (T, D); w_vocab: (V, D).
-    The logits come from ``ce_dtype`` inputs with f32 accumulation."""
+    The logits come from ``ce_dtype`` inputs with f32 accumulation.
+    ``denom``: see :func:`_masked_mean`."""
     kernel = ops._kernel_path(hidden, use_kernels)
     return CEBlockwiseFn.apply(hidden, w_vocab, targets, valid, block_v,
-                               ce_dtype, kernel)
+                               ce_dtype, kernel, denom)
 
 
 def ce_direct(hidden: torch.Tensor, w_vocab: torch.Tensor,
-              targets: torch.Tensor,
-              valid: Optional[torch.Tensor]) -> torch.Tensor:
+              targets: torch.Tensor, valid: Optional[torch.Tensor],
+              denom: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean NLL from the whole f32 (T, V) logits, differentiated by
     autograd (small vocab / smoke)."""
     logits = hidden.float() @ w_vocab.float().t()
@@ -103,29 +114,51 @@ def ce_direct(hidden: torch.Tensor, w_vocab: torch.Tensor,
     lse = (m + torch.log(torch.exp(logits - m).sum(dim=-1,
                                                     keepdim=True)))[:, 0]
     tgt = logits.gather(1, targets[:, None].long())[:, 0]
-    return _masked_mean(lse - tgt, valid)
+    return _masked_mean(lse - tgt, valid, denom)
+
+
+def _split_count(valid: Optional[torch.Tensor], n: int,
+                 device: torch.device) -> Optional[torch.Tensor]:
+    """Under a batch split over ranks, the global count of valid positions
+    (clamped to 1), summed over the split's axes; None otherwise."""
+    r, split = S.current_rules(), S.current_split()
+    if r is None or split is None or not r._live(split[1]):
+        return None
+    count = (valid.detach().sum() if valid is not None
+             else torch.tensor(float(n), device=device))
+    return torch.clamp(r.all_reduce(count, split[1]), min=1.0)
 
 
 def lm_loss(params, cfg: ModelConfig, run: RunConfig,
             batch: Dict[str, Any]
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token LM loss: (loss, {"loss", "tokens"}); a VLM's over its
-    text positions only."""
+    text positions only.  Under a batch split over ranks the returned loss
+    is this rank's share (its sum over the global count of valid
+    positions: the ranks' gradients add up to the global mean's), and
+    the aux ``loss`` and ``tokens`` are the global ones."""
+    params = registry.gather_top(params, cfg)
     x = registry.forward(params, cfg, run, batch)  # (B, S_total, d)
     if cfg.family == "vlm":
         x = x[:, cfg.num_img_patches:]
-    B, S, D = x.shape
-    hidden = x.reshape(B * S, D)
-    targets = batch["labels"].reshape(B * S)
+    B, S_, D = x.shape
+    x = S.constrain(x, "batch", None, None)
+    hidden = x.reshape(B * S_, D)
+    targets = batch["labels"].reshape(B * S_)
     valid = batch.get("loss_mask")
-    valid = valid.reshape(B * S) if valid is not None else None
+    valid = valid.reshape(B * S_) if valid is not None else None
     w = L.lm_head_weight(params["embed"], cfg)
+    denom = _split_count(valid, B * S_, x.device)
     if run.ce_mode == "blockwise":
         loss = ce_blockwise(hidden, w, targets, valid, run.ce_block_v,
                             getattr(torch, run.ce_dtype),
-                            use_kernels=run.use_kernels)
+                            use_kernels=run.use_kernels, denom=denom)
     else:
-        loss = ce_direct(hidden, w, targets, valid)
+        loss = ce_direct(hidden, w, targets, valid, denom)
+    if denom is not None:
+        axes = S.current_split()[1]
+        return loss, {"loss": S.current_rules().all_reduce(
+            loss.detach().clone(), axes), "tokens": denom}
     ntok = (valid.sum() if valid is not None
-            else torch.tensor(float(B * S), device=x.device))
+            else torch.tensor(float(B * S_), device=x.device))
     return loss, {"loss": loss, "tokens": ntok}

@@ -16,6 +16,16 @@ autograd has it.  Every stacked subtree of the tree is walked so
 autograd build a zero tensor of the whole stack for every layer and add
 them up: for the 2.9 GB MLP stacks of yi-6b, 32 whole-stack temporaries
 per leaf per step.
+
+Under sharding rules (``repro_torch.sharding.use_rules``) the state holds
+this rank's blocks (params and moments alike, ZeRO style) and the step
+takes the GLOBAL batch, as the JAX step does: each rank runs its rows
+(``ShardingRules.rows``: a block of every microbatch), the loss weighs
+each rank by the global count of valid tokens, the gradients of its
+blocks are summed over the batch axes (the gathers' backward and
+``sync_grads``), the global norm adds every block once, and AdamW steps
+each rank's blocks.  At world size 1 this is the step without rules, bit
+for bit.
 """
 from __future__ import annotations
 
@@ -28,6 +38,7 @@ from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.models import params as P
 from repro_torch.models import registry
 from repro_torch.optim import adamw_init, adamw_update, cosine_schedule
+from repro_torch.sharding import rules as S
 from repro_torch.train.loss import lm_loss
 
 TrainState = Dict[str, Any]
@@ -35,11 +46,20 @@ TrainState = Dict[str, Any]
 
 def init_state(generator: torch.Generator, cfg: ModelConfig,
                run: RunConfig) -> TrainState:
-    """Params drawn from ``generator`` on its device, zero moments."""
+    """Params drawn from ``generator`` on its device (under rules, this
+    rank's blocks), zero moments."""
     params = P.materialize(registry.param_defs(cfg), generator,
                            generator.device)
     opt = adamw_init(params, dtype=getattr(torch, run.opt_state_dtype))
     return {"params": params, "opt": opt}
+
+
+def state_defs(cfg: ModelConfig) -> Dict[str, Any]:
+    """The ParamDefs of a train state's leaves (the moments share their
+    param's; the step is None): where each leaf's blocks lie under
+    sharding rules, for checkpoints."""
+    defs = registry.param_defs(cfg)
+    return {"params": defs, "opt": {"m": defs, "v": defs, "step": None}}
 
 
 def _add_into(buf: torch.Tensor) -> Callable[[torch.Tensor], None]:
@@ -89,8 +109,23 @@ def _split_microbatches(batch: Dict[str, Any],
 def grads_and_metrics(params, cfg: ModelConfig, run: RunConfig,
                       batch: Dict[str, Any]):
     """Loss and gradients, with ``run.accum_steps`` microbatches summed in
-    f32 and averaged (one microbatch: gradients in the params' dtypes)."""
+    f32 and averaged (one microbatch: gradients in the params' dtypes).
+    Under rules ``params`` are this rank's blocks, ``batch`` the global
+    batch, and the gradients this rank's blocks of the global ones."""
     accum = max(run.accum_steps, 1)
+    r = S.current_rules()
+    split = None if r is None else r.local_batch(batch, accum)
+    if split is None:
+        return _grads_and_metrics(params, cfg, run, batch, accum)
+    local, rows, axes = split
+    with S.batch_split(rows, axes):
+        grads, metrics = _grads_and_metrics(params, cfg, run, local, accum)
+        S.sync_grads(grads, registry.param_defs(cfg))
+    return grads, metrics
+
+
+def _grads_and_metrics(params, cfg: ModelConfig, run: RunConfig,
+                       batch: Dict[str, Any], accum: int):
     gdtype = (lambda p: p.dtype) if accum == 1 else (
         lambda p: torch.float32)
     grads = P.tree_map(lambda p: torch.zeros(p.shape, dtype=gdtype(p),
@@ -103,9 +138,9 @@ def grads_and_metrics(params, cfg: ModelConfig, run: RunConfig,
                        **{k: v.detach() for k, v in aux.items()}}
     l_sum = torch.zeros((), device=batch["tokens"].device)
     for mb in _split_microbatches(batch, accum):
-        loss, _ = lm_loss(tree, cfg, run, mb)
+        loss, aux = lm_loss(tree, cfg, run, mb)
         loss.backward()
-        l_sum += loss.detach()
+        l_sum += aux["loss"].detach()
     inv = 1.0 / accum
     for g in P.tree_leaves(grads):
         g.mul_(inv)
@@ -126,7 +161,9 @@ def train_step(state: TrainState, batch: Dict[str, Any], *,
                          total_steps=run.total_steps)
     _, _, opt_metrics = adamw_update(
         params, grads, opt, lr=lr, weight_decay=run.weight_decay,
-        max_grad_norm=run.max_grad_norm)
+        max_grad_norm=run.max_grad_norm,
+        norm_axes=(S.sharded_axes(registry.param_defs(cfg))
+                   if S.sharded() else None))
     metrics.update(opt_metrics)
     return state, metrics
 

@@ -343,13 +343,28 @@ def test_smoke_encdec_and_vlm_serving_kernels_match_plain(cuda, arch):
     assert _launch_counts() == want
 
 
+def _whole_leaf_params(cfg, seed: int, device):
+    """The params of ``cfg`` drawn from ``seed`` one whole leaf at a time,
+    in tree order (on the card, other numbers than ``materialize``'s
+    layer-at-a-time draws)."""
+    from repro_torch.models import params as P
+    g = torch.Generator(device=device).manual_seed(seed)
+    return P.tree_map(lambda d: P._init_leaf(d, g, device),
+                      registry.param_defs(cfg))
+
+
 @pytest.mark.parametrize("arch", ["whisper-tiny", "llava-next-mistral-7b"])
 def test_smoke_encdec_and_vlm_training_on_card(cuda, arch):
     """Smoke training on the card, synthetic and carousel-fed, launches
     what the code implies and gives finite losses; one step's gradients
     agree with the plain path's (loss 1e-2, leaves relative L2 5e-2;
     whisper's key biases, whose gradients are zero but for rounding,
-    against the norm of the value bias's)."""
+    against the norm of the value bias's).  The weights are drawn a whole
+    leaf at a time (``_whole_leaf_params``), as ``materialize`` drew them
+    before it drew a stacked leaf a layer at a time: at this smoke size
+    whisper's worst leaf lies 0.025-0.072 from the plain path over nine
+    weight draws (the plain path itself up to 0.075 from f32), so a new
+    draw moves it across the bound."""
     cfg = get_smoke_config(arch)
     L = cfg.num_layers
     if cfg.family == "encdec":
@@ -366,7 +381,7 @@ def test_smoke_encdec_and_vlm_training_on_card(cuda, arch):
         assert all(torch.isfinite(torch.tensor(res["losses"])))
         assert _launch_counts() == tuple(2 * w for w in want)
 
-    params = serve.init_params(cfg, 1, cuda)
+    params = _whole_leaf_params(cfg, 1, cuda)
     batch = registry.synth_inputs(torch.Generator(device=cuda).manual_seed(
         8), cfg, ShapeConfig("t", 48, 2, "train"), device=cuda)
     gk, mk = tstep.grads_and_metrics(params, cfg, RunConfig(ce_block_v=64),
@@ -1187,3 +1202,55 @@ def test_smoke_ssm_serving_kernels_match_plain(cuda, arch):
     assert kssd.launches == n + cfg.num_layers
     for a, b in zip(out["kernel"], out["plain"]):
         torch.testing.assert_close(a, b, rtol=3e-2, atol=3e-2)
+
+
+# ---------------------------------------------------------------------------
+# Two ranks over NCCL (torchrun): the entry points on a (data, model) mesh
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def two_cards():
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 CUDA devices: NCCL takes one rank a card")
+
+
+def _torchrun(module: str, *args: str):
+    import os
+    import subprocess
+    import sys
+    src = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "src")
+    env = dict(os.environ, PYTHONPATH=src + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    return subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2", "-m", module, *args],
+        capture_output=True, text=True, timeout=900, env=env)
+
+
+@pytest.mark.parametrize("arch,model", [("yi-6b", "1"), ("yi-6b", "2"),
+                                        ("mixtral-8x7b", "2"),
+                                        ("qwen3-moe-235b-a22b", "2")])
+def test_torchrun_two_ranks_serve(two_cards, arch, model):
+    """Smoke serving over 2 ranks: data parallel (model 1) or one model
+    group of 2 (the MoE archs' experts split over it)."""
+    r = _torchrun("repro_torch.launch.serve", "--arch", arch, "--model",
+                  model, "--batch", "4", "--gen", "4", "--prompt-len", "24")
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "'generated': (4, 4)" in r.stdout, r.stdout
+
+
+@pytest.mark.parametrize("arch,model,carousel", [
+    ("yi-6b", "1", False), ("yi-6b", "2", False), ("yi-6b", "1", True),
+    ("mixtral-8x7b", "2", False)])
+def test_torchrun_two_ranks_train(two_cards, arch, model, carousel):
+    """Smoke training over 2 ranks; with the carousel, rank 0 stages and
+    broadcasts each batch."""
+    args = ["--arch", arch, "--model", model, "--steps", "2",
+            "--global-batch", "4", "--seq-len", "24"]
+    if not carousel:
+        args.append("--no-carousel")
+    r = _torchrun("repro_torch.launch.train", *args)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "'final_step': 2" in r.stdout, r.stdout
