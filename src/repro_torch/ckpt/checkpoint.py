@@ -47,6 +47,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch.models import params as P
 from repro_torch.sharding import rules as S
 
 
@@ -93,10 +94,13 @@ def _step_dir(root: str, step: int) -> str:
     return os.path.join(root, f"step_{step:08d}")
 
 
-def _to_host(x: Any) -> Tuple[np.ndarray, str, List[int]]:
+def _to_host(x: Any, copy: bool = True
+             ) -> Tuple[np.ndarray, str, List[int]]:
     """A leaf as (the array written to disk, the logical dtype name, the
     logical shape).  A tensor is copied to the host before this returns,
-    so later in-place updates of it cannot reach the saved bytes."""
+    so later in-place updates of it cannot reach the saved bytes (with
+    ``copy`` False a CPU tensor is taken as it is: a private copy
+    already)."""
     if isinstance(x, bool) or not isinstance(
             x, (int, np.ndarray, torch.Tensor)):
         raise TypeError(f"a checkpoint leaf must be a tensor, an array or "
@@ -107,7 +111,7 @@ def _to_host(x: Any) -> Tuple[np.ndarray, str, List[int]]:
         return np.array(x), str(x.dtype), list(x.shape)
     # .to(copy=True): a private copy even of a CPU tensor; from a CUDA
     # tensor a synchronous copy, issued after the work queued before it
-    t = x.detach().to("cpu", copy=True)
+    t = x.detach().to("cpu", copy=copy)
     shape = list(t.shape)
     if t.dtype == torch.bfloat16:
         raw = t.reshape(-1).view(torch.uint8).reshape(shape + [2])
@@ -142,16 +146,34 @@ def _leaf_defs(tree: Any, defs: Any) -> List[Any]:
     return out
 
 
+def _gathered_on_host(x: torch.Tensor, d: Any) -> Optional[torch.Tensor]:
+    """The whole leaf of def ``d`` from this rank's block ``x``, under
+    rules: a CPU tensor on the writer, None elsewhere.  A stacked leaf is
+    gathered a layer at a time, so no rank holds more than one layer's
+    whole slice on its device."""
+    with torch.no_grad():
+        if d.logical[:1] != ("layers",):
+            full = S.gather(x, d)
+            return full.to("cpu", copy=True) if _writer() else None
+        one = P.unstack(d)
+        host = torch.empty(d.shape, dtype=x.dtype) if _writer() else None
+        for i in range(d.shape[0]):
+            part = S.gather(x[i], one)
+            if host is not None:
+                host[i].copy_(part)
+        return host
+
+
 def _host_leaves(tree: Any, defs: Any = None):
-    """Every leaf on the host; under rules each leaf is gathered whole
-    first (on every rank) and copied by the writer alone."""
+    """Every leaf on the host; under rules each leaf is gathered (on every
+    rank, ``_gathered_on_host``) and copied by the writer alone."""
     out = []
     for (path, x), d in zip(_flatten(tree), _leaf_defs(tree, defs)):
-        if d is not None and S.sharded():
-            with torch.no_grad():
-                x = S.gather(x, d)
+        private = d is not None and S.sharded()
+        if private:
+            x = _gathered_on_host(x, d)
         if _writer():
-            out.append((path, *_to_host(x)))
+            out.append((path, *_to_host(x, copy=not private)))
     return out
 
 

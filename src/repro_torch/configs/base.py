@@ -136,11 +136,6 @@ class RunConfig:
     ce_dtype: str = "bfloat16"  # logits matmul input dtype (f32 accum)
     logits_in_fp32: bool = True
     opt_state_dtype: str = "float32"  # float32 | bfloat16
-    # MoE under sharding rules: "shardmap" (prefill / training route each
-    # rank's B_local * S tokens, local experts, one all-reduce over
-    # "model") or "gspmd" (per-row routing); without rules, and for
-    # decode, always "gspmd"
-    moe_impl: str = "shardmap"
     use_kernels: Optional[bool] = None
 
     def replace(self, **kw: Any) -> "RunConfig":

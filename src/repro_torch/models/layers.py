@@ -399,13 +399,13 @@ def moe_layer_defs(cfg: ModelConfig) -> Params:
     return P.unstack(moe_defs(cfg, 1))
 
 
-def moe_uses_shardmap(run: RunConfig, x: torch.Tensor) -> bool:
-    """The dispatch of ``repro/models/layers.py::moe_block``: under rules
-    with a "model" axis, prefill and training (S > 1) take the shardmap
-    path; decode (S = 1) and calls without rules the gspmd one."""
+def moe_uses_shardmap(x: torch.Tensor) -> bool:
+    """The dispatch of ``repro/models/layers.py::moe_block`` at its
+    default ``moe_impl``: under rules with a "model" axis, prefill and
+    training (S > 1) take the shardmap path; decode (S = 1) and calls
+    without rules the gspmd one."""
     r = SR.current_rules()
-    return (run.moe_impl == "shardmap" and r is not None
-            and "model" in r.mesh.shape and x.shape[1] > 1)
+    return r is not None and "model" in r.mesh.shape and x.shape[1] > 1
 
 
 def moe_block(p: Params, cfg: ModelConfig, run: RunConfig,
@@ -418,7 +418,7 @@ def moe_block(p: Params, cfg: ModelConfig, run: RunConfig,
       rest is gathered.
     gspmd (``_moe_block_gspmd``): everything is gathered; each batch row
       routes on its own."""
-    shardmap = moe_uses_shardmap(run, x)
+    shardmap = moe_uses_shardmap(x)
     if SR.sharded():
         p = SR.gather_params(p, moe_layer_defs(cfg),
                              keep=("model",) if shardmap else ())

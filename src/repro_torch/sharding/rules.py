@@ -210,6 +210,16 @@ class ShardingRules:
             dist.all_reduce(x, group=self.mesh.group(a))
         return x
 
+    def reduce_scatter(self, x: torch.Tensor, dim: int,
+                       axis: str) -> torch.Tensor:
+        """Sums ``x`` over the ranks of ``axis`` and returns this rank's
+        block of ``dim`` of the sum."""
+        n = self.mesh.shape[axis]
+        x = x.movedim(dim, 0).contiguous()
+        out = x.new_empty((x.shape[0] // n, *x.shape[1:]))
+        dist.reduce_scatter_tensor(out, x, group=self.mesh.group(axis))
+        return out.movedim(0, dim)
+
     def all_gather(self, x: torch.Tensor, dim: int,
                    axes: Tuple[str, ...]) -> torch.Tensor:
         """Concatenates the ranks' blocks of ``dim`` over ``axes`` (minor
@@ -354,9 +364,9 @@ def shard_params(tree: Any, defs: Any, rules: ShardingRules) -> Any:
 
 
 class _Gather(torch.autograd.Function):
-    """All-gathers the split dims of a weight.  Backward: the gradient is
-    summed over ``sum_axes`` (the batch axes the weight is split on) and
-    this rank's block is kept."""
+    """All-gathers the split dims of a weight.  Backward: this rank's
+    block of the gradient, reduce-scattered over ``sum_axes`` (the batch
+    axes the weight is split on; summed) and cut over the others."""
 
     @staticmethod
     def forward(ctx, x, rules, dims, sum_axes):
@@ -368,12 +378,16 @@ class _Gather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         r = ctx.rules
-        if r._live(ctx.sum_axes):
-            g = r.all_reduce(g.contiguous().clone(), ctx.sum_axes)
         for d, axes in ctx.dims:
-            idx, n = r._block(axes)
-            size = g.shape[d] // n
-            g = g.narrow(d, idx * size, size)
+            for a in axes:  # major first: the block of each in turn
+                n = r.mesh.shape[a]
+                if n == 1:
+                    continue
+                if a in ctx.sum_axes:
+                    g = r.reduce_scatter(g, d, a)
+                else:
+                    size = g.shape[d] // n
+                    g = g.narrow(d, r.mesh.coord(a) * size, size)
         return g.contiguous(), None, None, None
 
 

@@ -24,6 +24,7 @@ from repro_torch.kernels import rmsnorm as krms
 from repro_torch.kernels import ssd_scan as kssd
 from repro_torch.launch import serve
 from repro_torch.launch import train
+from repro_torch.models import params as P
 from repro_torch.models import registry
 from repro_torch.models.params import tree_leaves
 from repro_torch.serve import engine
@@ -250,7 +251,6 @@ def test_moe_block_is_bit_equal_across_runs(cuda, arch, S):
     """The MoE block at full width (one layer's experts) gives the same
     bits twice: no atomics in the dispatch or the combine."""
     from repro_torch.models import layers
-    from repro_torch.models import params as P
 
     cfg = get_config(arch).replace(num_layers=1)
     g = torch.Generator(device=cuda).manual_seed(0)
@@ -343,28 +343,26 @@ def test_smoke_encdec_and_vlm_serving_kernels_match_plain(cuda, arch):
     assert _launch_counts() == want
 
 
-def _whole_leaf_params(cfg, seed: int, device):
-    """The params of ``cfg`` drawn from ``seed`` one whole leaf at a time,
-    in tree order (on the card, other numbers than ``materialize``'s
-    layer-at-a-time draws)."""
-    from repro_torch.models import params as P
-    g = torch.Generator(device=device).manual_seed(seed)
-    return P.tree_map(lambda d: P._init_leaf(d, g, device),
-                      registry.param_defs(cfg))
+# a smoke model's bf16 gradient leaf through the kernels against the bf16
+# plain path's distance from f32 (test below)
+GRAD_SPREAD_RATIO, GRAD_SPREAD_FLOOR = 2.0, 1e-2
 
 
 @pytest.mark.parametrize("arch", ["whisper-tiny", "llava-next-mistral-7b"])
 def test_smoke_encdec_and_vlm_training_on_card(cuda, arch):
     """Smoke training on the card, synthetic and carousel-fed, launches
-    what the code implies and gives finite losses; one step's gradients
-    agree with the plain path's (loss 1e-2, leaves relative L2 5e-2;
-    whisper's key biases, whose gradients are zero but for rounding,
-    against the norm of the value bias's).  The weights are drawn a whole
-    leaf at a time (``_whole_leaf_params``), as ``materialize`` drew them
-    before it drew a stacked leaf a layer at a time: at this smoke size
-    whisper's worst leaf lies 0.025-0.072 from the plain path over nine
-    weight draws (the plain path itself up to 0.075 from f32), so a new
-    draw moves it across the bound."""
+    what the code implies and gives finite losses; one step's loss agrees
+    with the plain path's (1e-2), and each gradient leaf through the
+    kernels lies no further from the f32 plain path's than
+    GRAD_SPREAD_RATIO times the bf16 plain path's distance from it (or
+    GRAD_SPREAD_FLOOR, where that is smaller), relative L2; whisper's key
+    biases, whose gradients are zero but for rounding, over the norm of
+    the value bias's.  At this smoke size bf16 rounding alone spreads the
+    two bf16 paths: over twelve weight draws whisper's worst leaf lies
+    0.042-0.115 from the plain path, and the plain path up to 0.095 from
+    f32, so the bf16 plain path is the yardstick, not a fixed bound; the
+    largest ratio over those draws was 1.71 (whisper) and 1.24 (llava)
+    (``tools/grad_spread_over_draws.py``, PERF.md)."""
     cfg = get_smoke_config(arch)
     L = cfg.num_layers
     if cfg.family == "encdec":
@@ -381,13 +379,16 @@ def test_smoke_encdec_and_vlm_training_on_card(cuda, arch):
         assert all(torch.isfinite(torch.tensor(res["losses"])))
         assert _launch_counts() == tuple(2 * w for w in want)
 
-    params = _whole_leaf_params(cfg, 1, cuda)
+    params = serve.init_params(cfg, 1, cuda)
     batch = registry.synth_inputs(torch.Generator(device=cuda).manual_seed(
         8), cfg, ShapeConfig("t", 48, 2, "train"), device=cuda)
-    gk, mk = tstep.grads_and_metrics(params, cfg, RunConfig(ce_block_v=64),
-                                     batch)
+    run = RunConfig(ce_block_v=64)
+    gk, mk = tstep.grads_and_metrics(params, cfg, run, batch)
     gp, mp = tstep.grads_and_metrics(
-        params, cfg, RunConfig(ce_block_v=64, use_kernels=False), batch)
+        params, cfg, run.replace(use_kernels=False), batch)
+    gf, _ = tstep.grads_and_metrics(
+        P.cast_tree(params, torch.float32), cfg,
+        run.replace(use_kernels=False, ce_dtype="float32"), batch)
     torch.testing.assert_close(mk["loss"], mp["loss"], rtol=1e-2, atol=0)
 
     def leaves(tree, prefix=""):
@@ -397,14 +398,16 @@ def test_smoke_encdec_and_vlm_training_on_card(cuda, arch):
             else:
                 yield f"{prefix}/{k}", v
 
-    grads_p = dict(leaves(gp))
+    grads_p, grads_f = dict(leaves(gp)), dict(leaves(gf))
     for name, a in leaves(gk):
-        b = grads_p[name]
+        f = grads_f[name].float()
+        ref_norm = (grads_f[name[:-2] + "bv"] if name.endswith("/bk")
+                    else f).float().norm()
+        err_k = float((a.float() - f).norm() / ref_norm)
+        err_p = float((grads_p[name].float() - f).norm() / ref_norm)
         assert bool(torch.isfinite(a).all()), name
-        ref_norm = (grads_p[name[:-2] + "bv"] if name.endswith("/bk")
-                    else b).float().norm()
-        assert float((a.float() - b.float()).norm() / ref_norm) <= 5e-2, \
-            name
+        assert err_k <= GRAD_SPREAD_RATIO * max(err_p, GRAD_SPREAD_FLOOR), \
+            (name, err_k, err_p)
 
 
 # ---------------------------------------------------------------------------

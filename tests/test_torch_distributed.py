@@ -15,8 +15,10 @@ and batches from numpy seeds; each writes its results under ``OUT``.
 - the shardmap path against the gspmd one at B 2, and the port's prefill
   under rules against the JAX prefill under rules (in this process, one
   device): the entry-point MoE semantics;
-- two yi-6b train steps and one mixtral step at (2, 2) against one rank
-  and against ``make_train_step`` under rules on a (2, 2) mesh;
+- the first batch's gradients, then two yi-6b train steps and one
+  mixtral step, at (2, 2) against one rank and against
+  ``grads_and_metrics`` / ``make_train_step`` under rules on a (2, 2)
+  mesh;
 - checkpoints written at 4 ranks load at 1, and the other way round, bit
   for bit.
 """
@@ -138,6 +140,7 @@ def _jax_main(out):
     from repro.optim import adamw_init as j_adamw_init
     from repro.sharding import ShardingRules as JRules
     from repro.sharding import use_rules as j_use_rules
+    from repro.train.step import grads_and_metrics as j_grads
     from repro.train.step import make_train_step as j_make_train_step
 
     def mesh(shape):
@@ -169,6 +172,9 @@ def _jax_main(out):
         state = {"params": jp, "opt": j_adamw_init(jp)}
         losses, norms = [], []
         with j_use_rules(JRules(mesh((2, 2)))):
+            b0 = {k: jnp.asarray(v) for k, v in _np_batch(tcfg, 0).items()}
+            grads, _ = jax.jit(lambda p, b: j_grads(p, j_smoke(arch), jrun,
+                                                    b))(jp, b0)
             fn = jax.jit(j_make_train_step(j_smoke(arch), jrun))
             for i in range(steps):
                 b = {k: jnp.asarray(v) for k, v in _np_batch(tcfg, i).items()}
@@ -177,7 +183,8 @@ def _jax_main(out):
                 norms.append(float(m["grad_norm"]))
         np.savez(os.path.join(out, f"train_jax_{arch}.npz"),
                  losses=np.array(losses), norms=np.array(norms),
-                 **_flat(jax.tree.map(np.asarray, state["params"])))
+                 **_flat(jax.tree.map(np.asarray, state["params"])),
+                 **_flat(jax.tree.map(np.asarray, grads), "grad"))
 
 
 # ---------------------------------------------------------------------------
@@ -225,8 +232,9 @@ def _torch_moe(name, out, rank):
 
 
 def _train_run(cfg, rules, steps):
-    """``steps`` train steps from the numpy weights under ``rules``;
-    returns (losses, grad norms, the whole params)."""
+    """The gradients of the first batch, then ``steps`` train steps, from
+    the numpy weights under ``rules``; returns (losses, grad norms, the
+    whole params, the whole gradients)."""
     from repro_torch.models import params as TP
     from repro_torch.models import registry
     from repro_torch.optim import adamw_init
@@ -238,6 +246,11 @@ def _train_run(cfg, rules, steps):
         params = shard_params(full, defs, rules)
         params = TP.tree_map(lambda t: t.clone(), params)
         state = {"params": params, "opt": adamw_init(params)}
+        b0 = {k: torch.from_numpy(v) for k, v in _np_batch(cfg, 0).items()}
+        grads, _ = tstep.grads_and_metrics(state["params"], cfg, _run(cfg),
+                                           b0)
+        with torch.no_grad():
+            grads = gather_params(grads, defs)
         fn = tstep.make_train_step(cfg, _run(cfg))
         losses, norms = [], []
         for i in range(steps):
@@ -246,7 +259,8 @@ def _train_run(cfg, rules, steps):
             losses.append(float(m["loss"]))
             norms.append(float(m["grad_norm"]))
         with torch.no_grad():
-            return losses, norms, gather_params(state["params"], defs)
+            return (losses, norms, gather_params(state["params"], defs),
+                    grads)
 
 
 def _torch_train(out, rank):
@@ -261,16 +275,16 @@ def _torch_train(out, rank):
             if tag and arch == "yi-6b":
                 continue
             cfg = _train_cfg(arch, no_drops)
-            losses, norms, params = _train_run(cfg, rules, steps)
+            losses, norms, params, grads = _train_run(cfg, rules, steps)
             if rank == 0:
                 np.savez(os.path.join(out, f"train_2x2_{arch}{tag}.npz"),
                          losses=np.array(losses), norms=np.array(norms),
-                         **_flat(params))
+                         **_flat(params), **_flat(grads, "grad"))
                 if no_drops or not cfg.num_experts:
-                    l1, n1, p1 = _train_run(cfg, one, steps)
+                    l1, n1, p1, g1 = _train_run(cfg, one, steps)
                     np.savez(os.path.join(out, f"train_1_{arch}{tag}.npz"),
                              losses=np.array(l1), norms=np.array(n1),
-                             **_flat(p1))
+                             **_flat(p1), **_flat(g1, "grad"))
             dist.barrier()
 
 
@@ -427,16 +441,29 @@ def test_fslice_case_runs_every_expert_on_a_slice():
     assert cfg.num_experts % 4 and cfg.d_ff % 4 == 0
 
 
+def _grads_close(a, b, arch):
+    """The first batch's gradients, gathered whole, leaf by leaf (rtol
+    1e-4, as ``test_torch_moe_training.py``): each rank's blocks of the
+    ZeRO-3 gathers' reduce-scatter, ``sync_grads`` and the MoE router's
+    sum over "model" must land on the right leaf, once."""
+    keys = [k for k in b.files if k.startswith("grad/")]
+    assert keys and set(keys) == {k for k in a.files
+                                  if k.startswith("grad/")}
+    for k in keys:
+        _close(a[k], b[k], 1e-4, msg=f"{arch} {k}")
+
+
 @pytest.mark.parametrize("arch", list(TRAIN))
 def test_train_steps_at_2x2_match_one_rank(runs, arch):
-    """Losses, grad norms and updated params at (2, 2) against one rank
-    (mixtral at capacity factor E / K: no pair drops, so the data split's
-    per-shard capacity does not change the function)."""
+    """Gradients, losses, grad norms and updated params at (2, 2) against
+    one rank (mixtral at capacity factor E / K: no pair drops, so the
+    data split's per-shard capacity does not change the function)."""
     out, _ = runs
     tag = "_nodrops" if arch != "yi-6b" else ""
     a = np.load(out / f"train_2x2_{arch}{tag}.npz")
     b = np.load(out / f"train_1_{arch}{tag}.npz")
     lr = _run(_cfg(arch)).learning_rate
+    _grads_close(a, b, arch)
     np.testing.assert_allclose(a["losses"], b["losses"], rtol=1e-6)
     np.testing.assert_allclose(a["norms"], b["norms"], rtol=1e-5)
     for k in b.files:
@@ -451,6 +478,7 @@ def test_train_steps_at_2x2_match_jax_under_rules(runs, arch):
     a = np.load(out / f"train_2x2_{arch}.npz")
     b = np.load(out / f"train_jax_{arch}.npz")
     lr = _run(_cfg(arch)).learning_rate
+    _grads_close(a, b, arch)
     np.testing.assert_allclose(a["losses"], b["losses"], rtol=1e-6)
     np.testing.assert_allclose(a["norms"], b["norms"], rtol=1e-5)
     keys = [k for k in b.files if k.startswith("/")]
@@ -556,7 +584,7 @@ def test_shardmap_differs_from_gspmd_where_drops_differ(arch):
     tx = torch.from_numpy(x)
     with use_rules(ShardingRules(Mesh((1, 1), ("data", "model")))):
         sm = L.moe_block(tp, cfg, RunConfig(), tx)
-        assert L.moe_uses_shardmap(RunConfig(), tx)
+        assert L.moe_uses_shardmap(tx)
     gs = L.moe_block(tp, cfg, RunConfig(), tx)  # no rules: gspmd
     mesh = jax.make_mesh((1, 1), ("data", "model"),
                          axis_types=(AxisType.Auto,) * 2)

@@ -2,18 +2,21 @@
 the plain path's, over several weight draws, on a GPU.
 
 For each draw it takes one ``grads_and_metrics`` of the smoke config at
-4 x 48 tokens through the kernels, through the plain versions, and
+2 x 48 tokens through the kernels, through the plain versions, and
 through the plain versions in f32 (weights cast to f32, the loss head's
 products in f32), and prints, for the leaf that differs most between the
 first two, its relative L2 distance kernel-vs-plain, kernel-vs-f32 and
-plain-vs-f32.  The draws are ``materialize``'s (a stacked leaf a layer at
-a time, seeds 1..N) and, with ``--whole-leaf``, the whole-leaf draw
-``materialize`` made before it drew a layer at a time.  It shows whether
-a kernel-vs-plain bound of a smoke test lies inside the spread that bf16
-rounding alone gives the two paths.
+plain-vs-f32; then the leaf whose kernel-vs-f32 distance is largest
+against max(plain-vs-f32, ``--floor``), with that ratio (the measure of
+``tests/test_torch_cuda.py::test_smoke_encdec_and_vlm_training_on_card``;
+a key bias's distances are taken over the value bias's norm, as its
+gradient is zero but for rounding).  The draws are ``materialize``'s (a
+stacked leaf a layer at a time, seeds 1..N) and, with ``--whole-leaf``,
+the whole-leaf draw ``materialize`` made before it drew a layer at a
+time.  It shows how far bf16 rounding alone spreads the two paths.
 
     python3 tools/grad_spread_over_draws.py [--arch whisper-tiny] \
-        [--draws 6] [--whole-leaf 3]
+        [--draws 6] [--whole-leaf 3] [--floor 0.01]
 
 Prints one line a draw.
 """
@@ -31,6 +34,7 @@ def main() -> int:
     ap.add_argument("--arch", default="whisper-tiny")
     ap.add_argument("--draws", type=int, default=6)
     ap.add_argument("--whole-leaf", type=int, default=3)
+    ap.add_argument("--floor", type=float, default=0.01)
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT / "src"))
     import torch
@@ -57,8 +61,9 @@ def main() -> int:
             else:
                 yield f"{prefix}/{k}", v
 
-    def rel(a, b):
-        return float((a.float() - b.float()).norm() / b.float().norm())
+    def rel(a, b, ref=None):
+        ref = b if ref is None else ref
+        return float((a.float() - b.float()).norm() / ref.float().norm())
 
     def one(params, label):
         batch = registry.synth_inputs(
@@ -76,8 +81,17 @@ def main() -> int:
         dist = {n: (rel(k[n], p[n]), rel(k[n], f[n]), rel(p[n], f[n]))
                 for n in k if not n.endswith("/bk")}
         name, (kp, kf, pf) = max(dist.items(), key=lambda kv: kv[1][0])
+        ref = {n: f[n[:-2] + "bv"] if n.endswith("/bk") else f[n]
+               for n in k}
+        ratio = {n: rel(k[n], f[n], ref[n]) / max(
+            rel(p[n], f[n], ref[n]), args.floor) for n in k}
+        worst = max(ratio, key=ratio.get)
         print(f"{label}: worst leaf {name} kernel-vs-plain {kp:.4f} "
-              f"kernel-vs-f32 {kf:.4f} plain-vs-f32 {pf:.4f}", flush=True)
+              f"kernel-vs-f32 {kf:.4f} plain-vs-f32 {pf:.4f}; largest "
+              f"kernel-vs-f32 / max(plain-vs-f32, {args.floor}) "
+              f"{ratio[worst]:.3f} at {worst} (kernel-vs-f32 "
+              f"{rel(k[worst], f[worst], ref[worst]):.4f}, plain-vs-f32 "
+              f"{rel(p[worst], f[worst], ref[worst]):.4f})", flush=True)
 
     for seed in range(1, args.draws + 1):
         one(serve.init_params(cfg, seed, dev), f"layer-at-a-time draw {seed}")
