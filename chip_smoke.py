@@ -162,7 +162,24 @@ Phases, each of which fails the run (non-zero exit, no final result line):
    (one route of a rank's B x S tokens, capacity over them): prefill
    logits and one ``grads_and_metrics`` through the kernels against the
    plain versions (the plain path routed by the kernel path's choices),
-   relative L2 5e-2, loss 1e-2.
+   relative L2 5e-2, loss 1e-2;
+15. tensor_parallel: the dense compute split over "model" on the one
+   card: (a) TP_RANKS spawned ranks, all on cuda:0 over gloo (NCCL
+   refuses two ranks on one device), rules at (1, TP_RANKS), run yi-6b at
+   full width and TP_LAYERS layers: a prefill of TP_BATCH x PROMPT,
+   TP_DECODE decode steps fed the world-size-1 run's tokens over a cache
+   split over its positions (flash-decoding across the ranks), the first
+   batch's gradients and TP_STEPS train steps; held against the same
+   path at world size 1 in this process (logits and each gradient leaf
+   relative L2 5e-2, losses 1e-2); each rank's launches equal the
+   formulas, and its calls see 8 of 32 query heads, 1 of 4 kv heads,
+   2752 of 11008 ``ffn`` columns and 16000 of 64000 vocab rows (each
+   rank's CE merges the ranks' statistics with ``ce_merge_kernel``).
+   (b) The CE kernel on TP_RANKS vocab shards of yi-6b's and qwen3-moe's
+   heads (T 2048, D 4096, V 64000 and 151936), bf16 and f32, merged,
+   against the whole-vocab kernel and the plain version (2e-2 / 3e-5);
+   a bf16 shard call and the merge timed, beside the shard's bound and
+   ``matmul`` + ``logsumexp`` on the same shard.
 
 Phases 9-11 and 14's two yi-6b mesh runs drive the entry point; each of their runs has its launch
 counters reset just before it and read just after.  Every kernel's bound
@@ -173,8 +190,10 @@ It prints a ``{"kernel_info": [...]}`` line, a ``{"kernels": [...]}`` line
 and, last, ``{"ok": true, ...}``.
 A kernel's ``launches`` there is the sum of its counts over the ten
 serving runs, the seven training runs of phases 7 and 8, the runs of
-phases 9-11 and phase 14's two yi-6b runs; ``ssd_scan``'s row is the zamba2-1.2b prefill shape,
-``ssd_scan_bwd``'s zamba2-1.2b's training shape.  Weights are random,
+phases 9-11, phase 14's two yi-6b runs and phase 15's rank 0 (each of its
+halves counted from 0 in that rank's process); ``ssd_scan``'s row is the
+zamba2-1.2b prefill shape, ``ssd_scan_bwd``'s zamba2-1.2b's training
+shape.  Weights are random,
 made on the card from a seed; data is synthetic, from a seed; nothing is
 downloaded.
 """
@@ -260,6 +279,12 @@ TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH = 3, 512, 4
 MESH_GEN, MESH_TRAIN_LAYERS, MESH_STEPS = 4, 4, 2
 MESH_MOE = [("mixtral-8x7b", "mixtral", 12, 3, 2, 1024),
             ("qwen3-moe-235b-a22b", "qwen3_moe", 6, 2, 4, 512)]
+# phase tensor_parallel: yi-6b at full width and TP_LAYERS layers split
+# over TP_RANKS ranks on the one card (gloo), TP_BATCH x PROMPT, TP_DECODE
+# decode steps, the first batch's gradients and TP_STEPS train steps; the
+# CE kernel on TP_RANKS vocab shards of yi-6b's and qwen3-moe's heads
+TP_RANKS, TP_LAYERS, TP_BATCH, TP_DECODE, TP_STEPS = 4, 4, 4, 8, 2
+TP_CE_VOCABS = (64000, 151936)
 HALF_STEPS = 3  # warm steps whose two halves are timed alone
 E2E_TRAIN_LAYERS = 2
 # SSM / hybrid training at full width and depth, 4 x 2048 tokens a step;
@@ -2176,6 +2201,318 @@ def _mesh_moe(failures, rules, arch, tag, n_serve, n_train, batch, seq):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# tensor_parallel: the dense compute split over "model" on the one card
+# ---------------------------------------------------------------------------
+
+
+class _LocalSizes:
+    """Records, in a rank of phase tensor_parallel, the local sizes its
+    split calls see: flash attention's (query rows, query heads, kv heads),
+    the MLP's ``ffn`` columns and the CE's vocab rows."""
+
+    def __init__(self):
+        self.flash, self.mlp, self.ce = set(), set(), set()
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        self.saved = (ops.flash_attention, layers.mlp,
+                      kce.cross_entropy_stats_cuda)
+        flash, mlp, ce = self.saved
+
+        def rec_flash(q, k, v, **kw):
+            self.flash.add((q.shape[1], q.shape[2], k.shape[2]))
+            return flash(q, k, v, **kw)
+
+        def rec_mlp(p, cfg, run, x):
+            self.mlp.add(p["w_up"].shape[-1])
+            return mlp(p, cfg, run, x)
+
+        def rec_ce(hidden, w, targets):
+            self.ce.add(w.shape[0])
+            return ce(hidden, w, targets)
+        ops.flash_attention, layers.mlp = rec_flash, rec_mlp
+        kce.cross_entropy_stats_cuda = rec_ce
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+        ops.flash_attention, layers.mlp, kce.cross_entropy_stats_cuda = \
+            self.saved
+
+    def as_dict(self) -> dict:
+        return {"flash": sorted(self.flash), "mlp": sorted(self.mlp),
+                "ce": sorted(self.ce)}
+
+
+def _tp_inputs(cfg, dev):
+    """Phase tensor_parallel's prompt (TP_BATCH x PROMPT) and training
+    batches, from seeds, the same in every process."""
+    prompt = registry.synth_inputs(
+        torch.Generator(device=dev).manual_seed(41), cfg,
+        ShapeConfig("serve", PROMPT, TP_BATCH, "prefill"), "prefill",
+        device=dev)
+    batches = [registry.synth_inputs(
+        torch.Generator(device=dev).manual_seed(50 + i), cfg,
+        ShapeConfig("train", TRAIN_SEQ, TP_BATCH, "train"), "train",
+        device=dev) for i in range(TP_STEPS)]
+    return prompt, batches
+
+
+def _tp_path(cfg, dev, tokens=None) -> dict:
+    """The path phase tensor_parallel runs under the current rules: a
+    prefill, TP_DECODE decode steps (greedy, or fed ``tokens``), the
+    gradients of the first batch, then TP_STEPS train steps from a fresh
+    state.  Launch counters are reset before and read after each half."""
+    run = RunConfig()
+    prompt, batches = _tp_inputs(cfg, dev)
+    B, S = prompt["tokens"].shape
+    params = serve.init_params(cfg, 5, dev)
+    reset_launches()
+    with torch.inference_mode(), batch_split(B, ()):
+        cache = engine.init_cache(cfg, B, S + TP_DECODE + 8, dev)
+        logits, cache = registry.prefill(params, cfg, run, prompt, cache)
+        outs = [logits.float()]
+        toks = [logits[:, -1].argmax(-1, keepdim=True)]
+        for i in range(TP_DECODE):
+            feed = toks[-1] if tokens is None else tokens[:, i:i + 1]
+            logits, cache = registry.decode(params, cfg, run, feed, cache,
+                                            S + i)
+            outs.append(logits.float())
+            toks.append(logits[:, -1].argmax(-1, keepdim=True))
+    _sync(dev)
+    res = {"serve_launches": read_launches(), "logits": torch.cat(outs, 1),
+           "tokens": torch.cat(toks, 1)}
+    del params, cache
+    trun = train.default_run_config(cfg, TRAIN_STEPS)
+    reset_launches()
+    state = tstep.init_state(torch.Generator(device=dev).manual_seed(6),
+                             cfg, trun)
+    grads, m0 = tstep.grads_and_metrics(state["params"], cfg, trun,
+                                        batches[0])
+    fn = tstep.make_train_step(cfg, trun)
+    losses = [float(m0["loss"])]
+    for b in batches:
+        state, m = fn(state, b)
+        losses.append(float(m["loss"]))
+    _sync(dev)
+    res.update(train_launches=read_launches(), grads=grads, losses=losses)
+    return res
+
+
+def _tp_rank(rank: int, port: int, out: str, cfg) -> None:
+    """One of TP_RANKS ranks of phase tensor_parallel: all on cuda:0 over
+    gloo (NCCL refuses two ranks on one device), rules at (1, TP_RANKS).
+    Writes its results, with its gradient blocks, under ``out``."""
+    import os
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                      RANK=str(rank), WORLD_SIZE=str(TP_RANKS),
+                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(TP_RANKS))
+    mesh.init_distributed("gloo")
+    dev = mesh.local_device(DEVICE)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tokens = torch.load(Path(out) / "tokens.pt").to(dev)
+    rules = serve.host_rules(TP_RANKS, dev)
+    t0 = time.perf_counter()
+    kce.merge_launches = 0
+    with use_rules(rules), _LocalSizes() as sizes:
+        res = _tp_path(cfg, dev, tokens)
+    res["seconds"] = time.perf_counter() - t0
+    res["merge_launches"] = kce.merge_launches
+    res["sizes"] = sizes.as_dict()
+    res["backend"] = str(dist.get_backend())
+    res["device"] = str(dev)
+    res["peak_bytes"] = (torch.cuda.max_memory_allocated(dev)
+                         if dev.type == "cuda" else None)
+    res["grads"] = {k: v.cpu() for k, v in _tree_items(res["grads"])}
+    res["logits"] = res["logits"].cpu() if rank == 0 else None
+    res["tokens"] = None
+    torch.save(res, Path(out) / f"rank{rank}.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def phase_tensor_parallel(failures: list) -> list:
+    """(a) yi-6b at full width and TP_LAYERS layers, split over "model" by
+    TP_RANKS ranks on the one card (spawned processes over gloo, rules at
+    (1, TP_RANKS)): one prefill of TP_BATCH x PROMPT, TP_DECODE decode
+    steps fed the world-size-1 run's tokens over a cache split over its
+    positions, the first batch's gradients and TP_STEPS train steps,
+    against the world-size-1 path run here under one-rank rules: logits
+    relative L2 <= 5e-2, losses within 1e-2, each gathered gradient leaf
+    within relative L2 5e-2; each rank's launches equal the formulas, and
+    its calls see 8 of 32 query heads, 2752 of 11008 ``ffn`` columns and
+    16000 of 64000 vocab rows.  (b) The CE kernel on TP_RANKS vocab shards
+    of yi-6b's and qwen3-moe's heads (T 2048, D 4096, V 64000 / 151936),
+    bf16 and f32, the shards' triples merged by ``ce_merge_kernel``,
+    against the whole-vocab kernel and the plain version; the bf16 shard
+    call timed beside its bound, its plain version and ``matmul`` +
+    ``logsumexp`` on the same shard.  Returns rank 0's launches of (a)."""
+    counts = _tp_split_path(failures)
+    _tp_ce_shards(failures)
+    return counts
+
+
+def _tp_split_path(failures: list) -> list:
+    """Phase tensor_parallel (a): see ``phase_tensor_parallel``."""
+    import tempfile
+    import torch.multiprocessing as mp
+    dev = torch.device(DEVICE)
+    cfg = _config(ARCH, TP_LAYERS)
+    t0 = time.perf_counter()
+    with use_rules(serve.host_rules(None, dev)):
+        one = _tp_path(cfg, dev)
+    t_one = time.perf_counter() - t0
+    one_grads = dict(_tree_items(one.pop("grads")))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as out:
+        torch.save(one["tokens"].cpu(), Path(out) / "tokens.pt")
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(_tp_rank, args=(_free_port(), out, cfg),
+                                 nprocs=TP_RANKS, start_method="spawn",
+                                 join=False)
+        while not ctx.join():
+            pass
+        t_ranks = time.perf_counter() - t0
+        ranks = [torch.load(Path(out) / f"rank{r}.pt", weights_only=False)
+                 for r in range(TP_RANKS)]
+    defs = dict(_tree_items(registry.param_defs(cfg)))
+    rel = {}
+    for name, ref_g in one_grads.items():
+        d = defs[name]
+        num = den = 0.0
+        split = _rank_rules(0, TP_RANKS).local_shape(
+            d.logical, d.shape) != tuple(d.shape)
+        for r, res in enumerate(ranks if split else ranks[:1]):
+            want = _rank_rules(r, TP_RANKS).local_shard(
+                ref_g, d.logical, d.shape).float()
+            got = res["grads"][name].to(dev).float()
+            num += float((got - want).pow(2).sum())
+            den += float(want.pow(2).sum())
+        rel[name] = math.sqrt(num / max(den, 1e-30))
+    r0 = ranks[0]
+    logit_rel = [_rel_l2(r0["logits"][:, i].to(dev), one["logits"][:, i])
+                 for i in range(1 + TP_DECODE)]
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(r0["losses"],
+                                                    one["losses"])]
+    want_serve = serving_launches(cfg, 1 + TP_DECODE)
+    want_train = training_launches(TP_LAYERS, 1 + TP_STEPS, ARCH)
+    H, Hkv, n = cfg.num_heads, cfg.num_kv_heads, TP_RANKS
+    want_sizes = {"flash": sorted({(S_, H // n, Hkv // n)
+                                   for S_ in (PROMPT, TRAIN_SEQ)}),
+                  "mlp": [cfg.d_ff // n], "ce": [cfg.vocab_size // n]}
+    launches_ok = all(
+        {k: res["serve_launches"][k] for k in want_serve} == want_serve
+        and res["train_launches"] == want_train
+        and res["merge_launches"] == 1 + TP_STEPS for res in ranks)
+    sizes_ok = all(res["sizes"] == want_sizes for res in ranks)
+    finite = bool(torch.isfinite(r0["logits"]).all()) and all(
+        math.isfinite(x) for x in r0["losses"])
+    worst = max(rel.items(), key=lambda kv: kv[1])
+    row = {"arch": ARCH, "layers": TP_LAYERS, "ranks": TP_RANKS,
+           "mesh": {"data": 1, "model": TP_RANKS},
+           "backend": r0["backend"], "devices": [r["device"] for r in ranks],
+           "batch": TP_BATCH, "prompt": PROMPT, "decode_steps": TP_DECODE,
+           "train_steps": TP_STEPS, "seq_len": TRAIN_SEQ,
+           "logits_rel_l2": logit_rel, "losses_split": r0["losses"],
+           "losses_one_rank": one["losses"], "loss_rel": loss_rel,
+           "worst_leaf": worst, "grad_tol": E2E_TOL, "loss_tol": LOSS_TOL,
+           "serve_launches": r0["serve_launches"],
+           "train_launches": r0["train_launches"],
+           "expected_serve": want_serve, "expected_train": want_train,
+           "merge_launches": r0["merge_launches"], "local_sizes":
+           r0["sizes"], "expected_sizes": want_sizes,
+           "rank_seconds": [r["seconds"] for r in ranks],
+           "rank_peak_bytes": [r["peak_bytes"] for r in ranks],
+           "one_rank_s": t_one, "ranks_wall_s": t_ranks}
+    log("tensor_parallel", json.dumps(row))
+    bad = {k: v for k, v in rel.items() if not v <= E2E_TOL}
+    if not (finite and launches_ok and sizes_ok and not bad
+            and max(logit_rel) <= E2E_TOL and max(loss_rel) <= LOSS_TOL):
+        failures.append(f"tensor_parallel: logits {logit_rel}, losses "
+                        f"{loss_rel}, leaves {bad}, launches {launches_ok}, "
+                        f"sizes {sizes_ok}, finite {finite}")
+    del one, one_grads, ranks
+    torch.cuda.empty_cache()
+    return [r0["serve_launches"], r0["train_launches"]]
+
+
+def _rank_rules(r: int, n: int):
+    """The (1, n) rules of phase tensor_parallel as rank r sees them, to cut
+    a whole tensor into rank r's block."""
+    from repro_torch.sharding import ShardingRules
+
+    class _M:
+        shape = {"data": 1, "model": n}
+
+        def coord(self, a):
+            return r if a == "model" else 0
+    return ShardingRules(_M())
+
+
+def _tp_ce_shards(failures: list) -> None:
+    """Phase tensor_parallel (b): see ``phase_tensor_parallel``."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    n = TP_RANKS
+    for V in TP_CE_VOCABS:
+        T, D = TRAIN_BATCH * TRAIN_SEQ, 4096
+        for dtype in (torch.bfloat16, torch.float32):
+            h = torch.randn((T, D), generator=gen, device="cuda").to(dtype)
+            w = (torch.randn((V, D), generator=gen, device="cuda")
+                 * D ** -0.5).to(dtype)
+            t = torch.randint(0, V, (T,), generator=gen, device="cuda")
+            vs = V // n
+            shards = [w[i * vs:(i + 1) * vs] for i in range(n)]
+            parts = torch.stack([kce.cross_entropy_stats_cuda(
+                h, shards[i], t - i * vs) for i in range(n)])
+            got = kce.ce_merge_cuda(parts)
+            whole = kce.cross_entropy_cuda(h, w, t)
+            plain = ref.cross_entropy_stats_ref(h, w, t, block_v=8192)
+            torch.cuda.synchronize()
+            err_whole = max(_close(a, b, TOL[dtype])[1]
+                            for a, b in zip(got, whole))
+            ok, err = True, 0.0
+            for a, b in zip(got, plain):
+                ok_i, err_i = _close(a, b, TOL[dtype])
+                ok, err = ok and ok_i, max(err, err_i)
+            ok = ok and all(_close(a, b, TOL[dtype])[0]
+                            for a, b in zip(got, whole))
+            row = {"shape": [T, D, V], "shards": n, "shard_rows": vs,
+                   "dtype": str(dtype)[6:], "max_abs_err_plain": err,
+                   "max_abs_err_whole_kernel": err_whole, "ok": ok}
+            if dtype == torch.bfloat16:
+                s0, t0 = shards[0], t
+                _time_row(row, {
+                    "shard_ms": lambda: kce.cross_entropy_stats_cuda(
+                        h, s0, t0),
+                    "merge_ms": lambda: kce.ce_merge_cuda(parts),
+                    "plain_ms": lambda: ref.cross_entropy_partial_ref(
+                        h, s0, t0, block_v=8192),
+                    "library_ms": lambda: torch.logsumexp(
+                        torch.matmul(h, s0.t()).float(), dim=-1)},
+                    [()], calls=3)
+                flops, n_bytes = kce.work(h, s0, stats=True)
+                row["bound_ms"], row["bound_by"] = _bound(n_bytes, flops,
+                                                          dtype)
+            log("tensor_parallel_ce", json.dumps(row))
+            if not ok:
+                failures.append(f"tensor_parallel_ce V {V} {dtype}: max err "
+                                f"{err} (plain), {err_whole} (whole kernel)")
+            del h, w, shards, parts
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run",
@@ -2308,6 +2645,9 @@ def main() -> int:
     t0 = time.perf_counter()
     counts += phase_mesh(failures)
     log(f"mesh phase: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    counts += phase_tensor_parallel(failures)
+    log(f"tensor_parallel phase: {time.perf_counter() - t0:.2f} s")
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

@@ -81,6 +81,9 @@ class Stager:
         self._lock = threading.RLock()
         self.records: Dict[str, StageRecord] = {}
         self._landed: Dict[str, bool] = {}
+        # files whose landing or failure has been announced: ``wait``
+        # returns once every one is, so the caller sees the announcements
+        self._settled: set = set()
         # rolling window of stage latencies: the hedge reads its median
         self._lat_window = RollingPercentile(window=latency_window)
         # landed (name, seconds) pairs awaiting drain_latencies()
@@ -137,6 +140,8 @@ class Stager:
         if self.bus is not None:
             self.bus.publish(T_COLLECTION_UPDATED,
                              {"collection": self.collection, "file": name})
+        with self._lock:
+            self._settled.add(name)
         return True
 
     def _stage_once(self, name: str) -> None:
@@ -176,6 +181,8 @@ class Stager:
             self.bus.publish(T_COLLECTION_UPDATED,
                              {"collection": self.collection, "file": name,
                               "failed": True})
+        with self._lock:
+            self._settled.add(name)
 
     def submit(self, name: str) -> None:
         with self._lock:
@@ -224,12 +231,14 @@ class Stager:
 
     def wait(self, timeout: float = 60.0,
              hedge_interval: float = 0.05) -> bool:
-        """Blocks until every submitted file landed or terminally failed."""
+        """Blocks until every submitted file landed or terminally failed,
+        and its landing or failure was announced."""
         deadline = time.monotonic() + timeout
         while time.monotonic() < deadline:
             self.hedge_check()
             with self._lock:
-                pend = [r for r in self.records.values() if r.finished is None]
+                pend = [r for r in self.records.values()
+                        if r.name not in self._settled]
             if not pend:
                 return True
             time.sleep(hedge_interval)

@@ -58,8 +58,10 @@ extern "C" bool repro_flash_bwd_info(int idx, int D, const char** name,
 extern "C" int repro_ce_splits(int n_tok, int V, int bf16);
 extern "C" void repro_ce_fwd(const void* hidden, const void* w,
                              const long long* targets, float* part,
-                             float* nll, float* lse, int n_tok, int V, int D,
-                             int bf16, cudaStream_t s);
+                             float* nll, float* lse, float* stats, int n_tok,
+                             int V, int D, int bf16, cudaStream_t s);
+extern "C" void repro_ce_merge(const float* part, float* nll, float* lse,
+                               int n_tok, int n_split, cudaStream_t s);
 extern "C" bool repro_ce_info(int idx, const char** name, int* out);
 
 extern "C" bool repro_ssd_fwd(
@@ -206,8 +208,9 @@ int64_t ce_splits(int64_t n_tok, int64_t V, bool bf16) {
 }
 
 // hidden: (T, D), w: (V, D) contiguous, one dtype (bf16: 16-byte aligned,
-// D a multiple of 8); targets: (T,) int64; part: (ce_splits(T, V, bf16),
-// T, 3) f32 scratch.  Writes nll, lse (T,) f32.
+// D a multiple of 8); targets: (T,) int64 (outside [0, V): no target);
+// part: (ce_splits(T, V, bf16), T, 3) f32 scratch.  Writes nll, lse (T,)
+// f32.
 void ce_fwd(const at::Tensor& hidden, const at::Tensor& w,
             const at::Tensor& targets, at::Tensor part, at::Tensor nll,
             at::Tensor lse) {
@@ -216,9 +219,36 @@ void ce_fwd(const at::Tensor& hidden, const at::Tensor& w,
                reinterpret_cast<const long long*>(
                    targets.data_ptr<int64_t>()),
                part.data_ptr<float>(), nll.data_ptr<float>(),
-               lse.data_ptr<float>(), static_cast<int>(hidden.size(0)),
+               lse.data_ptr<float>(), nullptr,
+               static_cast<int>(hidden.size(0)), static_cast<int>(w.size(0)),
+               static_cast<int>(hidden.size(1)), is_bf16(hidden),
+               at::cuda::getCurrentCUDAStream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+// As ce_fwd, but writes each token's merged (m, l, target logit) over w's
+// rows into stats (T, 3) f32: a vocab shard's part of the statistics.
+void ce_fwd_stats(const at::Tensor& hidden, const at::Tensor& w,
+                  const at::Tensor& targets, at::Tensor part,
+                  at::Tensor stats) {
+  const c10::cuda::CUDAGuard guard(hidden.device());
+  repro_ce_fwd(hidden.data_ptr(), w.data_ptr(),
+               reinterpret_cast<const long long*>(
+                   targets.data_ptr<int64_t>()),
+               part.data_ptr<float>(), nullptr, nullptr,
+               stats.data_ptr<float>(), static_cast<int>(hidden.size(0)),
                static_cast<int>(w.size(0)), static_cast<int>(hidden.size(1)),
                is_bf16(hidden), at::cuda::getCurrentCUDAStream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+// parts: (n, T, 3) f32 contiguous, the shards' triples; writes nll, lse.
+void ce_merge(const at::Tensor& parts, at::Tensor nll, at::Tensor lse) {
+  const c10::cuda::CUDAGuard guard(parts.device());
+  repro_ce_merge(parts.data_ptr<float>(), nll.data_ptr<float>(),
+                 lse.data_ptr<float>(), static_cast<int>(parts.size(1)),
+                 static_cast<int>(parts.size(0)),
+                 at::cuda::getCurrentCUDAStream());
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
@@ -339,6 +369,9 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("flash_bwd", &flash_bwd, "flash-attention backward into dq, dk, dv");
   m.def("ce_splits", &ce_splits, "vocab splits of the CE forward's scratch");
   m.def("ce_fwd", &ce_fwd, "blockwise cross-entropy forward into nll, lse");
+  m.def("ce_fwd_stats", &ce_fwd_stats,
+        "blockwise cross-entropy forward into a shard's (m, l, target)");
+  m.def("ce_merge", &ce_merge, "merge shards' (m, l, target) into nll, lse");
   m.def("ssd_fwd", &ssd_fwd, "Mamba2 SSD chunked scan into y and hout");
   m.def("ssd_bwd_slots", &ssd_bwd_slots,
         "blocks of the bf16 SSD backward's chunk kernels a group of heads");

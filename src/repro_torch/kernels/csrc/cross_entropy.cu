@@ -163,7 +163,7 @@ ce_fwd_kernel(const float* __restrict__ h, const float* __restrict__ w,
       for (int j = 0; j < 8; ++j) {
         const int col = v0 + owned(tx, j);
         if (col >= V) acc[i][j] = kNegInf;
-        if (col == tgt) tg[i] += acc[i][j];
+        else if (col == tgt) tg[i] += acc[i][j];
         mx = fmaxf(mx, acc[i][j]);
       }
       const float m_new = fmaxf(m[i], row_max(mx));
@@ -188,10 +188,14 @@ ce_fwd_kernel(const float* __restrict__ h, const float* __restrict__ w,
   }
 }
 
-// Merges the splits' triples: one thread per token.
+// Merges the splits' triples: one thread per token.  With `stats` null it
+// writes nll and lse; else the merged triple (m, l, target logit) into
+// stats (n_tok, 3), for a vocab shard whose triples are merged again
+// across ranks (by this kernel, with the ranks as its splits).
 __global__ void __launch_bounds__(kThreads)
 ce_merge_kernel(const float* __restrict__ part, float* __restrict__ nll,
-                float* __restrict__ lse, int n_tok, int n_split) {
+                float* __restrict__ lse, float* __restrict__ stats,
+                int n_tok, int n_split) {
   const int t = blockIdx.x * kThreads + threadIdx.x;
   if (t >= n_tok) return;
   float M = kNegInf;
@@ -202,6 +206,12 @@ ce_merge_kernel(const float* __restrict__ part, float* __restrict__ nll,
     const float* p = part + ((long long)s * n_tok + t) * 3;
     L += p[1] * expf(p[0] - M);
     tgt += p[2];
+  }
+  if (stats) {
+    stats[3 * t] = M;
+    stats[3 * t + 1] = L;
+    stats[3 * t + 2] = tgt;
+    return;
   }
   const float z = M + logf(fmaxf(L, 1e-30f));
   lse[t] = z;
@@ -325,8 +335,10 @@ ce_fwd_wgmma_kernel(const bf16* __restrict__ h, const bf16* __restrict__ w,
           for (int e = 0; e < 2; ++e) {
             const int col = c0 + j * 8 + e;
             const float x = acc[4 * j + 2 * r + e];
-            if (col == tgt) tg[r] += x;
-            if (col < V) mx = fmaxf(mx, x);
+            if (col < V) {
+              if (col == tgt) tg[r] += x;
+              mx = fmaxf(mx, x);
+            }
           }
         const float m_new = fmaxf(m[r], mx);
         float ps = 0.f;
@@ -393,14 +405,17 @@ extern "C" int repro_ce_splits(int n_tok, int V, int bf16) {
 }
 
 // hidden: (T, D), w: (V, D), both contiguous, bf16 (bf16 != 0) or f32; for
-// bf16 both 16-byte aligned and D a multiple of 8.  targets: (T,) int64;
-// part: repro_ce_splits(T, V, bf16) x T x 3 f32 scratch; nll, lse: (T,)
-// f32 outputs.  Two launches on `stream`; errors are left to
-// cudaGetLastError.  Requires T, V, D > 0.
+// bf16 both 16-byte aligned and D a multiple of 8.  targets: (T,) int64,
+// any value: a target outside [0, V) adds nothing to the target logit (a
+// vocab shard's caller shifts the ids by the shard's first).  part:
+// repro_ce_splits(T, V, bf16) x T x 3 f32 scratch.  With `stats` null,
+// nll, lse: (T,) f32 outputs; else stats: (T, 3) f32, each token's merged
+// (m, l, target logit) over w's rows.  Two launches on `stream`; errors
+// are left to cudaGetLastError.  Requires T, V, D > 0.
 extern "C" void repro_ce_fwd(const void* hidden, const void* w,
                              const long long* targets, float* part,
-                             float* nll, float* lse, int n_tok, int V, int D,
-                             int bf16, cudaStream_t s) {
+                             float* nll, float* lse, float* stats, int n_tok,
+                             int V, int D, int bf16, cudaStream_t s) {
   int n_split, tiles_per_split;
   split_for(n_tok, V, bf16, &n_split, &tiles_per_split);
   if (bf16) {
@@ -424,7 +439,15 @@ extern "C" void repro_ce_fwd(const void* hidden, const void* w,
         targets, part, n_tok, V, D, tiles_per_split);
   }
   ce_merge_kernel<<<(n_tok + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-      part, nll, lse, n_tok, n_split);
+      part, nll, lse, stats, n_tok, n_split);
+}
+
+// Merges n_split (T, 3) triples, part: (n_split, T, 3) f32 (the ranks'
+// shards of one vocab, gathered), into nll, lse: (T,) f32.  One launch.
+extern "C" void repro_ce_merge(const float* part, float* nll, float* lse,
+                               int n_tok, int n_split, cudaStream_t s) {
+  ce_merge_kernel<<<(n_tok + kThreads - 1) / kThreads, kThreads, 0, s>>>(
+      part, nll, lse, nullptr, n_tok, n_split);
 }
 
 // Facts about the bf16 kernel for reports (idx 0; tc::kernel_info).

@@ -455,14 +455,15 @@ def _masked_mean_bool(nll: torch.Tensor,
     return nll.sum() / torch.clamp(valid.sum().float(), min=1.0)
 
 
-def cross_entropy_stats_ref(hidden: torch.Tensor, w_vocab: torch.Tensor,
-                            targets: torch.Tensor, *, block_v: int = 2048
-                            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-token f32 (nll, lse) over vocab blocks with online (max,
-    sumexp, target logit) statistics: the plain version of the CE kernel
-    (``_ce_kernel`` and ``train/loss.py::_ce_fwd_stats``).  Inputs are
-    read in their own dtype and multiplied in f32, which is exact for
-    bf16 inputs, as a bf16 product with f32 accumulation is."""
+def cross_entropy_partial_ref(hidden: torch.Tensor, w_vocab: torch.Tensor,
+                              targets: torch.Tensor, *, block_v: int = 2048
+                              ) -> torch.Tensor:
+    """Per-token f32 (m, l, target logit), (T, 3), over vocab blocks with
+    online statistics: the plain version of the CE kernel on one vocab
+    shard (``cross_entropy_stats_cuda``).  A target outside [0, V) adds
+    nothing (it lies in another shard).  Inputs are read in their own
+    dtype and multiplied in f32, which is exact for bf16 inputs, as a bf16
+    product with f32 accumulation is."""
     T, D = hidden.shape
     V = w_vocab.shape[0]
     block_v = min(block_v, V)
@@ -481,8 +482,28 @@ def cross_entropy_stats_ref(hidden: torch.Tensor, w_vocab: torch.Tensor,
         tgt = tgt + torch.where(
             hit, logits.gather(1, idx[:, None].long())[:, 0],
             torch.zeros_like(tgt))
-    lse = m + torch.log(torch.clamp(l, min=1e-30))
-    return lse - tgt, lse
+    return torch.stack([m, l, tgt], dim=-1)
+
+
+def ce_merge_ref(parts: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Merges n shards' (m, l, target logit) triples, (n, T, 3), in shard
+    order, as ``ce_merge_kernel`` does -> per-token f32 (nll, lse)."""
+    m, l, tgt = parts.unbind(dim=-1)
+    M = m.amax(dim=0)
+    L = (l * torch.exp(m - M)).sum(dim=0)
+    lse = M + torch.log(torch.clamp(L, min=1e-30))
+    return lse - tgt.sum(dim=0), lse
+
+
+def cross_entropy_stats_ref(hidden: torch.Tensor, w_vocab: torch.Tensor,
+                            targets: torch.Tensor, *, block_v: int = 2048
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-token f32 (nll, lse) over vocab blocks with online (max,
+    sumexp, target logit) statistics: the plain version of the CE kernel
+    (``_ce_kernel`` and ``train/loss.py::_ce_fwd_stats``); a target
+    outside [0, V) adds nothing, as in the kernel."""
+    return ce_merge_ref(cross_entropy_partial_ref(
+        hidden, w_vocab, targets, block_v=block_v)[None])
 
 
 def cross_entropy_direct_ref(hidden: torch.Tensor, w_vocab: torch.Tensor,

@@ -7,10 +7,12 @@ A ``Mesh`` names its axes and their sizes (``shape``, as a JAX mesh's)
 and, unless it is abstract, holds the torch ``DeviceMesh`` whose process
 groups the sharding rules' collectives run over.  ``make_host_mesh``
 spans the world's ranks: the ranks of ``torchrun`` (``RANK``,
-``WORLD_SIZE``, ``LOCAL_RANK``; each rank pins ``cuda:LOCAL_RANK``), or
-one rank in a group built from an in-process store.  NCCL carries CUDA
-tensors and gloo CPU ones.  ``make_production_mesh`` is abstract: its
-specs resolve on any machine, for the dry run.
+``WORLD_SIZE``, ``LOCAL_RANK``; each rank pins ``cuda:LOCAL_RANK``, or
+``cuda:0`` when the ranks outnumber the cards), or one rank in a group
+built from an in-process store.  NCCL carries CUDA tensors and gloo CPU
+ones (gloo both, where several ranks share a card).
+``make_production_mesh`` is abstract: its specs resolve on any machine,
+for the dry run.
 
 The rates are NVIDIA's data sheet for the H100 SXM5 80 GB, dense (no
 structured sparsity): bf16 tensor cores 989 TFLOP/s, f32 on the CUDA
@@ -77,27 +79,34 @@ class Mesh:
 
 
 def local_device(device: str) -> torch.device:
-    """``device``, a bare ``"cuda"`` pinned to this rank's card
-    (``cuda:LOCAL_RANK``) and made current."""
+    """``device``, a bare ``"cuda"`` pinned to this rank's card and made
+    current: ``cuda:LOCAL_RANK``, or ``cuda:0`` for every rank when the
+    machine runs more ranks than it has cards (several ranks on one
+    card, over gloo: NCCL refuses two ranks on one device)."""
     dev = torch.device(device)
     if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+        local = int(os.environ.get("LOCAL_RANK", 0))
+        world = int(os.environ.get("LOCAL_WORLD_SIZE",
+                                   os.environ.get("WORLD_SIZE", 1)))
+        dev = torch.device("cuda", 0 if world > torch.cuda.device_count()
+                           else local)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     return dev
 
 
-def init_distributed() -> None:
+def init_distributed(backend: Optional[str] = None) -> None:
     """Joins the default process group once: the launcher's (``env://``)
     when ``WORLD_SIZE`` is set, else a one-rank group over an in-process
-    store.  Its backend carries CPU tensors over gloo and, where CUDA and
-    NCCL exist, CUDA ones over NCCL.  A group that fails to form
-    raises."""
+    store.  ``backend`` None carries CPU tensors over gloo and, where CUDA
+    and NCCL exist, CUDA ones over NCCL; ``"gloo"`` carries both over gloo
+    (several ranks on one card).  A group that fails to form raises."""
     if dist.is_initialized():
         return
-    backend = ("cpu:gloo,cuda:nccl"
-               if torch.cuda.is_available() and dist.is_nccl_available()
-               else "gloo")
+    if backend is None:
+        backend = ("cpu:gloo,cuda:nccl"
+                   if torch.cuda.is_available() and dist.is_nccl_available()
+                   else "gloo")
     if "WORLD_SIZE" in os.environ:
         dist.init_process_group(backend, init_method="env://")
     else:

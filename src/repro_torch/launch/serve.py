@@ -14,10 +14,13 @@ device from a seeded generator, and so are the modality inputs.
 As the JAX driver does, it runs under sharding rules on a (data, model)
 mesh over every rank of the world (``launch/mesh.py::make_host_mesh``):
 the ranks of ``torchrun``, each on ``cuda:LOCAL_RANK``, or one rank.
-Each rank holds its blocks of the weights (gathered a layer at a time),
-serves its data rows of the one global prompt batch (drawn whole on every
-rank from the seed) with a cache of its rows, and the tokens are gathered
-to every rank; rank 0 prints.  Under rules MoE prefill takes the
+Each rank holds its blocks of the weights (gathered a layer at a time
+over the data axes, their ``model`` split kept: each model rank computes
+its heads, ``ffn`` columns and vocab rows), serves its data rows of the
+one global prompt batch (drawn whole on every rank from the seed) with a
+cache of its rows and its ``model`` block (positions, else heads), and
+the tokens are gathered to every rank; rank 0 prints, with every rank's
+peak memory.  Under rules MoE prefill takes the
 shardmap path (capacity over a rank's B_local * S tokens), decode the
 gspmd one.
 
@@ -145,6 +148,10 @@ def _serve(arch, cfg, run, dev, rules, prompt_len, gen, batch, seed):
     }
     if dev.type == "cuda":
         res["peak_mem_bytes"] = torch.cuda.max_memory_allocated(dev)
+        if dist.get_world_size() > 1:  # every rank's, in rank order
+            peaks = [None] * dist.get_world_size()
+            dist.all_gather_object(peaks, res["peak_mem_bytes"])
+            res["rank_peak_mem_bytes"] = peaks
     return res
 
 

@@ -33,10 +33,12 @@ shard.
 As the JAX driver does, it trains under sharding rules on a (data,
 model) mesh over every rank of the world (``launch/mesh.py``): the ranks
 of ``torchrun``, each on ``cuda:LOCAL_RANK``, or one rank.  The state
-holds each rank's blocks (drawn sharded), and each data rank trains on
+holds each rank's blocks (drawn sharded), each data rank trains on
 its rows of the global batch that a one-rank run sees
-(``train/step.py``).  Synthetic batches are drawn whole on every rank
-from the same seed.  The carousel's landing order depends on its
+(``train/step.py``), and with ``--model`` n > 1 each model rank computes
+its heads, ``ffn`` columns and vocab rows of every dense layer and of the
+CE (``models/layers.py``, ``train/loss.py``).  Synthetic batches are
+drawn whole on every rank from the same seed.  The carousel's landing order depends on its
 threads' timing, so rank 0 alone stages the corpus and broadcasts each
 batch to the other ranks.  Checkpoints are gathered whole and written by
 rank 0, in the one-rank format; a resume reshards them onto the mesh

@@ -43,8 +43,9 @@ def param_defs(cfg: ModelConfig) -> Params:
 def _shared_attn(p: Params, cfg: ModelConfig, run: RunConfig,
                  x: torch.Tensor, pos: int, cache_l: Optional[Params],
                  kv_len: Optional[int]) -> torch.Tensor:
-    """``p``: the shared block's weights, whole (``registry`` gathers every
-    subtree but the layer stack)."""
+    """``p``: the shared block's weights, this rank's ``model`` block of
+    each (``registry.gather_top``), so attention and the MLP compute their
+    block as a transformer block's do."""
     h = L.rmsnorm(p["ln1"], x, cfg, run)
     h, _ = L.attention(p["attn"], cfg, run, h, pos=pos, cache=cache_l,
                        kv_len=kv_len)
@@ -77,7 +78,7 @@ def _run(params: Params, cfg: ModelConfig, run: RunConfig, x: torch.Tensor,
 def forward(params: Params, cfg: ModelConfig, run: RunConfig,
             batch: Dict[str, Any]) -> torch.Tensor:
     """Forward over a (B, S) batch -> final hidden states (B, S, d)."""
-    x = L.embed(params["embed"], batch["tokens"])
+    x = L.embed(params["embed"], cfg, batch["tokens"])
     return _run(params, cfg, run, x, 0)
 
 
@@ -94,7 +95,7 @@ def prefill(params: Params, cfg: ModelConfig, run: RunConfig,
             ) -> Tuple[torch.Tensor, Params]:
     """Fills the cache from a (B, S) prompt; returns last-position logits
     (B, 1, V) and the cache (the same object, filled in place)."""
-    x = L.embed(params["embed"], batch["tokens"])
+    x = L.embed(params["embed"], cfg, batch["tokens"])
     S = x.shape[1]
     x = _run(params, cfg, run, x, 0, mamba_state=cache["mamba"],
              kv_cache=cache["kv"], kv_len=S)
@@ -105,7 +106,7 @@ def decode(params: Params, cfg: ModelConfig, run: RunConfig,
            tokens: torch.Tensor, cache: Params, pos: int
            ) -> Tuple[torch.Tensor, Params]:
     """One decode step.  tokens: (B, 1); pos: current length (int)."""
-    x = L.embed(params["embed"], tokens)
+    x = L.embed(params["embed"], cfg, tokens)
     x = _run(params, cfg, run, x, pos, mamba_state=cache["mamba"],
              kv_cache=cache["kv"], kv_len=pos + 1)
     return L.logits_out(params["embed"], cfg, run, x), cache

@@ -9,10 +9,23 @@ large projections and the expert products stay plain ``@`` / ``bmm``
 (cuBLAS), as the JAX package leaves them to XLA outside any kernel; so
 do the int8 (de)quantisation and the MoE routing, which it computes in
 jnp.
+
+Under sharding rules whose ``model`` axis has more than one rank, ``p``
+holds this rank's ``model`` block of each weight (``keep=("model",)``)
+and each rank computes its block, as GSPMD splits the JAX specs:
+attention its heads (or, where the heads do not divide ``model``, its
+query rows: ``"q_seq"``), the MLP its ``ffn`` columns, the embedding and
+the LM head their vocab rows; a split region starts at
+``sharding.enter_model`` and its partial outputs are summed by
+``sharding.leave_model`` (``sharding/rules.py``).  The KV cache holds
+this rank's block of its spec (``"kv_seq"``, else ``"heads"``, else
+whole); decode over a ``kv_seq`` block runs flash-decoding: each rank's
+partial softmax over its positions, combined across ``model``.
 """
 from __future__ import annotations
 
 import math
+import weakref
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -208,6 +221,52 @@ def cache_read(cache: Params) -> Tuple[torch.Tensor, torch.Tensor]:
     return cache["k"], cache["v"]
 
 
+# (device, storage address) of a KV stack split over "kv_seq" -> (first,
+# count) of the positions it holds; an entry lives as long as its stack
+_KV_BLOCKS: Dict[Tuple[str, int], Tuple[int, int]] = {}
+
+
+def _storage_key(t: torch.Tensor) -> Tuple[str, int]:
+    return str(t.device), t.untyped_storage().data_ptr()
+
+
+def mark_kv_positions(stack: torch.Tensor, first: int, count: int) -> None:
+    """Records that ``stack`` (a KV leaf, or the stack of them) holds the
+    global positions ``first .. first + count - 1``: this rank's block of
+    a cache split over ``"kv_seq"``.  Its views (a layer's cache) share
+    the record, in inference mode too, where views keep no ``_base``."""
+    key = _storage_key(stack)
+    _KV_BLOCKS[key] = (first, count)
+    weakref.finalize(stack, _KV_BLOCKS.pop, key, None)
+
+
+def kv_positions(cache: Params) -> Optional[Tuple[int, int]]:
+    """(first, count) of the global positions this rank's block of a
+    one-layer cache holds, where the cache is split over ``"kv_seq"``
+    (``mark_kv_positions``); None where it holds every position."""
+    return _KV_BLOCKS.get(_storage_key(cache["k"]))
+
+
+def _as_cached(cache: Params, x: torch.Tensor) -> torch.Tensor:
+    """``x`` as ``cache_read`` returns it once written: rounded to the
+    cache's bf16, or int8-quantised and dequantised."""
+    if "k_scale" in cache:
+        return dequantize_kv(*quantize_kv(x))
+    return x.to(cache["k"].dtype)
+
+
+def _cache_write(cache: Params, k: torch.Tensor, v: torch.Tensor,
+                 start: int) -> None:
+    """Writes the rows of K/V (B, n, Hc, Dh) at global positions ``start
+    .. start + n - 1`` that this rank's block holds (all of them where the
+    cache is not split over ``"kv_seq"``)."""
+    first, count = kv_positions(cache) or (0, cache["k"].shape[1])
+    lo, hi = max(start, first), min(start + k.shape[1], first + count)
+    if lo < hi:
+        cache_update(cache, k[:, lo - start:hi - start],
+                     v[:, lo - start:hi - start], lo - first)
+
+
 # ---------------------------------------------------------------------------
 # Attention
 # ---------------------------------------------------------------------------
@@ -253,6 +312,11 @@ def attention(p: Params, cfg: ModelConfig, run: RunConfig, x: torch.Tensor,
     nothing is written.  ``use_rope`` False leaves q and k unrotated.
     Returns (out, cache).
     """
+    if SR.model_ranks() > 1:
+        return _attention_split(p, cfg, run, x, pos=pos, causal=causal,
+                                cache=cache, kv_len=kv_len, xkv=xkv,
+                                cache_read_only=cache_read_only,
+                                use_rope=use_rope)
     B, S, _ = x.shape
     Hq, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     positions = pos + torch.arange(S, device=x.device)
@@ -295,6 +359,190 @@ def attention(p: Params, cfg: ModelConfig, run: RunConfig, x: torch.Tensor,
     return SR.constrain(y, "batch", None, None), cache
 
 
+def _kv_for_heads(k: torch.Tensor, h0: int, q0: int, hq: int,
+                  G: int) -> torch.Tensor:
+    """The K (or V) heads that query heads ``q0 .. q0 + hq - 1`` read, from
+    ``k`` (B, S, H, Dh) holding kv heads ``h0 ..``: a run of whole groups,
+    the one head a part of a group shares, or (groups split unevenly) one
+    kv head a query head."""
+    if hq % G == 0 or G % hq == 0:
+        a = q0 // G - h0
+        return k[:, :, a:a + max(hq // G, 1)]
+    idx = (q0 + torch.arange(hq, device=k.device)) // G - h0
+    return k.index_select(2, idx)
+
+
+def _attention_partial(q, k, v, *, k_first: int, causal: bool,
+                       q_offset: int, kv_len: Optional[int],
+                       sliding_window: int) -> torch.Tensor:
+    """One rank's part of flash-decoding: the softmax statistics of ``q``
+    (B, Sq, Hq, Dh) over keys (B, Sk, Hkv, Dh) at global positions
+    ``k_first ..``, f32, packed as (B, Sq, Hkv, G, 2 + Dh): the max, the
+    sum of exps and the unnormalised output."""
+    B, Sq, Hq, Dh = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    qf = (q.float() * Dh ** -0.5).reshape(B, Sq, Hkv, Hq // Hkv, Dh)
+    s = torch.einsum("bqhgd,bkhd->bqhgk", qf, k.float())
+    mask = attention_mask(
+        q_offset + torch.arange(Sq, device=q.device),
+        k_first + torch.arange(Sk, device=q.device),
+        valid_len=k_first + Sk if kv_len is None else kv_len,
+        causal=causal, sliding_window=sliding_window)[None, :, None, None]
+    s = s.masked_fill(~mask, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m).masked_fill(~mask, 0.0)
+    o = torch.einsum("bqhgk,bkhd->bqhgd", p, v.float())
+    return torch.cat([m, p.sum(dim=-1, keepdim=True), o], dim=-1)
+
+
+def _combine_partials(parts: torch.Tensor, dtype) -> torch.Tensor:
+    """The ranks' ``_attention_partial`` statistics (n, B, Sq, Hkv, G, 2 +
+    Dh), merged in rank order (the same on every rank) -> (B, Sq, Hq, Dh)."""
+    m = parts[..., :1]
+    w = torch.exp(m - m.amax(dim=0))
+    l = (w * parts[..., 1:2]).sum(dim=0)
+    o = (w * parts[..., 2:]).sum(dim=0)
+    B, Sq, Hkv, G, Dh = o.shape
+    return (o / l).reshape(B, Sq, Hkv * G, Dh).to(dtype)
+
+
+def _attention_split(p: Params, cfg: ModelConfig, run: RunConfig,
+                     x: torch.Tensor, *, pos: int, causal: bool,
+                     cache: Optional[Params], kv_len: Optional[int],
+                     xkv: Optional[torch.Tensor], cache_read_only: bool,
+                     use_rope: bool
+                     ) -> Tuple[torch.Tensor, Optional[Params]]:
+    """``attention`` with ``model`` split over n > 1 ranks, in the JAX
+    package's three cases (``repro/models/layers.py::attention``):
+
+    heads (Hq % n == 0): this rank's Hq / n query heads (its columns of
+      ``wq``, ``bq``), the kv heads they read (its own columns of ``wk``,
+      ``wv`` where Hkv % n == 0; else taken from the weights made whole),
+      the flash kernel on them, and its rows of ``wo``: a partial sum that
+      ``leave_model`` adds up;
+    rows (``"q_seq"``, S > 1 and S % n == 0): its S / n query rows at
+      ``q_offset = pos + r S / n`` against the whole K/V, the weights
+      whole (``model_whole``), its output rows gathered;
+    whole (the rest: a decode step, or S % n != 0): every rank computes
+      the whole, on weights gathered whole.
+
+    Prefill writes this rank's block of the cache and attends over the
+    fresh K/V (rounded as the cache holds them), so it must start at
+    position 0.  Decode over a cache split over ``"kv_seq"`` computes each
+    rank's partial softmax over its positions for all heads and combines
+    them across ``model``; over a cache split over heads, or whole, it
+    reads the heads it needs."""
+    B, S, _ = x.shape
+    Hq, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    G = Hq // Hkv
+    rules = SR.current_rules()
+    n, rank = SR.model_ranks(), rules.mesh.coord("model")
+    defs = attention_defs(cfg, 0)
+    if Hq % n == 0:
+        mode = "heads"
+    elif S > 1 and S % n == 0:
+        mode = "rows"
+    else:
+        mode = "whole"
+    split = mode != "whole"
+    own_kv = mode == "heads" and Hkv % n == 0
+
+    def weight(name: str) -> Optional[torch.Tensor]:
+        if name not in p:
+            return None
+        if mode == "whole":
+            return SR.gather(p[name], defs[name])
+        if mode == "heads" and (name[1] in "qo" or own_kv):
+            return p[name]  # this rank's heads
+        return SR.model_whole(p[name], defs[name])
+
+    if cache is not None and not cache_read_only and xkv is None \
+            and S > 1 and pos != 0:
+        raise NotImplementedError(
+            "a prefill from position > 0 under a model split would read "
+            "the cache's earlier positions")
+    xin = SR.enter_model(x) if split else x
+    if mode == "rows":
+        r0 = rank * (S // n)
+        xq, q_off = xin[:, r0:r0 + S // n], pos + r0
+    else:
+        xq, q_off = xin, pos
+    Sq = xq.shape[1]
+    q = xq @ weight("wq")
+    if "bq" in p:
+        q = q + weight("bq")
+    q = q.reshape(B, Sq, -1, Dh)
+    if use_rope:
+        q = rope(q, q_off + torch.arange(Sq, device=x.device),
+                 cfg.rope_theta)
+    q0, hq = (rank * (Hq // n), Hq // n) if mode == "heads" else (0, Hq)
+
+    from_cache = cache_read_only or (cache is not None and S == 1
+                                     and xkv is None)
+    if not cache_read_only:
+        src = xin if xkv is None else (SR.enter_model(xkv) if split
+                                       else xkv)
+        k, v = src @ weight("wk"), src @ weight("wv")
+        if "bk" in p:
+            k, v = k + weight("bk"), v + weight("bv")
+        k = k.reshape(B, -1, k.shape[-1] // Dh, Dh)
+        v = v.reshape(B, -1, v.shape[-1] // Dh, Dh)
+        if use_rope and xkv is None:
+            k = rope(k, pos + torch.arange(k.shape[1], device=x.device),
+                     cfg.rope_theta)
+        k_h0 = rank * (Hkv // n) if own_kv else 0  # first head k holds
+        if cache is not None:
+            hc = cache["k"].shape[2]  # the heads the cache block holds
+            c_h0 = rank * hc if hc < Hkv else 0
+            if own_kv and hc == Hkv:  # every head: gather them
+                kc = rules.all_gather(k, 2, ("model",))
+                vc = rules.all_gather(v, 2, ("model",))
+            else:
+                kc = k[:, :, c_h0 - k_h0:c_h0 - k_h0 + hc]
+                vc = v[:, :, c_h0 - k_h0:c_h0 - k_h0 + hc]
+            _cache_write(cache, kc, vc, pos if xkv is None else 0)
+            if not from_cache:
+                k, v = _as_cached(cache, k), _as_cached(cache, v)
+
+    if from_cache:
+        kc, vc = cache_read(cache)
+        kc, vc = kc.to(q.dtype), vc.to(q.dtype)
+        block = kv_positions(cache)
+        opts = dict(causal=causal, q_offset=pos, kv_len=kv_len,
+                    sliding_window=cfg.sliding_window)
+        if block is not None:  # flash-decoding over the positions
+            q_all = q if hq == Hq else rules.all_gather(q, 2, ("model",))
+            part = _attention_partial(q_all, kc, vc, k_first=block[0],
+                                      **opts)
+            out = _combine_partials(
+                rules.all_gather(part[None], 0, ("model",)), q.dtype)
+            out = out[:, :, q0:q0 + hq]
+        else:
+            c_h0 = rank * kc.shape[2] if kc.shape[2] < Hkv else 0
+            out = _attention_kvseq(
+                q, _kv_for_heads(kc, c_h0, q0, hq, G),
+                _kv_for_heads(vc, c_h0, q0, hq, G), **opts)
+    else:
+        k, v = k.to(q.dtype), v.to(q.dtype)
+        k = _kv_for_heads(k, k_h0, q0, hq, G)
+        v = _kv_for_heads(v, k_h0, q0, hq, G)
+        if S == 1:
+            out = _attention_kvseq(q, k, v, causal=causal, q_offset=q_off,
+                                   kv_len=kv_len,
+                                   sliding_window=cfg.sliding_window)
+        else:
+            out = ops.flash_attention(
+                q, k, v, causal=causal, q_offset=q_off, kv_len=kv_len,
+                sliding_window=cfg.sliding_window,
+                block_k=run.attn_block_k, use_kernels=run.use_kernels)
+    y = out.reshape(B, Sq, hq * Dh) @ weight("wo")
+    if mode == "heads":
+        y = SR.leave_model(y)
+    elif mode == "rows":
+        y = SR.gather_model(y, 1)
+    return SR.constrain(y, "batch", None, None), cache
+
+
 # ---------------------------------------------------------------------------
 # MLP / MoE / embedding / LM head
 # ---------------------------------------------------------------------------
@@ -302,12 +550,21 @@ def attention(p: Params, cfg: ModelConfig, run: RunConfig, x: torch.Tensor,
 
 def mlp(p: Params, cfg: ModelConfig, run: RunConfig,
         x: torch.Tensor) -> torch.Tensor:
+    """The MLP.  Where ``p`` holds this rank's ``ffn`` columns of ``w_up``
+    / ``w_gate`` / ``b_up`` and rows of ``w_down`` (a ``model`` split), the
+    ranks' partial outputs are summed, and ``b_down`` is added once, after
+    the sum."""
     a = act_fn(cfg.act)
+    split = SR.model_ranks() > 1 and p["w_up"].shape[-1] != cfg.d_ff
+    if split:
+        x = SR.enter_model(x)
     up = x @ p["w_up"]
     if "b_up" in p:
         up = up + p["b_up"]
     h = a(x @ p["w_gate"]) * up if "w_gate" in p else a(up)
     y = h @ p["w_down"]
+    if split:
+        y = SR.leave_model(y)
     if "b_down" in p:
         y = y + p["b_down"]
     return SR.constrain(y, "batch", None, None)
@@ -438,38 +695,6 @@ def _moe_block_gspmd(p: Params, cfg: ModelConfig, run: RunConfig,
     return SR.constrain(y.to(x.dtype), "batch", None, None)
 
 
-class _CopyToModel(torch.autograd.Function):
-    """Identity; the backward sums the cotangent over the "model" axis.
-    Wraps what the shardmap block reads replicated over "model" (its
-    input, the router): each model rank's local experts give a part of
-    its gradient, as ``shard_map``'s transpose sums the cotangent of an
-    input its spec replicates."""
-
-    @staticmethod
-    def forward(ctx, x, rules):
-        ctx.rules = rules
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        return ctx.rules.all_reduce(g.clone(), ("model",)), None
-
-
-class _SumOverModel(torch.autograd.Function):
-    """All-reduce (sum) over the "model" axis; the backward passes each
-    rank's cotangent unchanged (the compute after it is replicated over
-    "model", so every rank holds the same cotangent), as ``lax.psum``'s
-    transpose inside ``shard_map`` does."""
-
-    @staticmethod
-    def forward(ctx, y, rules):
-        return rules.all_reduce(y.clone(), ("model",))
-
-    @staticmethod
-    def backward(ctx, g):
-        return g, None
-
-
 def _moe_block_shardmap(p: Params, cfg: ModelConfig, run: RunConfig,
                         x: torch.Tensor) -> torch.Tensor:
     """The semantics of ``_moe_block_shardmap``: the rank routes its T =
@@ -491,22 +716,39 @@ def _moe_block_shardmap(p: Params, cfg: ModelConfig, run: RunConfig,
                          f"{cfg.d_ff} over model {n_model}: neither divides")
     base = rules.mesh.coord("model") * E_loc if e_sharded else 0
     xt = x.reshape(1, B * Sq, d)
-    if n_model > 1:
-        xt = _CopyToModel.apply(xt, rules)
-        p = {**p, "router": _CopyToModel.apply(p["router"], rules)}
+    # the input and the router are replicated over "model"; each rank's
+    # local experts give a part of their gradients
+    xt = SR.enter_model(xt)
+    p = {**p, "router": SR.enter_model(p["router"])}
     r = moe_route(p, cfg, xt)
     C = r.capacity
     keep = r.keep & (r.experts >= base) & (r.experts < base + E_loc)
     # one row: slot = expert * C + rank; local experts from 0
     slot = r.slot - base * C
     y = _experts_combine(p, cfg, xt, r, keep, slot, E_loc, C)
-    if n_model > 1:
-        y = _SumOverModel.apply(y, rules)
+    y = SR.leave_model(y)
     return SR.constrain(y.reshape(B, Sq, d).to(x.dtype), "batch", None, None)
 
 
-def embed(p: Params, tokens: torch.Tensor) -> torch.Tensor:
-    return SR.constrain(p["tok"][tokens], "batch", None, None)
+def _vocab_split(w: torch.Tensor, cfg: ModelConfig) -> bool:
+    """Whether ``w`` holds this rank's ``model`` block of the vocab rows."""
+    return SR.model_ranks() > 1 and w.shape[0] != cfg.vocab_size
+
+
+def embed(p: Params, cfg: ModelConfig, tokens: torch.Tensor
+          ) -> torch.Tensor:
+    """The token embeddings.  On a table split over ``model`` by vocab
+    rows: a lookup of the ids in this rank's rows (zeros for the rest),
+    summed over ``model``, which is exact."""
+    tok = p["tok"]
+    if not _vocab_split(tok, cfg):
+        return SR.constrain(tok[tokens], "batch", None, None)
+    v0, nv = SR.model_block(cfg.vocab_size)
+    ids = tokens - v0
+    hit = (ids >= 0) & (ids < nv)
+    y = torch.where(hit[..., None], tok[ids.clamp(0, nv - 1)],
+                    tok.new_zeros(()))
+    return SR.constrain(SR.leave_model(y), "batch", None, None)
 
 
 def lm_head_weight(p: Params, cfg: ModelConfig) -> torch.Tensor:
@@ -515,6 +757,15 @@ def lm_head_weight(p: Params, cfg: ModelConfig) -> torch.Tensor:
 
 def logits_out(p: Params, cfg: ModelConfig, run: RunConfig,
                x: torch.Tensor) -> torch.Tensor:
-    y = x @ lm_head_weight(p, cfg).t()
+    """The logits.  With the head split over ``model`` by vocab rows, each
+    rank computes its rows and the logits are gathered over ``model`` (at
+    serving's last position: B V floats)."""
+    w = lm_head_weight(p, cfg)
+    split = _vocab_split(w, cfg)
+    if split:
+        x = SR.enter_model(x)
+    y = x @ w.t()
     y = y.float() if run.logits_in_fp32 else y
+    if split:
+        y = SR.gather_model(y, -1)
     return SR.constrain(y, "batch", None, "vocab")

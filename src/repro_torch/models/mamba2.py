@@ -10,7 +10,9 @@ over layers on views of the stacked leaves takes the place of
 the f32 SSM state (H, P, N) per layer, written in place into the stacked
 cache.  Training checkpoints each block whole unless ``run.remat`` is
 "none" (``run_layers``).  Under sharding rules a block gathers its
-layer's weights from this rank's blocks when it starts.
+layer's weights whole from this rank's blocks when it starts, over
+``model`` too: every model rank runs the mamba blocks whole (the
+embedding and the LM head split their vocab rows, ``layers.py``).
 """
 from __future__ import annotations
 
@@ -184,7 +186,7 @@ def _run_blocks(params: Params, cfg: ModelConfig, run: RunConfig,
 def forward(params: Params, cfg: ModelConfig, run: RunConfig,
             batch: Dict[str, Any]) -> torch.Tensor:
     """Forward over a (B, S) batch -> final hidden states (B, S, d)."""
-    x = L.embed(params["embed"], batch["tokens"])
+    x = L.embed(params["embed"], cfg, batch["tokens"])
     return _run_blocks(params, cfg, run, x)
 
 
@@ -197,7 +199,7 @@ def prefill(params: Params, cfg: ModelConfig, run: RunConfig,
             ) -> Tuple[torch.Tensor, Params]:
     """Runs a (B, S) prompt from the given state; returns last-position
     logits (B, 1, V) and the state (the same object, filled in place)."""
-    x = L.embed(params["embed"], batch["tokens"])
+    x = L.embed(params["embed"], cfg, batch["tokens"])
     x = _run_blocks(params, cfg, run, x, state=cache)
     return L.logits_out(params["embed"], cfg, run, x[:, -1:]), cache
 
@@ -207,6 +209,6 @@ def decode(params: Params, cfg: ModelConfig, run: RunConfig,
            ) -> Tuple[torch.Tensor, Params]:
     """One decode step.  tokens: (B, 1); ``pos`` is not read (the state
     carries the position)."""
-    x = L.embed(params["embed"], tokens)
+    x = L.embed(params["embed"], cfg, tokens)
     x = _run_blocks(params, cfg, run, x, state=cache)
     return L.logits_out(params["embed"], cfg, run, x), cache

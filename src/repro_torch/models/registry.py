@@ -12,7 +12,8 @@ embeddings.
 Under sharding rules ``params`` holds this rank's blocks of each weight;
 ``forward``, ``prefill`` and ``decode`` gather every subtree but the
 layer stacks (``gather_top``; the stacks a layer at a time, inside the
-blocks).
+blocks), keeping each weight's ``model`` split: the embedding, the LM
+head and zamba2's shared block compute this rank's block.
 """
 from __future__ import annotations
 
@@ -72,11 +73,13 @@ def layer_stacks(cfg: ModelConfig) -> Dict[str, int]:
 
 def gather_top(params: Params, cfg: ModelConfig) -> Params:
     """Under sharding rules, the tree with every subtree but the layer
-    stacks gathered whole; ``params`` itself without rules."""
+    stacks gathered over every axis but ``model``; ``params`` itself
+    without rules."""
     if not SR.sharded():
         return params
     defs, stacks = param_defs(cfg), layer_stacks(cfg)
-    return {k: v if k in stacks else SR.gather_params(v, defs[k])
+    return {k: v if k in stacks else SR.gather_params(v, defs[k],
+                                                      keep=("model",))
             for k, v in params.items()}
 
 

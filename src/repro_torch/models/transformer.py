@@ -20,7 +20,9 @@ layer's gradient on its own view instead of on the whole stack.
 
 Under sharding rules each block gathers its layer's weights from this
 rank's blocks when it starts (inside the checkpointed function, so remat
-gathers again in the backward); the MoE block gathers its own.
+gathers again in the backward), keeping their ``model`` split: attention
+and the MLP compute this rank's block (``layers.py``); the MoE block
+gathers its own.
 """
 from __future__ import annotations
 
@@ -68,8 +70,8 @@ def _block(p_l: Params, cfg: ModelConfig, run: RunConfig, x: torch.Tensor,
            ) -> torch.Tensor:
     if SR.sharded():
         defs = P.unstack(param_defs(cfg)["blocks"])
-        p_l = {k: v if k == "moe" else SR.gather_params(v, defs[k])
-               for k, v in p_l.items()}
+        p_l = {k: v if k == "moe" else SR.gather_params(
+            v, defs[k], keep=("model",)) for k, v in p_l.items()}
     h = L.rmsnorm(p_l["ln1"], x, cfg, run)
     h, _ = L.attention(p_l["attn"], cfg, run, h, pos=pos, cache=cache_l,
                        kv_len=kv_len)
@@ -118,7 +120,7 @@ def _run_blocks(params: Params, cfg: ModelConfig, run: RunConfig,
 
 def _embed_inputs(params: Params, cfg: ModelConfig,
                   batch: Dict[str, Any]) -> torch.Tensor:
-    x = L.embed(params["embed"], batch["tokens"])
+    x = L.embed(params["embed"], cfg, batch["tokens"])
     if cfg.family == "vlm" and "img_embeds" in batch:
         x = torch.cat([batch["img_embeds"].to(x.dtype), x], dim=1)
     return x
@@ -155,6 +157,6 @@ def decode(params: Params, cfg: ModelConfig, run: RunConfig,
            ) -> Tuple[torch.Tensor, Params]:
     """One decode step.  tokens: (B, 1); pos: current length (int)."""
     _check_family(cfg)
-    x = L.embed(params["embed"], tokens)
+    x = L.embed(params["embed"], cfg, tokens)
     x = _run_blocks(params, cfg, run, x, pos, cache=cache, kv_len=pos + 1)
     return L.logits_out(params["embed"], cfg, run, x), cache

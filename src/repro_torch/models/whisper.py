@@ -74,11 +74,12 @@ def _add_positions(x: torch.Tensor, pos: int, cfg: ModelConfig
 
 
 def _gathered(p: Params, cfg: ModelConfig, stack: str) -> Params:
-    """A layer of ``stack`` gathered from this rank's blocks (under
-    sharding rules; ``p`` itself without)."""
+    """A layer of ``stack`` gathered from this rank's blocks, its ``model``
+    split kept (under sharding rules; ``p`` itself without)."""
     if not SR.sharded():
         return p
-    return SR.gather_params(p, P.unstack(param_defs(cfg)[stack]))
+    return SR.gather_params(p, P.unstack(param_defs(cfg)[stack]),
+                            keep=("model",))
 
 
 def _enc_block(p: Params, cfg: ModelConfig, run: RunConfig,
@@ -131,7 +132,7 @@ def _run_decoder(params: Params, cfg: ModelConfig, run: RunConfig,
     """Every decoder block, then ``dec_ln_f``.  A given cache ({"self",
     "cross"}) is updated in place, each layer's slice a view into its
     stack."""
-    x = _add_positions(L.embed(params["embed"], tokens), pos, cfg)
+    x = _add_positions(L.embed(params["embed"], cfg, tokens), pos, cfg)
     for i in range(cfg.num_layers):
         sc = None if cache is None else P.layer(cache["self"], i)
         cc = None if cache is None else P.layer(cache["cross"], i)

@@ -9,17 +9,38 @@ from typing import Any, Dict, Tuple, Union
 import torch
 
 from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.models import layers as L
 from repro_torch.models import params as P
 from repro_torch.models import registry
+from repro_torch.sharding import rules as SR
 
 Cache = Dict[str, Any]
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: Union[str, torch.device] = "cuda") -> Cache:
+    """Zeros of ``batch`` rows (under rules: this rank's rows).  With
+    ``model`` split over more than one rank, each KV leaf holds this
+    rank's ``model`` block of its spec, as ``ShardingRules.spec`` resolves
+    it: its positions (``"kv_seq"``, where ``max_len`` divides), else its
+    kv heads, else all of it; a stack split over positions is marked with
+    them (``layers.mark_kv_positions``: first, count).  The mamba states
+    stay whole."""
     defs = registry.cache_defs(cfg, batch, max_len)
-    return P.tree_map(
-        lambda d: torch.zeros(d.shape, dtype=d.dtype, device=device), defs)
+    split = SR.model_ranks() > 1
+
+    def leaf(d):
+        if not (split and "kv_seq" in d.logical):
+            return torch.zeros(d.shape, dtype=d.dtype, device=device)
+        r = SR.current_rules()
+        shape = r.local_shape(d.logical, d.shape, keep=("model",))
+        t = torch.zeros(shape, dtype=d.dtype, device=device)
+        i = d.logical.index("kv_seq")
+        if shape[i] != d.shape[i]:
+            L.mark_kv_positions(t, r.mesh.coord("model") * shape[i],
+                                shape[i])
+        return t
+    return P.tree_map(leaf, defs)
 
 
 def abstract_cache(cfg: ModelConfig, batch: int, max_len: int,

@@ -22,18 +22,35 @@ How the port runs under rules (the JAX drivers leave this to GSPMD):
 
 * Activations are local tensors: each rank holds its rows of the batch,
   split over the batch axes (``batch_axes``), and is replicated over
-  ``model``.  ``constrain`` checks a local activation's rows; a DTensor
-  it redistributes.
+  ``model`` between blocks.  ``constrain`` checks a local activation's
+  rows; a DTensor it redistributes.
 * Every weight is stored as its spec places it: a rank holds its block
   (``shard_params``, ``materialize`` under rules).  ``gather_params``
-  all-gathers a layer's weights to full just before the layer (ZeRO-3);
-  the MoE block keeps its experts' ``model`` split and gathers the rest
-  (``keep``).  The gather's backward sums the gradient over the batch
-  axes the weight is sharded on and keeps this rank's block, and
-  ``sync_grads`` sums the rest over the batch axes, so each rank ends
-  with its block of the gradient of the global-batch loss.
-* Dense compute is not split over ``model``: each model rank repeats it
-  (numerically the same as one rank).
+  all-gathers a layer's weights just before the layer (ZeRO-3) over the
+  axes not in ``keep``: the blocks keep their ``model`` split
+  (``keep=("model",)``) and gather the ``data`` / ``pod`` one (the MoE
+  block gathers its own: its experts keep their ``model`` split on the
+  shardmap path).  The gather's backward sums the gradient over the batch axes the weight is
+  split on and keeps this rank's block, and ``sync_grads`` sums the rest
+  over the batch axes, so each rank ends with its block of the gradient of
+  the global-batch loss.
+* Dense compute is split over ``model`` as the specs place it (the
+  Megatron layout): each model rank runs its heads of every attention,
+  its ``ffn`` columns of every MLP and its vocab rows of the LM head and
+  the CE.  A split region starts at ``enter_model`` (identity; the
+  backward sums the input's gradient over ``model``) and ends at
+  ``leave_model`` (the forward sums the ranks' partial outputs; identity
+  backward), so activations, and the gradients of everything replicated
+  over ``model`` (norms, the residual stream, a router, ``b_down``), are
+  the same on every model rank.  Where the heads do not divide ``model``,
+  attention splits its query rows instead (``"q_seq"``): it uses its
+  weights whole (``model_whole``: all-gathered over ``model``, the
+  gradient summed over ``model``, since each rank's rows give part of it)
+  and all-gathers its output rows (``gather_model``, whose backward keeps
+  this rank's rows).  A weight a replicated computation uses whole is
+  gathered with ``gather`` (the backward keeps this rank's block, as every
+  model rank computes the same gradient).  The mamba block still runs
+  whole on every model rank.
 
 A group of one rank does nothing: at world size 1 every helper returns
 its input, so the mesh path is bit for bit the path without rules.
@@ -176,6 +193,15 @@ class ShardingRules:
                 size = x.shape[d] // n
                 x = x.narrow(d, idx * size, size)
         return x
+
+    def local_shape(self, logical, shape,
+                    keep: Tuple[str, ...] = ()) -> Tuple[int, ...]:
+        """The shape of this rank's block (``local_shard``'s)."""
+        out = []
+        for n, r in zip(shape, self.spec(logical, shape)):
+            axes = tuple(a for a in _axes(r) if not keep or a in keep)
+            out.append(n // self.axis_size(axes))
+        return tuple(out)
 
     def rows(self, n_rows: int, accum: int = 1) -> torch.Tensor:
         """This rank's rows of a global batch of ``n_rows``: a block of
@@ -366,7 +392,8 @@ def shard_params(tree: Any, defs: Any, rules: ShardingRules) -> Any:
 class _Gather(torch.autograd.Function):
     """All-gathers the split dims of a weight.  Backward: this rank's
     block of the gradient, reduce-scattered over ``sum_axes`` (the batch
-    axes the weight is split on; summed) and cut over the others."""
+    axes the weight is split on, or ``model`` for ``model_whole``; summed)
+    and cut over the others."""
 
     @staticmethod
     def forward(ctx, x, rules, dims, sum_axes):
@@ -410,6 +437,110 @@ def gather(x: torch.Tensor, d: P.ParamDef,
     split = {a for _, axes in dims for a in axes}
     sum_axes = tuple(a for a in _split_axes() if a in split)
     return _Gather.apply(x, r, tuple(dims), sum_axes)
+
+
+def model_ranks() -> int:
+    """Ranks of the current rules' ``model`` axis: 1 without rules, without
+    a ``model`` axis, or at world size 1 (then nothing is split)."""
+    r = current_rules()
+    if r is None or not sharded():
+        return 1
+    return r.mesh.shape.get("model", 1)
+
+
+def model_block(n: int) -> Tuple[int, int]:
+    """(first, count) of this rank's block of a dim of ``n`` split over
+    ``model``."""
+    m = model_ranks()
+    size = n // m
+    return (current_rules().mesh.coord("model") * size if m > 1 else 0), size
+
+
+class _EnterModel(torch.autograd.Function):
+    """Identity; the backward sums the cotangent over ``model``: the input
+    of a region split over ``model`` gets a part of its gradient from each
+    rank's block, as ``shard_map``'s transpose sums the cotangent of an
+    input its spec replicates."""
+
+    @staticmethod
+    def forward(ctx, x, rules):
+        ctx.rules = rules
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.rules.all_reduce(g.clone(), ("model",)), None
+
+
+class _LeaveModel(torch.autograd.Function):
+    """All-reduce (sum) over ``model``; the backward passes each rank's
+    cotangent unchanged (what follows is replicated over ``model``, so
+    every rank holds the same cotangent), as ``lax.psum``'s transpose
+    inside ``shard_map`` does."""
+
+    @staticmethod
+    def forward(ctx, y, rules):
+        return rules.all_reduce(y.clone(), ("model",))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherModel(torch.autograd.Function):
+    """All-gathers ``dim`` over ``model``; the backward keeps this rank's
+    block of the (replicated) cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, rules, dim):
+        ctx.rules, ctx.dim, ctx.size = rules, dim, x.shape[dim]
+        return rules.all_gather(x, dim, ("model",))
+
+    @staticmethod
+    def backward(ctx, g):
+        i = ctx.rules.mesh.coord("model")
+        return g.narrow(ctx.dim, i * ctx.size, ctx.size).contiguous(), \
+            None, None
+
+
+def enter_model(x: torch.Tensor) -> torch.Tensor:
+    """The start of a region split over ``model`` (see the module doc)."""
+    if model_ranks() == 1:
+        return x
+    return _EnterModel.apply(x, current_rules())
+
+
+def leave_model(x: torch.Tensor) -> torch.Tensor:
+    """The end of a region split over ``model``: the ranks' partial sums
+    added."""
+    if model_ranks() == 1:
+        return x
+    return _LeaveModel.apply(x, current_rules())
+
+
+def gather_model(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The ranks' blocks of ``dim`` concatenated over ``model``."""
+    if model_ranks() == 1:
+        return x
+    return _GatherModel.apply(x, current_rules(), dim % x.dim())
+
+
+def model_whole(x: torch.Tensor, d: P.ParamDef) -> torch.Tensor:
+    """The whole weight of def ``d`` over ``model`` from this rank's block
+    ``x`` (its other axes gathered already), for a region split over
+    ``model`` that uses it whole: the gradient is SUMMED over ``model``
+    (reduce-scattered where the weight is split, all-reduced where it is
+    replicated), since each rank's part of the work gives part of it."""
+    r = current_rules()
+    if model_ranks() == 1:
+        return x
+    for i, ax in enumerate(r.spec(d.logical, d.shape)):
+        if "model" in _axes(ax):
+            assert _axes(ax) == ("model",), (d, ax)
+            if x.shape[i] == d.shape[i]:
+                break
+            return _Gather.apply(x, r, ((i, ("model",)),), ("model",))
+    return _EnterModel.apply(x, r)
 
 
 def gather_params(tree: Any, defs: Any, keep: Tuple[str, ...] = ()) -> Any:

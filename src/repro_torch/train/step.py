@@ -24,8 +24,15 @@ takes the GLOBAL batch, as the JAX step does: each rank runs its rows
 each rank by the global count of valid tokens, the gradients of its
 blocks are summed over the batch axes (the gathers' backward and
 ``sync_grads``), the global norm adds every block once, and AdamW steps
-each rank's blocks.  At world size 1 this is the step without rules, bit
-for bit.
+each rank's blocks.  With ``model`` split over ranks, a weight split over
+``model`` gets this rank's block of the gradient from its own block of
+the compute (summed over nothing in ``model``); a weight the query-row
+attention uses whole is summed over ``model`` by its gather's backward
+(``sharding.model_whole``); a weight replicated over ``model`` (norms, a
+router, ``b_down``) gets the same gradient on every model rank, since the
+split regions' ``enter_model`` / ``leave_model`` keep the residual stream
+and its gradient replicated.  At world size 1 this is the step without
+rules, bit for bit.
 """
 from __future__ import annotations
 

@@ -9,6 +9,8 @@ PyTorch:
 Tolerances are those of tests/test_kernels.py: 2e-2 in bf16, 3e-5 in f32
 (the SSD scan: 3e-2 in bf16, 3e-4 in f32).
 """
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -645,6 +647,40 @@ def test_ce_kernel_matches_plain(cuda, T, D, V, dtype):
     torch.testing.assert_close(lse, rlse, **tol)
 
 
+@pytest.mark.parametrize("T,D,V", [(300, 128, 4000), (129, 64, 64000),
+                                   (37, 48, 1000)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ce_kernel_on_vocab_shards_merges_to_the_whole(cuda, T, D, V, dtype):
+    """The CE kernel on 4 vocab shards (targets shifted by each shard's
+    first id: a target in another shard adds nothing), the shards'
+    (m, l, target logit) triples merged by ``ce_merge_kernel``, against
+    the whole-vocab kernel and the plain version; targets on the shard
+    boundaries included."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    h = torch.randn((T, D), generator=g, device=cuda).to(dtype)
+    w = (torch.randn((V, D), generator=g, device=cuda) * D ** -0.5).to(dtype)
+    t = torch.randint(0, V, (T,), generator=g, device=cuda)
+    vs = V // 4
+    t[:4] = torch.tensor([0, vs - 1, vs, V - 1])
+    n, m = kce.launches, kce.merge_launches
+    parts = torch.stack([kce.cross_entropy_stats_cuda(
+        h, w[i * vs:(i + 1) * vs].contiguous(), t - i * vs)
+        for i in range(4)])
+    nll, lse = kce.ce_merge_cuda(parts)
+    torch.cuda.synchronize()
+    assert (kce.launches, kce.merge_launches) == (n + 4, m + 1)
+    assert int((parts[:, :, 2] != 0).sum(0).max()) == 1
+    tol = dict(rtol=3e-5, atol=3e-5) if dtype == torch.float32 else _tol(
+        dtype)
+    for want in (kce.cross_entropy_cuda(h, w, t),
+                 ref.cross_entropy_stats_ref(h, w, t, block_v=8192)):
+        torch.testing.assert_close(nll, want[0], **tol)
+        torch.testing.assert_close(lse, want[1], **tol)
+    plain = torch.stack([ref.cross_entropy_partial_ref(
+        h, w[i * vs:(i + 1) * vs], t - i * vs) for i in range(4)])
+    torch.testing.assert_close(parts, plain, **tol)
+
+
 def test_tensor_core_kernels_are_deterministic(cuda):
     """No atomics: two calls of the bf16 flash backward (G = 8, dk and dv
     summed over a cluster), of the bf16 CE forward, of the bf16 flash
@@ -1257,3 +1293,129 @@ def test_torchrun_two_ranks_train(two_cards, arch, model, carousel):
     r = _torchrun("repro_torch.launch.train", *args)
     assert r.returncode == 0, r.stderr[-3000:]
     assert "'final_step': 2" in r.stdout, r.stdout
+
+
+# ---------------------------------------------------------------------------
+# Four ranks (torchrun): the dense compute split over "model"
+# ---------------------------------------------------------------------------
+
+
+def _split_worker(arch: str, shape: str, device: str = "cuda") -> None:
+    """One rank of ``test_torchrun_four_ranks_split``: smoke ``arch`` at
+    mesh ``shape`` ("1x4" or "2x2") with its weights in f32, its prefill,
+    three decode steps fed fixed tokens and the first batch's gradients
+    (CE products in f32) through the kernels under the split, against the
+    same path at one rank on rank 0: logits and gradient leaves relative
+    L2 1e-3, loss 1e-5 (sums in another order; in bf16 a smoke model's
+    leaves move more than 5e-2 with the rounding alone, and MoE routing
+    flips).  NCCL with a card a rank; gloo, every rank on one card, below
+    4 cards."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh
+    from repro_torch.sharding import (ShardingRules, batch_split,
+                                      gather_params, use_rules)
+    n = 4
+    mesh.init_distributed(None if device == "cuda"
+                          and torch.cuda.device_count() >= n else "gloo")
+    dev = mesh.local_device(device)
+    data, model = (int(x) for x in shape.split("x"))
+    cfg = get_smoke_config(arch)
+    B, S, ML = 4, 24, 32
+    g = torch.Generator(device=dev).manual_seed(3)
+    prompt = registry.synth_inputs(g, cfg, ShapeConfig("s", S, B, "prefill"),
+                                   device=dev)
+    feed = torch.randint(0, cfg.vocab_size, (B, 3), generator=g, device=dev)
+    batch = registry.synth_inputs(
+        torch.Generator(device=dev).manual_seed(4), cfg,
+        ShapeConfig("t", S, B, "train"), "train", device=dev)
+    run = train.default_run_config(cfg, 3).replace(ce_dtype="float32")
+
+    def path(rules):
+        rows = rules.rows(B) if rules.mesh.shape["data"] > 1 else \
+            torch.arange(B)
+        axes = rules.batch_axes(B) if rules.mesh.shape["data"] > 1 else ()
+        rows = rows.to(dev)
+        with use_rules(rules):
+            params = P.cast_tree(serve.init_params(cfg, 1, dev),
+                                 torch.float32)
+            with torch.inference_mode(), batch_split(len(rows), axes):
+                cache = engine.init_cache(cfg, len(rows), ML, dev)
+                lg, cache = registry.prefill(
+                    params, cfg, RunConfig(),
+                    {k: v[rows] for k, v in prompt.items()}, cache)
+                outs = [lg]
+                for i in range(3):
+                    lg, cache = registry.decode(params, cfg, RunConfig(),
+                                                feed[rows, i:i + 1], cache,
+                                                S + i)
+                    outs.append(lg)
+                logits = rules.all_gather(torch.cat(outs, 1).float(), 0,
+                                          axes)
+            grads, m = tstep.grads_and_metrics(params, cfg, run, batch)
+            with torch.no_grad():
+                grads = gather_params(grads, registry.param_defs(cfg))
+        return logits, float(m["loss"]), grads
+
+    split = path(ShardingRules(mesh.make_host_mesh(model, dev.type)))
+    if dist.get_rank() == 0:
+        from repro_torch.launch.mesh import Mesh
+        one = path(ShardingRules(Mesh((1, 1), ("data", "model"))))
+        rel = lambda a, b: float((a.float() - b.float()).norm()
+                                 / b.float().norm().clamp(min=1e-30))
+        print("SPLIT", arch, shape, "logits", rel(split[0], one[0]),
+              "loss", split[1], one[1], "leaves", {
+                  k: rel(a, one_g) for (k, a), one_g in zip(
+                      sorted(_flat(split[2]).items()),
+                      (v for _, v in sorted(_flat(one[2]).items())))},
+              flush=True)
+        assert rel(split[0], one[0]) <= 1e-3, rel(split[0], one[0])
+        assert abs(split[1] - one[1]) <= 1e-5 * abs(one[1])
+        for (k, a), (_, b) in zip(sorted(_flat(split[2]).items()),
+                                  sorted(_flat(one[2]).items())):
+            if k.endswith("/bk") and cfg.rope_theta <= 0:
+                # unrotated keys: the softmax drops q . bk, so the gradient
+                # is zero but for rounding
+                assert max(float(a.abs().max()), float(b.abs().max())) \
+                    <= 1e-6, k
+                continue
+            assert rel(a, b) <= 1e-3, (k, rel(a, b))
+        print("SPLIT OK", arch, shape, rel(split[0], one[0]), flush=True)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _flat(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat(v, f"{prefix}/{k}"))
+        return out
+    return {prefix: tree}
+
+
+@pytest.mark.parametrize("arch,shape", [
+    ("yi-6b", "1x4"), ("yi-6b", "2x2"), ("qwen1.5-4b", "1x4"),
+    ("mixtral-8x7b", "1x4"), ("whisper-tiny", "1x4")])
+def test_torchrun_four_ranks_split(two_cards, arch, shape):
+    """Four ranks at (1, 4) or (2, 2), the dense compute split over
+    "model" (qwen1.5-4b's 3 heads: the query rows), held against one rank
+    by ``_split_worker``."""
+    import os
+    import subprocess
+    import sys
+    here = os.path.abspath(__file__)
+    src = os.path.join(os.path.dirname(os.path.dirname(here)), "src")
+    env = dict(os.environ, PYTHONPATH=src + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    r = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "4", here, "split", arch, shape],
+        capture_output=True, text=True, timeout=900, env=env)
+    errors = [ln for ln in r.stderr.splitlines() if "Error" in ln]
+    assert r.returncode == 0, (r.stdout[-3000:], errors[-10:])
+    assert f"SPLIT OK {arch} {shape}" in r.stdout, r.stdout
+
+
+if __name__ == "__main__" and sys.argv[1:2] == ["split"]:
+    _split_worker(*sys.argv[2:])
