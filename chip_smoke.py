@@ -50,7 +50,16 @@ Phases, each of which fails the run (non-zero exit, no final result line):
    ``ssd_bwd_ref`` on the same cases with an initial state and a
    final-state cotangent, the f32 rows against it evaluated in f64; both
    models' training shapes timed, with each launch's device time and the
-   scratch a call allocates).
+   scratch a call allocates); both at SSD_LOCAL too, a rank's block under
+   a "model" split (16 / 6 heads; the head dim split to 16, and to 4,
+   which the wrapper pads to 8), timed in bf16; and the split-row RMSNorm
+   (phase "rmsnorm_split": the mamba block's gated norm over a row whose
+   columns lie on 4 ranks, a rank's (8192, 1024) and (8192, 384): the
+   statistic launch and the rows launch each way, the statistics summed
+   over the shards, against the plain twins and the whole-row kernels on
+   the gathered row, bf16 and f32; each bf16 launch timed beside its
+   bound; no PyTorch call normalises a partial row, so ``F.rms_norm`` on
+   the whole row is logged as context).
    The library yardstick of a backward is the library forward plus
    backward less the forward;
 4. serving: ``run_serving(arch, smoke=False, prompt_len=P, gen=32,
@@ -163,23 +172,29 @@ Phases, each of which fails the run (non-zero exit, no final result line):
    logits and one ``grads_and_metrics`` through the kernels against the
    plain versions (the plain path routed by the kernel path's choices),
    relative L2 5e-2, loss 1e-2;
-15. tensor_parallel: the dense compute split over "model" on the one
-   card: (a) TP_RANKS spawned ranks, all on cuda:0 over gloo (NCCL
-   refuses two ranks on one device), rules at (1, TP_RANKS), run yi-6b at
-   full width and TP_LAYERS layers: a prefill of TP_BATCH x PROMPT,
-   TP_DECODE decode steps fed the world-size-1 run's tokens over a cache
-   split over its positions (flash-decoding across the ranks), the first
-   batch's gradients and TP_STEPS train steps; held against the same
+15. tensor_parallel: the compute split over "model" on the one card: (a)
+   TP_RANKS spawned ranks, all on cuda:0 over gloo (NCCL refuses two ranks on
+   one device), rules at (1, TP_RANKS), run TP_MODELS at full width: yi-6b at
+   TP_LAYERS layers, zamba2-1.2b at 6 (its mamba blocks split by SSM heads,
+   one application of its shared block) and mamba2-130m at full depth (in f32:
+   see TP_MODELS): a prefill of TP_BATCH x PROMPT, TP_DECODE decode steps fed
+   the world-size-1 run's tokens over a cache of the rank's block (KV
+   positions, flash-decoding across the ranks; the mamba states' heads), the
+   first batch's gradients and the model's train steps; held against the same
    path at world size 1 in this process (logits and each gradient leaf
-   relative L2 5e-2, losses 1e-2); each rank's launches equal the
-   formulas, and its calls see 8 of 32 query heads, 1 of 4 kv heads,
-   2752 of 11008 ``ffn`` columns and 16000 of 64000 vocab rows (each
-   rank's CE merges the ranks' statistics with ``ce_merge_kernel``).
-   (b) The CE kernel on TP_RANKS vocab shards of yi-6b's and qwen3-moe's
-   heads (T 2048, D 4096, V 64000 and 151936), bf16 and f32, merged,
-   against the whole-vocab kernel and the plain version (2e-2 / 3e-5);
-   a bf16 shard call and the merge timed, beside the shard's bound and
-   ``matmul`` + ``logsumexp`` on the same shard.
+   relative L2 5e-2, losses 1e-2); each rank's launches equal the formulas
+   (the gated norms on the split-row kernels), and its calls see its query and
+   kv heads, ``ffn`` columns and vocab rows (yi-6b: 8 of 32, 1 of 4, 2752 of
+   11008, 16000 of 64000), its SSD heads (16 of 64, 6 of 24) and its gated
+   norm's columns (1024 of 4096, 384 of 1536); each rank's CE merges the
+   ranks' statistics with ``ce_merge_kernel``. Then MoE decode split:
+   mixtral's smoke config in f32, each rank running its one of 4 experts at S
+   = 1, against one rank (relative L2 TP_MOE_TOL). (b) The CE kernel on
+   TP_RANKS vocab shards of yi-6b's and qwen3-moe's heads (T 2048, D 4096, V
+   64000 and 151936), bf16 and f32, merged, against the whole-vocab kernel and
+   the plain version (2e-2 / 3e-5); a bf16 shard call and the merge timed,
+   beside their bounds, ``matmul`` + ``logsumexp`` on the same shard and
+   ``ce_merge_ref``.
 
 Phases 9-11 and 14's two yi-6b mesh runs drive the entry point; each of their runs has its launch
 counters reset just before it and read just after.  Every kernel's bound
@@ -193,7 +208,10 @@ serving runs, the seven training runs of phases 7 and 8, the runs of
 phases 9-11, phase 14's two yi-6b runs and phase 15's rank 0 (each of its
 halves counted from 0 in that rank's process); ``ssd_scan``'s row is the
 zamba2-1.2b prefill shape, ``ssd_scan_bwd``'s zamba2-1.2b's training
-shape.  Weights are random,
+shape; ``rmsnorm_split`` and ``rmsnorm_split_bwd`` (the split-row
+kernels, a rank's (8192, 1024): both launches a call, timed together)
+and ``ce_merge`` (yi-6b's 4 vocab shards) are launched on phase 15's
+path only.  Weights are random,
 made on the card from a seed; data is synthetic, from a seed; nothing is
 downloaded.
 """
@@ -217,7 +235,7 @@ import torch.nn.functional as F  # noqa: E402
 from torch.utils.cpp_extension import CUDA_HOME  # noqa: E402
 
 from repro_torch.configs.base import (RunConfig, ShapeConfig,  # noqa: E402
-                                      get_config)
+                                      get_config, get_smoke_config)
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import cross_entropy as kce  # noqa: E402
 from repro_torch.kernels import flash_attention as kflash  # noqa: E402
@@ -285,6 +303,23 @@ MESH_MOE = [("mixtral-8x7b", "mixtral", 12, 3, 2, 1024),
 # CE kernel on TP_RANKS vocab shards of yi-6b's and qwen3-moe's heads
 TP_RANKS, TP_LAYERS, TP_BATCH, TP_DECODE, TP_STEPS = 4, 4, 4, 8, 2
 TP_CE_VOCABS = (64000, 151936)
+# the models phase tensor_parallel splits: arch, layers (None: full
+# depth), train steps, weights' dtype; zamba2-1.2b at 6 layers (one
+# application of the shared block), mamba2-130m at full depth, both by
+# SSM heads (16 / 6 a rank).  mamba2 runs in f32 (weights, activations,
+# CE): at its 24 layers bf16 rounding alone moves the random model's
+# logits by 0.035-0.048 relative L2 at one rank (PERF.md §6, PR 24's
+# end_to_end_mamba2), and the split's partial sums, rounded to bf16
+# before they are added, took its logits to 0.045-0.051 and every
+# gradient leaf to ~0.09 of the one-rank run: the rounding, not the
+# split, would be what a 5e-2 limit measured
+TP_MODELS = [(ARCH, TP_LAYERS, TP_STEPS, torch.bfloat16),
+             ("zamba2-1.2b", 6, 3, torch.bfloat16),
+             ("mamba2-130m", None, 3, torch.float32)]
+# MoE decode split over the ranks: mixtral-8x7b's smoke config in f32 (4
+# experts: one a rank), a prompt of TP_MOE_PROMPT, TP_DECODE steps
+TP_MOE_ARCH, TP_MOE_PROMPT = "mixtral-8x7b", 64
+TP_MOE_TOL = 1e-3
 HALF_STEPS = 3  # warm steps whose two halves are timed alone
 E2E_TRAIN_LAYERS = 2
 # SSM / hybrid training at full width and depth, 4 x 2048 tokens a step;
@@ -391,9 +426,20 @@ RMS_BWD_BF16_ONLY = [(BATCH * (LLAVA_PATCHES + LLAVA_PROMPT), 4096)]
 # training shapes, 4 x 2048)
 SSD_ZAMBA2 = (BATCH, SSM_PROMPT, 64, 64, 1, 64, 128)
 SSD_MAMBA2 = (BATCH, SSM_PROMPT, 24, 64, 1, 128, 128)
+# a rank's block under a "model" split of 4: zamba2's 16 of 64 heads and
+# mamba2's 6 of 24; the SSD head dim split instead (P 16 of 64, every
+# head; and mamba2 at 16 ranks: P 4, which the wrapper pads to 8)
+SSD_LOCAL = [(BATCH, SSM_PROMPT, 16, 64, 1, 64, 128),
+             (BATCH, SSM_PROMPT, 6, 64, 1, 128, 128),
+             (BATCH, SSM_PROMPT, 24, 16, 1, 128, 128),
+             (BATCH, SSM_PROMPT, 24, 4, 1, 128, 128)]
 SSD_CASES = [(2, 96, 4, 16, 1, 32, 32), (1, 130, 6, 32, 2, 16, 64),
              (2, 64, 2, 64, 1, 128, 32), (2, 50, 4, 64, 1, 64, 128),
-             SSD_ZAMBA2, SSD_MAMBA2]
+             SSD_ZAMBA2, SSD_MAMBA2] + SSD_LOCAL
+# the gated norm's rows split over 4 ranks: a rank's (rows, columns) at
+# zamba2's (4096 / 4) and mamba2's (1536 / 4) din, 4 x 2048 tokens
+RMS_SPLIT = [(BATCH * SSM_PROMPT, 1024), (BATCH * SSM_PROMPT, 384)]
+RMS_SPLIT_RANKS = 4
 # T, D, V: the yi-6b loss head (4 x 512 tokens), the mamba2-130m (tied
 # embeddings) and zamba2-1.2b loss heads (4 x 2048), then small ragged cases
 CE_MAIN = (TRAIN_BATCH * TRAIN_SEQ, 4096, 64000)
@@ -695,6 +741,151 @@ def phase_rmsnorm_bwd(gen: torch.Generator, failures: list) -> dict:
     return dict(main, max_abs_err=worst)
 
 
+def _split_rms(x, w, g, n: int, eps: float, kernel: bool,
+               compute_dtype=torch.float32):
+    """A row split into ``n`` column shards, as ``n`` ranks hold it: the
+    split-row forward and backward of each shard, the statistics summed
+    over the shards in order (the all-reduce of one process).  Returns
+    (y, inv, dx, dw) with the shards' columns concatenated."""
+    D = x.shape[-1] // n
+    xs, ws, gs = ([t[..., i * D:(i + 1) * D].contiguous() for i in range(n)]
+                  for t in (x, w, g))
+    if kernel:
+        stat = sum(krms.rmsnorm_stat_cuda(a, b) for a, b in zip(xs, ws))
+        fwd = [krms.rmsnorm_split_cuda(a, b, stat, n * D, eps)
+               for a, b in zip(xs, ws)]
+        bstat = sum(krms.rmsnorm_bwd_stat_cuda(a, b, f[1], c)
+                    for a, b, c, f in zip(xs, ws, gs, fwd))
+        bwd = [krms.rmsnorm_split_bwd_cuda(a, b, f[1], c, bstat, n * D)
+               for a, b, c, f in zip(xs, ws, gs, fwd)]
+    else:
+        stat = sum(ref.rmsnorm_stat_ref(a) for a in xs)
+        fwd = [ref.rmsnorm_split_fwd_ref(a, b, stat, n * D, eps)
+               for a, b in zip(xs, ws)]
+        kw = dict(compute_dtype=compute_dtype)
+        bstat = sum(ref.rmsnorm_bwd_stat_ref(a, b, f[1], c, **kw)
+                    for a, b, c, f in zip(xs, ws, gs, fwd))
+        bwd = [ref.rmsnorm_split_bwd_ref(a, b, f[1], c, bstat, n * D, **kw)
+               for a, b, c, f in zip(xs, ws, gs, fwd)]
+    return (torch.cat([f[0] for f in fwd], -1), fwd[0][1],
+            torch.cat([b[0] for b in bwd], -1),
+            torch.cat([b[1] for b in bwd], -1))
+
+
+def phase_rmsnorm_split(gen: torch.Generator, failures: list) -> tuple:
+    """The split-row RMSNorm (the mamba block's gated norm over a row
+    whose din columns lie on RMS_SPLIT_RANKS ranks) at a rank's RMS_SPLIT
+    shapes: each shard's two forward launches (the partial sum of squares,
+    then the columns normalised by the summed statistic) and two backward
+    launches (the partial sum of g w xhat, then dx and the shard's dw),
+    the statistics summed over the shards in this process, against the
+    plain twins on the same shards (the f32 backward's in f64, as phase
+    rmsnorm_bwd) and against the whole-row kernels on the gathered row;
+    bf16 2e-2, f32 3e-5.  Each bf16 launch timed cold on one shard beside
+    its bound and the plain twin's time; no PyTorch call computes a
+    partial row, so the library yardstick is ``F.rms_norm`` (forward, and
+    forward plus backward less forward) on the whole row, logged as
+    context.  Returns the forward's and the backward's rows."""
+    rows = {"fwd": None, "bwd": None}
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    eps, n = 1e-5, RMS_SPLIT_RANKS
+    for shape in RMS_SPLIT:
+        for dtype in (torch.bfloat16, torch.float32):
+            T, D = shape
+            x, g = (torch.randn((T, n * D), generator=gen,
+                                device="cuda").to(dtype) for _ in range(2))
+            w = torch.randn((n * D,), generator=gen, device="cuda").to(dtype)
+            got = _split_rms(x, w, g, n, eps, True)
+            plain = _split_rms(x, w, g, n, eps, False,
+                               torch.float64 if dtype == torch.float32
+                               else torch.float32)
+            y_w, inv_w = krms.rmsnorm_cuda(x, w, eps, return_inv=True)
+            whole = (y_w, inv_w) + krms.rmsnorm_bwd_cuda(x, w, inv_w, g)
+            torch.cuda.synchronize()
+            for half, idx in (("fwd", (0, 1)), ("bwd", (2, 3))):
+                ok, err, err_whole = True, 0.0, 0.0
+                for i in idx:
+                    tol = TOL[dtype if got[i].dtype == dtype
+                              else torch.float32]
+                    ok_i, err_i = _close(got[i], plain[i], tol)
+                    ok_w, err_w = _close(got[i], whole[i], tol)
+                    ok, err = ok and ok_i and ok_w, max(err, err_i)
+                    err_whole = max(err_whole, err_w)
+                worst[half] = max(worst[half], err)
+                row = {"half": half, "shard": [T, D], "whole_row": n * D,
+                       "shards": n, "dtype": str(dtype)[6:],
+                       "max_abs_err": err, "max_abs_err_whole_kernel":
+                       err_whole, "ok": ok}
+                if dtype == torch.bfloat16:
+                    _time_split_rms(row, half, x[:, :D].contiguous(),
+                                    w[:D].contiguous(), g[:, :D].contiguous(),
+                                    x, w, g, n * D, eps)
+                log("rmsnorm_split", json.dumps(row))
+                if not ok:
+                    failures.append(f"rmsnorm_split {half} {shape} {dtype}: "
+                                    f"max err {err} (plain), {err_whole} "
+                                    f"(whole-row kernel)")
+                if shape == RMS_SPLIT[0] and dtype == torch.bfloat16:
+                    rows[half] = row
+            del x, g, w, got, plain, whole
+    return tuple(dict(rows[h], max_abs_err=worst[h]) for h in ("fwd", "bwd"))
+
+
+def _time_split_rms(row: dict, half: str, x, w, g, xw, ww, gw,
+                    d_whole: int, eps: float) -> None:
+    """Times one shard's launches of ``half`` (cold, as phase rmsnorm):
+    the statistic's (``stat_ms``), the rows' (``rows_ms``) and both
+    (``ms``), the plain twin's two steps (``plain_ms``), each launch's
+    bound and their sum (``bound_ms``), and ``F.rms_norm`` on the whole
+    row (``whole_row_library_ms``)."""
+    stat = krms.rmsnorm_stat_cuda(x, w)
+    _, inv = krms.rmsnorm_split_cuda(x, w, stat, d_whole, eps)
+    bstat = krms.rmsnorm_bwd_stat_cuda(x, w, inv, g)
+    if half == "fwd":
+        fns = {"stat_ms": lambda x, w, g, inv: krms.rmsnorm_stat_cuda(x, w),
+               "rows_ms": lambda x, w, g, inv: krms.rmsnorm_split_cuda(
+                   x, w, stat, d_whole, eps),
+               "ms": lambda x, w, g, inv: krms.rmsnorm_split_cuda(
+                   x, w, krms.rmsnorm_stat_cuda(x, w), d_whole, eps),
+               "plain_ms": lambda x, w, g, inv: ref.rmsnorm_split_fwd_ref(
+                   x, w, ref.rmsnorm_stat_ref(x), d_whole, eps)}
+        works = (krms.stat_work(x), krms.work(x, w, inv=True))
+    else:
+        fns = {"stat_ms": lambda x, w, g, inv: krms.rmsnorm_bwd_stat_cuda(
+                   x, w, inv, g),
+               "rows_ms": lambda x, w, g, inv: krms.rmsnorm_split_bwd_cuda(
+                   x, w, inv, g, bstat, d_whole),
+               "ms": lambda x, w, g, inv: krms.rmsnorm_split_bwd_cuda(
+                   x, w, inv, g, krms.rmsnorm_bwd_stat_cuda(x, w, inv, g),
+                   d_whole),
+               "plain_ms": lambda x, w, g, inv: ref.rmsnorm_split_bwd_ref(
+                   x, w, inv, g, ref.rmsnorm_bwd_stat_ref(x, w, inv, g),
+                   d_whole)}
+        works = (krms.stat_work(x, g=True), krms.bwd_work(x, w))
+    n_bytes = sum(b for _, b in works)
+    sets = [(x, w, g, inv)] + [tuple(t.clone() for t in (x, w, g, inv))
+                               for _ in range(cold_sets(n_bytes) - 1)]
+    _time_row(row, fns, sets)
+    bounds = [_bound(b, f, x.dtype) for f, b in works]
+    row["stat_bound_ms"], row["rows_bound_ms"] = (b[0] for b in bounds)
+    row["bound_ms"] = sum(b[0] for b in bounds)
+    row["bound_by"] = "bytes" if all(b[1] == "bytes" for b in bounds) \
+        else "operations"
+    row["library_ms"] = None  # no PyTorch call normalises a partial row
+    D = xw.shape[-1]
+    whole = {}
+    if half == "fwd":
+        _time_row(whole, {"lib": lambda x, w: F.rms_norm(x, (D,), w, eps)},
+                  [(xw, ww)])
+        row["whole_row_library_ms"] = whole["lib"]
+    else:
+        _grad_ms(whole, "lib", lambda x, w: F.rms_norm(x, (D,), w, eps),
+                 lambda x, w: (x, w), gw,
+                 [(xw.clone().requires_grad_(), ww.clone().requires_grad_())])
+        row["whole_row_library_ms"] = whole["lib"]
+    del sets
+
+
 def phase_flash_bwd(gen: torch.Generator, failures: list) -> dict:
     """The forward's ``lse`` against the plain forward's, and the backward
     kernels (dq, dk, dv) against the plain backward on the same out, lse
@@ -888,7 +1079,7 @@ def phase_ssd(gen: torch.Generator, failures: list) -> dict:
                    "max_abs_err": err, "ok": ok}
             del got, want
             flops, n_bytes = kssd.work(x, Bm, chunk=chunk)
-            model = case in (SSD_ZAMBA2, SSD_MAMBA2)
+            model = case in [SSD_ZAMBA2, SSD_MAMBA2] + SSD_LOCAL
             if model and dtype == torch.bfloat16:
                 inputs = (x, dt, A, Bm, Cm)
                 sets = [inputs] + [tuple(t.clone() for t in inputs)
@@ -1022,7 +1213,8 @@ def phase_ssd_bwd(gen: torch.Generator, failures: list) -> dict:
                 del plain
             del got, want
             flops, n_bytes = kssd.bwd_work(x, Bm, chunk=chunk)
-            if case in (SSD_ZAMBA2, SSD_MAMBA2) and dtype == torch.bfloat16:
+            if case in [SSD_ZAMBA2, SSD_MAMBA2] + SSD_LOCAL \
+                    and dtype == torch.bfloat16:
                 inputs = (x, dt, A, Bm, Cm, dy)
                 sets = [inputs] + [tuple(t.clone() for t in inputs)
                                    for _ in range(cold_sets(n_bytes) - 1)]
@@ -1071,7 +1263,8 @@ def serving_launches(cfg, gen: int) -> dict:
     if cfg.family == "encdec":
         Le = cfg.encoder_layers
         return {"rmsnorm": 2 * Le + 1 + (3 * L + 1) * gen,
-                "flash_attention": Le + 2 * L, "ssd_scan": 0}
+                "flash_attention": Le + 2 * L, "ssd_scan": 0,
+                "rmsnorm_split": 0}
     attn = {"dense": L, "moe": L, "vlm": L, "ssm": 0,
             "hybrid": L // max(cfg.attn_every, 1)}[cfg.family]
     ssd = 0 if cfg.family in ("dense", "moe", "vlm") else L
@@ -1079,7 +1272,22 @@ def serving_launches(cfg, gen: int) -> dict:
     # block; the shared block: ln1, ln2 an application; ln_f
     norms = 2 * L + (2 * attn if cfg.family == "hybrid" else 0) + 1
     return {"rmsnorm": norms * gen, "flash_attention": attn,
-            "ssd_scan": ssd}
+            "ssd_scan": ssd, "rmsnorm_split": 0}
+
+
+def split_launches(want: dict, cfg, forwards: int, backwards: int = 0
+                   ) -> dict:
+    """``want`` (a formula above, at one rank) for a rank of a ``model``
+    split where the mamba blocks split: each block's gated norm runs on the
+    split-row kernels, two launches a forward (``forwards`` a block) and
+    two a backward (``backwards``) in place of one each."""
+    L = cfg.num_layers if cfg.family in ("ssm", "hybrid") else 0
+    out = dict(want, rmsnorm=want["rmsnorm"] - L * forwards,
+               rmsnorm_split=2 * L * forwards)
+    if "rmsnorm_bwd" in want:
+        out.update(rmsnorm_bwd=want["rmsnorm_bwd"] - L * backwards,
+                   rmsnorm_split_bwd=2 * L * backwards)
+    return out
 
 
 def _config(arch: str, layers=None):
@@ -1091,10 +1299,12 @@ def phase_serving(failures: list, arch: str = ARCH, prompt: int = PROMPT,
                   label: str = "serving", layers=None,
                   batch: int = BATCH) -> dict:
     krms.launches = kflash.launches = kssd.launches = 0
+    krms.split_launches = 0
     res = serve.run_serving(arch, smoke=False, prompt_len=prompt, gen=GEN,
                             batch=batch, device=DEVICE, num_layers=layers)
     counts = {"rmsnorm": krms.launches, "flash_attention": kflash.launches,
-              "ssd_scan": kssd.launches}
+              "ssd_scan": kssd.launches,
+              "rmsnorm_split": krms.split_launches}
     cfg = _config(arch, layers)
     want = serving_launches(cfg, GEN)
     tok = res.pop("tokens")
@@ -1388,7 +1598,7 @@ def phase_serving_parts(params, cfg, batch: int, prompt: int,
 
 TRAIN_KERNELS = ("rmsnorm", "rmsnorm_bwd", "flash_attention",
                  "flash_attention_bwd", "cross_entropy", "ssd_scan",
-                 "ssd_scan_bwd")
+                 "ssd_scan_bwd", "rmsnorm_split", "rmsnorm_split_bwd")
 
 
 def training_launches(layers: int, steps: int, arch: str = ARCH,
@@ -1412,7 +1622,7 @@ def training_launches(layers: int, steps: int, arch: str = ARCH,
         norms, attn = 2 * cfg.encoder_layers + 3 * L, cfg.encoder_layers \
             + 2 * L
         return {k: n * steps for k, n in zip(TRAIN_KERNELS, (
-            2 * norms + 2, norms + 2, 2 * attn, attn, 1, 0, 0))}
+            2 * norms + 2, norms + 2, 2 * attn, attn, 1, 0, 0, 0, 0))}
     if family in ("moe", "vlm"):
         family = "dense"
     attn = {"dense": L, "ssm": 0,
@@ -1421,13 +1631,15 @@ def training_launches(layers: int, steps: int, arch: str = ARCH,
     remat_attn = attn if family == "dense" else 0  # run again in backward
     norms = 2 * L + (2 * attn if family == "hybrid" else 0) + 1
     return {k: n * steps for k, n in zip(TRAIN_KERNELS, (
-        norms + 2 * L, norms, attn + remat_attn, attn, 1, 2 * ssd, ssd))}
+        norms + 2 * L, norms, attn + remat_attn, attn, 1, 2 * ssd, ssd, 0,
+        0))}
 
 
 def reset_launches() -> None:
     for mod in (krms, kflash, kce, kssd):
         mod.launches = 0
     krms.bwd_launches = kflash.bwd_launches = kssd.bwd_launches = 0
+    krms.split_launches = krms.split_bwd_launches = 0
 
 
 def read_launches() -> dict:
@@ -1435,7 +1647,9 @@ def read_launches() -> dict:
             "flash_attention": kflash.launches,
             "flash_attention_bwd": kflash.bwd_launches,
             "cross_entropy": kce.launches, "ssd_scan": kssd.launches,
-            "ssd_scan_bwd": kssd.bwd_launches}
+            "ssd_scan_bwd": kssd.bwd_launches,
+            "rmsnorm_split": krms.split_launches,
+            "rmsnorm_split_bwd": krms.split_bwd_launches}
 
 
 def _timed_run(failures: list, label: str, layers: int, steps: int,
@@ -2209,16 +2423,21 @@ def _mesh_moe(failures, rules, arch, tag, n_serve, n_train, batch, seq):
 class _LocalSizes:
     """Records, in a rank of phase tensor_parallel, the local sizes its
     split calls see: flash attention's (query rows, query heads, kv heads),
-    the MLP's ``ffn`` columns and the CE's vocab rows."""
+    the MLP's ``ffn`` columns, the CE's vocab rows, the SSD scan's and
+    decode step's (heads, head dim), the split gated norm's (columns,
+    whole row) and, at decode (S = 1), the MoE expert grid's (experts,
+    ffn columns)."""
 
     def __init__(self):
         self.flash, self.mlp, self.ce = set(), set(), set()
+        self.ssd, self.norm, self.experts = set(), set(), set()
 
     def __enter__(self):
         from repro_torch.kernels import ops
         self.saved = (ops.flash_attention, layers.mlp,
-                      kce.cross_entropy_stats_cuda)
-        flash, mlp, ce = self.saved
+                      kce.cross_entropy_stats_cuda, ops.ssd, ops.ssd_decode,
+                      ops.rmsnorm_split, layers._experts_combine)
+        flash, mlp, ce, ssd, ssd_decode, norm, experts = self.saved
 
         def rec_flash(q, k, v, **kw):
             self.flash.add((q.shape[1], q.shape[2], k.shape[2]))
@@ -2231,23 +2450,58 @@ class _LocalSizes:
         def rec_ce(hidden, w, targets):
             self.ce.add(w.shape[0])
             return ce(hidden, w, targets)
+
+        def rec_ssd(x, *a, **kw):
+            self.ssd.add(tuple(x.shape[2:]))
+            return ssd(x, *a, **kw)
+
+        def rec_ssd_decode(x, *a):
+            self.ssd.add(tuple(x.shape[1:]))
+            return ssd_decode(x, *a)
+
+        def rec_norm(x, w, **kw):
+            self.norm.add((x.shape[-1], kw["d_whole"]))
+            return norm(x, w, **kw)
+
+        def rec_experts(p, cfg, x, *a):
+            if x.shape[1] == 1:
+                self.experts.add((a[-2], p["w_gate"].shape[-1]))
+            return experts(p, cfg, x, *a)
         ops.flash_attention, layers.mlp = rec_flash, rec_mlp
         kce.cross_entropy_stats_cuda = rec_ce
+        ops.ssd, ops.ssd_decode = rec_ssd, rec_ssd_decode
+        ops.rmsnorm_split, layers._experts_combine = rec_norm, rec_experts
         return self
 
     def __exit__(self, *exc):
         from repro_torch.kernels import ops
-        ops.flash_attention, layers.mlp, kce.cross_entropy_stats_cuda = \
-            self.saved
+        (ops.flash_attention, layers.mlp, kce.cross_entropy_stats_cuda,
+         ops.ssd, ops.ssd_decode, ops.rmsnorm_split,
+         layers._experts_combine) = self.saved
 
     def as_dict(self) -> dict:
-        return {"flash": sorted(self.flash), "mlp": sorted(self.mlp),
-                "ce": sorted(self.ce)}
+        return {k: sorted(getattr(self, k)) for k in (
+            "flash", "mlp", "ce", "ssd", "norm", "experts")}
 
 
-def _tp_inputs(cfg, dev):
-    """Phase tensor_parallel's prompt (TP_BATCH x PROMPT) and training
-    batches, from seeds, the same in every process."""
+def _tp_want_sizes(cfg) -> dict:
+    """The local sizes a rank of phase tensor_parallel must see (as
+    ``_LocalSizes.as_dict``) for ``cfg`` split over TP_RANKS ranks."""
+    n, ssm = TP_RANKS, cfg.family in ("ssm", "hybrid")
+    attn = cfg.family != "ssm"
+    return {"flash": sorted({(S_, cfg.num_heads // n, cfg.num_kv_heads // n)
+                             for S_ in (PROMPT, TRAIN_SEQ)}) if attn else [],
+            "mlp": [cfg.d_ff // n] if attn else [],
+            "ce": [cfg.vocab_size // n],
+            "ssd": [(cfg.ssm_heads // n, cfg.ssm_head_dim)] if ssm else [],
+            "norm": [(cfg.ssm_inner // n, cfg.ssm_inner)] if ssm else [],
+            "experts": []}
+
+
+def _tp_inputs(cfg, dev, steps: int):
+    """Phase tensor_parallel's prompt (TP_BATCH x PROMPT) and ``steps``
+    training batches (TP_BATCH x TRAIN_SEQ), from seeds, the same in
+    every process."""
     prompt = registry.synth_inputs(
         torch.Generator(device=dev).manual_seed(41), cfg,
         ShapeConfig("serve", PROMPT, TP_BATCH, "prefill"), "prefill",
@@ -2255,39 +2509,54 @@ def _tp_inputs(cfg, dev):
     batches = [registry.synth_inputs(
         torch.Generator(device=dev).manual_seed(50 + i), cfg,
         ShapeConfig("train", TRAIN_SEQ, TP_BATCH, "train"), "train",
-        device=dev) for i in range(TP_STEPS)]
+        device=dev) for i in range(steps)]
     return prompt, batches
 
 
-def _tp_path(cfg, dev, tokens=None) -> dict:
-    """The path phase tensor_parallel runs under the current rules: a
-    prefill, TP_DECODE decode steps (greedy, or fed ``tokens``), the
-    gradients of the first batch, then TP_STEPS train steps from a fresh
-    state.  Launch counters are reset before and read after each half."""
+def _tp_serve(cfg, dev, params, prompt, tokens=None, gen: int = TP_DECODE):
+    """A prefill and ``gen`` decode steps (greedy, or fed ``tokens``) under
+    the current rules; returns (f32 logits, tokens)."""
     run = RunConfig()
-    prompt, batches = _tp_inputs(cfg, dev)
     B, S = prompt["tokens"].shape
-    params = serve.init_params(cfg, 5, dev)
-    reset_launches()
     with torch.inference_mode(), batch_split(B, ()):
-        cache = engine.init_cache(cfg, B, S + TP_DECODE + 8, dev)
+        cache = engine.init_cache(cfg, B, S + gen + 8, dev)
         logits, cache = registry.prefill(params, cfg, run, prompt, cache)
         outs = [logits.float()]
         toks = [logits[:, -1].argmax(-1, keepdim=True)]
-        for i in range(TP_DECODE):
+        for i in range(gen):
             feed = toks[-1] if tokens is None else tokens[:, i:i + 1]
             logits, cache = registry.decode(params, cfg, run, feed, cache,
                                             S + i)
             outs.append(logits.float())
             toks.append(logits[:, -1].argmax(-1, keepdim=True))
+    return torch.cat(outs, 1), torch.cat(toks, 1)
+
+
+def _tp_path(cfg, dev, steps: int, dtype: torch.dtype, tokens=None
+             ) -> dict:
+    """The path phase tensor_parallel runs under the current rules, with
+    weights in ``dtype`` (f32: the CE's products too): a prefill,
+    TP_DECODE decode steps (greedy, or fed ``tokens``), the gradients of
+    the first batch, then ``steps`` train steps from a fresh state.
+    Launch counters are reset before and read after each half."""
+    # the drawn weights are bf16 but for the f32 SSM vectors
+    as_dtype = (lambda t: t) if dtype == torch.bfloat16 else \
+        (lambda t: P.cast_tree(t, dtype))
+    prompt, batches = _tp_inputs(cfg, dev, steps)
+    params = as_dtype(serve.init_params(cfg, 5, dev))
+    reset_launches()
+    logits, toks = _tp_serve(cfg, dev, params, prompt, tokens)
     _sync(dev)
-    res = {"serve_launches": read_launches(), "logits": torch.cat(outs, 1),
-           "tokens": torch.cat(toks, 1)}
-    del params, cache
+    res = {"serve_launches": read_launches(), "logits": logits,
+           "tokens": toks}
+    del params
     trun = train.default_run_config(cfg, TRAIN_STEPS)
+    if dtype == torch.float32:
+        trun = trun.replace(ce_dtype="float32")
     reset_launches()
     state = tstep.init_state(torch.Generator(device=dev).manual_seed(6),
                              cfg, trun)
+    state["params"] = as_dtype(state["params"])
     grads, m0 = tstep.grads_and_metrics(state["params"], cfg, trun,
                                         batches[0])
     fn = tstep.make_train_step(cfg, trun)
@@ -2300,7 +2569,21 @@ def _tp_path(cfg, dev, tokens=None) -> dict:
     return res
 
 
-def _tp_rank(rank: int, port: int, out: str, cfg) -> None:
+def _tp_moe(dev, tokens=None):
+    """MoE decode split over the ranks: TP_MOE_ARCH's smoke config with f32
+    weights, a prompt of TP_BATCH x TP_MOE_PROMPT and TP_DECODE decode
+    steps under the current rules (decode, S = 1, takes the gspmd path);
+    returns (logits, tokens)."""
+    cfg = get_smoke_config(TP_MOE_ARCH)
+    params = P.cast_tree(serve.init_params(cfg, 5, dev), torch.float32)
+    prompt = registry.synth_inputs(
+        torch.Generator(device=dev).manual_seed(43), cfg,
+        ShapeConfig("serve", TP_MOE_PROMPT, TP_BATCH, "prefill"), "prefill",
+        device=dev)
+    return _tp_serve(cfg, dev, params, prompt, tokens)
+
+
+def _tp_rank(rank: int, port: int, out: str) -> None:
     """One of TP_RANKS ranks of phase tensor_parallel: all on cuda:0 over
     gloo (NCCL refuses two ranks on one device), rules at (1, TP_RANKS).
     Writes its results, with its gradient blocks, under ``out``."""
@@ -2311,23 +2594,32 @@ def _tp_rank(rank: int, port: int, out: str, cfg) -> None:
     mesh.init_distributed("gloo")
     dev = mesh.local_device(DEVICE)
     torch.backends.cuda.matmul.allow_tf32 = False
-    tokens = torch.load(Path(out) / "tokens.pt").to(dev)
+    tokens = torch.load(Path(out) / "tokens.pt")
     rules = serve.host_rules(TP_RANKS, dev)
-    t0 = time.perf_counter()
-    kce.merge_launches = 0
+    results = {}
+    for arch, n_layers, steps, dtype in TP_MODELS:
+        cfg = _config(arch, n_layers)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        kce.merge_launches = 0
+        with use_rules(rules), _LocalSizes() as sizes:
+            res = _tp_path(cfg, dev, steps, dtype, tokens[arch].to(dev))
+        res["seconds"] = time.perf_counter() - t0
+        res["merge_launches"] = kce.merge_launches
+        res["sizes"] = sizes.as_dict()
+        res["peak_bytes"] = (torch.cuda.max_memory_allocated(dev)
+                             if dev.type == "cuda" else None)
+        res["grads"] = {k: v.cpu() for k, v in _tree_items(res["grads"])}
+        res["logits"] = res["logits"].cpu() if rank == 0 else None
+        res["tokens"] = None
+        results[arch] = res
     with use_rules(rules), _LocalSizes() as sizes:
-        res = _tp_path(cfg, dev, tokens)
-    res["seconds"] = time.perf_counter() - t0
-    res["merge_launches"] = kce.merge_launches
-    res["sizes"] = sizes.as_dict()
-    res["backend"] = str(dist.get_backend())
-    res["device"] = str(dev)
-    res["peak_bytes"] = (torch.cuda.max_memory_allocated(dev)
-                         if dev.type == "cuda" else None)
-    res["grads"] = {k: v.cpu() for k, v in _tree_items(res["grads"])}
-    res["logits"] = res["logits"].cpu() if rank == 0 else None
-    res["tokens"] = None
-    torch.save(res, Path(out) / f"rank{rank}.pt")
+        logits, _ = _tp_moe(dev, tokens[TP_MOE_ARCH].to(dev))
+    results[TP_MOE_ARCH] = {"logits": logits.cpu(), "sizes": sizes.as_dict()}
+    results["backend"] = str(dist.get_backend())
+    results["device"] = str(dev)
+    torch.save(results, Path(out) / f"rank{rank}.pt")
     dist.barrier()
     dist.destroy_process_group()
 
@@ -2345,24 +2637,30 @@ def _free_port() -> int:
 
 
 def phase_tensor_parallel(failures: list) -> list:
-    """(a) yi-6b at full width and TP_LAYERS layers, split over "model" by
-    TP_RANKS ranks on the one card (spawned processes over gloo, rules at
-    (1, TP_RANKS)): one prefill of TP_BATCH x PROMPT, TP_DECODE decode
-    steps fed the world-size-1 run's tokens over a cache split over its
-    positions, the first batch's gradients and TP_STEPS train steps,
-    against the world-size-1 path run here under one-rank rules: logits
-    relative L2 <= 5e-2, losses within 1e-2, each gathered gradient leaf
-    within relative L2 5e-2; each rank's launches equal the formulas, and
-    its calls see 8 of 32 query heads, 2752 of 11008 ``ffn`` columns and
-    16000 of 64000 vocab rows.  (b) The CE kernel on TP_RANKS vocab shards
-    of yi-6b's and qwen3-moe's heads (T 2048, D 4096, V 64000 / 151936),
-    bf16 and f32, the shards' triples merged by ``ce_merge_kernel``,
-    against the whole-vocab kernel and the plain version; the bf16 shard
-    call timed beside its bound, its plain version and ``matmul`` +
-    ``logsumexp`` on the same shard.  Returns rank 0's launches of (a)."""
+    """(a) TP_MODELS at full width, each split over "model" by TP_RANKS ranks
+    on the one card (spawned processes over gloo, rules at (1, TP_RANKS)):
+    yi-6b at TP_LAYERS layers (heads, ``ffn`` columns, vocab rows), zamba2-1.2b
+    at 6 layers (its mamba blocks by SSM heads, 16 of 64 a rank, its shared
+    block by heads) and mamba2-130m at full depth (6 of 24 SSM heads a rank; in
+    f32, see TP_MODELS): one prefill of TP_BATCH x PROMPT, TP_DECODE decode
+    steps fed the world-size-1 run's tokens over a cache of the rank's block
+    (the KV cache's positions, the mamba states' heads), the first batch's
+    gradients and the model's train steps, against the world-size-1 path run
+    here under one-rank rules: logits relative L2 <= 5e-2, losses within 1e-2,
+    each gathered gradient leaf within relative L2 5e-2; each rank's launches
+    equal the formulas (the gated norm on the split-row kernels), and its calls
+    see its heads, ``ffn`` columns and vocab rows, its SSD heads and its gated
+    norm's columns (1024 of 4096 / 384 of 1536). Then MoE decode split (mixtral
+    smoke, f32: each rank runs its one of 4 experts) against one rank, relative
+    L2 TP_MOE_TOL. (b) The CE kernel on TP_RANKS vocab shards of yi-6b's and
+    qwen3-moe's heads (T 2048, D 4096, V 64000 / 151936), bf16 and f32, the
+    shards' triples merged by ``ce_merge_kernel``, against the whole-vocab
+    kernel and the plain version; the bf16 shard call timed beside its bound,
+    its plain version and ``matmul`` + ``logsumexp`` on the same shard, the
+    merge beside its bound and ``ce_merge_ref``. Returns rank 0's launches of
+    (a), with its merges as "ce_merge", and (b)'s merge row."""
     counts = _tp_split_path(failures)
-    _tp_ce_shards(failures)
-    return counts
+    return counts, _tp_ce_shards(failures)
 
 
 def _tp_split_path(failures: list) -> list:
@@ -2370,16 +2668,22 @@ def _tp_split_path(failures: list) -> list:
     import tempfile
     import torch.multiprocessing as mp
     dev = torch.device(DEVICE)
-    cfg = _config(ARCH, TP_LAYERS)
+    ones, tokens = {}, {}
     t0 = time.perf_counter()
     with use_rules(serve.host_rules(None, dev)):
-        one = _tp_path(cfg, dev)
+        for arch, n_layers, steps, dtype in TP_MODELS:
+            one = _tp_path(_config(arch, n_layers), dev, steps, dtype)
+            one["grads"] = dict(_tree_items(one["grads"]))
+            tokens[arch] = one.pop("tokens").cpu()
+            ones[arch] = one
+        moe_logits, tokens[TP_MOE_ARCH] = _tp_moe(dev)
     t_one = time.perf_counter() - t0
-    one_grads = dict(_tree_items(one.pop("grads")))
+    torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as out:
-        torch.save(one["tokens"].cpu(), Path(out) / "tokens.pt")
+        torch.save({k: v.cpu() for k, v in tokens.items()},
+                   Path(out) / "tokens.pt")
         t0 = time.perf_counter()
-        ctx = mp.start_processes(_tp_rank, args=(_free_port(), out, cfg),
+        ctx = mp.start_processes(_tp_rank, args=(_free_port(), out),
                                  nprocs=TP_RANKS, start_method="spawn",
                                  join=False)
         while not ctx.join():
@@ -2387,9 +2691,43 @@ def _tp_split_path(failures: list) -> list:
         t_ranks = time.perf_counter() - t0
         ranks = [torch.load(Path(out) / f"rank{r}.pt", weights_only=False)
                  for r in range(TP_RANKS)]
+    counts = []
+    for arch, n_layers, steps, dtype in TP_MODELS:
+        cfg = _config(arch, n_layers)
+        counts += _tp_check(failures, cfg, arch, steps, dtype,
+                            ones.pop(arch), [r[arch] for r in ranks],
+                            ranks[0])
+    moe = [r[TP_MOE_ARCH] for r in ranks]
+    moe_rel = [_rel_l2(moe[0]["logits"][:, i].to(dev), moe_logits[:, i])
+               for i in range(1 + TP_DECODE)]
+    scfg = get_smoke_config(TP_MOE_ARCH)  # 4 experts: one a rank
+    moe_want = [(scfg.num_experts // TP_RANKS, scfg.d_ff)]
+    moe_ok = max(moe_rel) <= TP_MOE_TOL and all(
+        r["sizes"]["experts"] == moe_want for r in moe)
+    log("tensor_parallel_moe_decode", json.dumps({
+        "arch": TP_MOE_ARCH + " (smoke, f32)", "ranks": TP_RANKS,
+        "prompt": TP_MOE_PROMPT, "decode_steps": TP_DECODE,
+        "logits_rel_l2": moe_rel, "tol": TP_MOE_TOL,
+        "decode_experts": moe[0]["sizes"]["experts"],
+        "expected_experts": moe_want, "one_rank_s": t_one,
+        "ranks_wall_s": t_ranks}))
+    if not moe_ok:
+        failures.append(f"tensor_parallel MoE decode: logits {moe_rel}, "
+                        f"experts {[r['sizes']['experts'] for r in moe]}")
+    del ranks
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _tp_check(failures: list, cfg, arch: str, steps: int,
+              dtype: torch.dtype, one: dict, ranks: list,
+              r0_all: dict) -> list:
+    """Phase tensor_parallel (a) for one model: the ranks' results against
+    the one-rank run's; returns rank 0's launch counts."""
+    dev = torch.device(DEVICE)
     defs = dict(_tree_items(registry.param_defs(cfg)))
     rel = {}
-    for name, ref_g in one_grads.items():
+    for name, ref_g in one["grads"].items():
         d = defs[name]
         num = den = 0.0
         split = _rank_rules(0, TP_RANKS).local_shape(
@@ -2406,25 +2744,25 @@ def _tp_split_path(failures: list) -> list:
                  for i in range(1 + TP_DECODE)]
     loss_rel = [abs(a - b) / abs(b) for a, b in zip(r0["losses"],
                                                     one["losses"])]
-    want_serve = serving_launches(cfg, 1 + TP_DECODE)
-    want_train = training_launches(TP_LAYERS, 1 + TP_STEPS, ARCH)
-    H, Hkv, n = cfg.num_heads, cfg.num_kv_heads, TP_RANKS
-    want_sizes = {"flash": sorted({(S_, H // n, Hkv // n)
-                                   for S_ in (PROMPT, TRAIN_SEQ)}),
-                  "mlp": [cfg.d_ff // n], "ce": [cfg.vocab_size // n]}
+    want_serve = split_launches(serving_launches(cfg, 1 + TP_DECODE), cfg,
+                                1 + TP_DECODE)
+    want_train = split_launches(
+        training_launches(cfg.num_layers, 1 + steps, arch, cfg), cfg,
+        2 * (1 + steps), 1 + steps)
+    want_sizes = _tp_want_sizes(cfg)
     launches_ok = all(
         {k: res["serve_launches"][k] for k in want_serve} == want_serve
         and res["train_launches"] == want_train
-        and res["merge_launches"] == 1 + TP_STEPS for res in ranks)
+        and res["merge_launches"] == 1 + steps for res in ranks)
     sizes_ok = all(res["sizes"] == want_sizes for res in ranks)
     finite = bool(torch.isfinite(r0["logits"]).all()) and all(
         math.isfinite(x) for x in r0["losses"])
     worst = max(rel.items(), key=lambda kv: kv[1])
-    row = {"arch": ARCH, "layers": TP_LAYERS, "ranks": TP_RANKS,
-           "mesh": {"data": 1, "model": TP_RANKS},
-           "backend": r0["backend"], "devices": [r["device"] for r in ranks],
+    row = {"arch": arch, "layers": cfg.num_layers, "ranks": TP_RANKS,
+           "dtype": str(dtype)[6:], "mesh": {"data": 1, "model": TP_RANKS},
+           "backend": r0_all["backend"], "device": r0_all["device"],
            "batch": TP_BATCH, "prompt": PROMPT, "decode_steps": TP_DECODE,
-           "train_steps": TP_STEPS, "seq_len": TRAIN_SEQ,
+           "train_steps": steps, "seq_len": TRAIN_SEQ,
            "logits_rel_l2": logit_rel, "losses_split": r0["losses"],
            "losses_one_rank": one["losses"], "loss_rel": loss_rel,
            "worst_leaf": worst, "grad_tol": E2E_TOL, "loss_tol": LOSS_TOL,
@@ -2434,18 +2772,16 @@ def _tp_split_path(failures: list) -> list:
            "merge_launches": r0["merge_launches"], "local_sizes":
            r0["sizes"], "expected_sizes": want_sizes,
            "rank_seconds": [r["seconds"] for r in ranks],
-           "rank_peak_bytes": [r["peak_bytes"] for r in ranks],
-           "one_rank_s": t_one, "ranks_wall_s": t_ranks}
+           "rank_peak_bytes": [r["peak_bytes"] for r in ranks]}
     log("tensor_parallel", json.dumps(row))
     bad = {k: v for k, v in rel.items() if not v <= E2E_TOL}
     if not (finite and launches_ok and sizes_ok and not bad
             and max(logit_rel) <= E2E_TOL and max(loss_rel) <= LOSS_TOL):
-        failures.append(f"tensor_parallel: logits {logit_rel}, losses "
-                        f"{loss_rel}, leaves {bad}, launches {launches_ok}, "
-                        f"sizes {sizes_ok}, finite {finite}")
-    del one, one_grads, ranks
-    torch.cuda.empty_cache()
-    return [r0["serve_launches"], r0["train_launches"]]
+        failures.append(f"tensor_parallel {arch}: logits {logit_rel}, "
+                        f"losses {loss_rel}, leaves {bad}, launches "
+                        f"{launches_ok}, sizes {sizes_ok}, finite {finite}")
+    return [r0["serve_launches"], r0["train_launches"],
+            {"ce_merge": r0["merge_launches"]}]
 
 
 def _rank_rules(r: int, n: int):
@@ -2461,10 +2797,13 @@ def _rank_rules(r: int, n: int):
     return ShardingRules(_M())
 
 
-def _tp_ce_shards(failures: list) -> None:
-    """Phase tensor_parallel (b): see ``phase_tensor_parallel``."""
+def _tp_ce_shards(failures: list) -> dict:
+    """Phase tensor_parallel (b): see ``phase_tensor_parallel``.  Returns
+    the merge's row at yi-6b's head (bf16 shards), its error the largest
+    of the merged results'."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     n = TP_RANKS
+    merge, worst = None, 0.0
     for V in TP_CE_VOCABS:
         T, D = TRAIN_BATCH * TRAIN_SEQ, 4096
         for dtype in (torch.bfloat16, torch.float32):
@@ -2488,6 +2827,7 @@ def _tp_ce_shards(failures: list) -> None:
                 ok, err = ok and ok_i, max(err, err_i)
             ok = ok and all(_close(a, b, TOL[dtype])[0]
                             for a, b in zip(got, whole))
+            worst = max(worst, err)
             row = {"shape": [T, D, V], "shards": n, "shard_rows": vs,
                    "dtype": str(dtype)[6:], "max_abs_err_plain": err,
                    "max_abs_err_whole_kernel": err_whole, "ok": ok}
@@ -2497,6 +2837,7 @@ def _tp_ce_shards(failures: list) -> None:
                     "shard_ms": lambda: kce.cross_entropy_stats_cuda(
                         h, s0, t0),
                     "merge_ms": lambda: kce.ce_merge_cuda(parts),
+                    "merge_plain_ms": lambda: ref.ce_merge_ref(parts),
                     "plain_ms": lambda: ref.cross_entropy_partial_ref(
                         h, s0, t0, block_v=8192),
                     "library_ms": lambda: torch.logsumexp(
@@ -2505,12 +2846,22 @@ def _tp_ce_shards(failures: list) -> None:
                 flops, n_bytes = kce.work(h, s0, stats=True)
                 row["bound_ms"], row["bound_by"] = _bound(n_bytes, flops,
                                                           dtype)
+                flops, n_bytes = kce.merge_work(parts)
+                row["merge_bound_ms"], row["merge_bound_by"] = _bound(
+                    n_bytes, flops, torch.float32)
+                if V == TP_CE_VOCABS[0]:
+                    merge = {"ms": row["merge_ms"],
+                             "plain_ms": row["merge_plain_ms"],
+                             "bound_ms": row["merge_bound_ms"],
+                             "bound_by": row["merge_bound_by"],
+                             "library_ms": None}
             log("tensor_parallel_ce", json.dumps(row))
             if not ok:
                 failures.append(f"tensor_parallel_ce V {V} {dtype}: max err "
                                 f"{err} (plain), {err_whole} (whole kernel)")
             del h, w, shards, parts
     torch.cuda.empty_cache()
+    return dict(merge, max_abs_err=worst)
 
 
 def main() -> int:
@@ -2548,6 +2899,7 @@ def main() -> int:
     mains = {}
     for name, phase in (("rmsnorm", phase_rmsnorm), ("flash", phase_flash),
                         ("rmsnorm_bwd", phase_rmsnorm_bwd),
+                        ("rmsnorm_split", phase_rmsnorm_split),
                         ("flash_bwd", phase_flash_bwd),
                         ("cross_entropy", phase_cross_entropy),
                         ("ssd", phase_ssd), ("ssd_bwd", phase_ssd_bwd)):
@@ -2646,8 +2998,11 @@ def main() -> int:
     counts += phase_mesh(failures)
     log(f"mesh phase: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
-    counts += phase_tensor_parallel(failures)
+    tp_counts, mains["ce_merge"] = phase_tensor_parallel(failures)
+    counts += tp_counts
     log(f"tensor_parallel phase: {time.perf_counter() - t0:.2f} s")
+    mains["rmsnorm_split"], mains["rmsnorm_split_bwd"] = \
+        mains.pop("rmsnorm_split")
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -2671,7 +3026,13 @@ def main() -> int:
             ("ssd_scan", "ssd_scan.cu", "src/repro/kernels/ssd_scan.py:71",
              mains["ssd"]),
             ("ssd_scan_bwd", "ssd_scan.cu", "src/repro/kernels/ref.py:322",
-             mains["ssd_bwd"]))]
+             mains["ssd_bwd"]),
+            ("rmsnorm_split", "rmsnorm.cu", "src/repro/kernels/rmsnorm.py:25",
+             mains["rmsnorm_split"]),
+            ("rmsnorm_split_bwd", "rmsnorm.cu", "src/repro/kernels/ref.py:60",
+             mains["rmsnorm_split_bwd"]),
+            ("ce_merge", "cross_entropy.cu",
+             "src/repro/kernels/cross_entropy.py:56", mains["ce_merge"]))]
     log(f"total: {time.perf_counter() - t_start:.2f} s")
     log(smi)
     log(json.dumps({"kernel_info": kernel_info}))

@@ -50,6 +50,14 @@ def work(hidden: torch.Tensor, w_vocab: torch.Tensor,
     return 2.0 * T * V * D, (T + V) * D * hidden.element_size() + 8 * T + out
 
 
+def merge_work(parts: torch.Tensor) -> Tuple[float, int]:
+    """(FLOPs, bytes) of one merge of n shards' (T, 3) f32 triples: the
+    triples read once, nll and lse written once; an exp, a product and
+    two sums a shard and token, and the log."""
+    n, T = parts.shape[0], parts.shape[1]
+    return 5.0 * n * T + 3.0 * T, 4 * (3 * n * T + 2 * T)
+
+
 def _checked(hidden: torch.Tensor, w_vocab: torch.Tensor,
              targets: torch.Tensor, name: str):
     """The inputs as the kernel takes them: bf16 ``D`` zero-padded to a

@@ -20,8 +20,10 @@
 #include <vector>
 
 extern "C" bool repro_rmsnorm_fwd(const void* x, const void* w, void* y,
-                                  float* inv, int rows, int D, float eps,
-                                  int x_bf16, int w_bf16, cudaStream_t s);
+                                  float* inv, const float* stat_in,
+                                  float* stat_out, int rows, int D, int Dn,
+                                  float eps, int x_bf16, int w_bf16,
+                                  cudaStream_t s);
 extern "C" bool repro_rmsnorm_fwd_plan(const void* x, const void* w,
                                        const void* y, int rows, int D,
                                        int x_bf16, int* out);
@@ -30,7 +32,8 @@ extern "C" int repro_rmsnorm_bwd_parts(const void* x, const void* w,
                                        int rows, int D, int x_bf16);
 extern "C" bool repro_rmsnorm_bwd(const void* x, const void* w,
                                   const float* inv, const void* g, void* dx,
-                                  void* dw, float* part, int rows, int D,
+                                  void* dw, float* part, const float* stat_in,
+                                  float* stat_out, int rows, int D, int Dn,
                                   int x_bf16, int w_bf16, cudaStream_t s);
 extern "C" bool repro_rmsnorm_info(int idx, const char** name, int* out);
 
@@ -90,17 +93,31 @@ namespace {
 
 int is_bf16(const at::Tensor& t) { return t.scalar_type() == at::kBFloat16; }
 
+template <typename T>
+T* ptr_or_null(const c10::optional<at::Tensor>& t) {
+  return t ? t->data_ptr<T>() : nullptr;
+}
+
 // x, y: (..., D) contiguous, one dtype; w: (D,); inv: (rows,) f32 or
 // None.  Writes y (and inv); the kernel picks its path from D and the
-// addresses.
-void rmsnorm_fwd(const at::Tensor& x, const at::Tensor& w, at::Tensor y,
-                 double eps, const c10::optional<at::Tensor>& inv) {
+// addresses.  Split rows (d_whole: the whole row's width): with
+// write_stat, writes each row's partial sum of squares into stat, (rows,)
+// f32, and nothing else (y None); else reads the summed stat in place of
+// the row's own sum.
+void rmsnorm_fwd(const at::Tensor& x, const at::Tensor& w,
+                 const c10::optional<at::Tensor>& y, double eps,
+                 const c10::optional<at::Tensor>& inv,
+                 const c10::optional<at::Tensor>& stat, bool write_stat,
+                 int64_t d_whole) {
   const c10::cuda::CUDAGuard guard(x.device());
   const int64_t D = x.size(-1);
+  TORCH_CHECK(y || write_stat, "rmsnorm_fwd: y is needed");
+  float* st = ptr_or_null<float>(stat);
   const bool launched = repro_rmsnorm_fwd(
-      x.data_ptr(), w.data_ptr(), y.data_ptr(),
-      inv ? inv->data_ptr<float>() : nullptr,
-      static_cast<int>(x.numel() / D), static_cast<int>(D),
+      x.data_ptr(), w.data_ptr(), y ? y->data_ptr() : nullptr,
+      ptr_or_null<float>(inv), write_stat ? nullptr : st,
+      write_stat ? st : nullptr, static_cast<int>(x.numel() / D),
+      static_cast<int>(D), static_cast<int>(stat ? d_whole : D),
       static_cast<float>(eps), is_bf16(x), is_bf16(w),
       at::cuda::getCurrentCUDAStream());
   TORCH_CHECK(launched, "rmsnorm_fwd: no launch (CUDA error) for D ", D);
@@ -139,22 +156,35 @@ int64_t rmsnorm_bwd_parts(const at::Tensor& x, const at::Tensor& w,
 
 // x, g, dx: (rows, D) contiguous in x's dtype; w, dw: (D,); inv: (rows,)
 // f32; part: (rmsnorm_bwd_parts(x, w, g, dx), D) f32 scratch.  Writes dx,
-// dw.
+// dw.  Split rows (d_whole: the whole row's width): with write_stat,
+// writes each row's partial sum(g*w*xhat) into stat, (rows,) f32, and
+// nothing else (dx, dw, part None); else reads the summed stat in place
+// of the row's own sum.
 void rmsnorm_bwd(const at::Tensor& x, const at::Tensor& w,
-                 const at::Tensor& inv, const at::Tensor& g, at::Tensor dx,
-                 at::Tensor dw, at::Tensor part) {
+                 const at::Tensor& inv, const at::Tensor& g,
+                 const c10::optional<at::Tensor>& dx,
+                 const c10::optional<at::Tensor>& dw,
+                 const c10::optional<at::Tensor>& part,
+                 const c10::optional<at::Tensor>& stat, bool write_stat,
+                 int64_t d_whole) {
   const int64_t D = x.size(-1);
-  const int64_t n_part = rmsnorm_bwd_parts(x, w, g, dx);
-  TORCH_CHECK(n_part > 0 && part.dim() == 2 && part.size(0) == n_part &&
-                  part.size(1) == D && part.is_contiguous() &&
-                  part.scalar_type() == at::kFloat,
-              "rmsnorm_bwd: part must be contiguous f32 (", n_part, ", ", D,
-              ")");
+  if (!write_stat) {
+    TORCH_CHECK(dx && dw && part, "rmsnorm_bwd: dx, dw and part are needed");
+    const int64_t n_part = rmsnorm_bwd_parts(x, w, g, *dx);
+    TORCH_CHECK(n_part > 0 && part->dim() == 2 && part->size(0) == n_part &&
+                    part->size(1) == D && part->is_contiguous() &&
+                    part->scalar_type() == at::kFloat,
+                "rmsnorm_bwd: part must be contiguous f32 (", n_part, ", ",
+                D, ")");
+  }
   const c10::cuda::CUDAGuard guard(x.device());
+  float* st = ptr_or_null<float>(stat);
   const bool launched = repro_rmsnorm_bwd(
       x.data_ptr(), w.data_ptr(), inv.data_ptr<float>(), g.data_ptr(),
-      dx.data_ptr(), dw.data_ptr(), part.data_ptr<float>(),
-      static_cast<int>(x.numel() / D), static_cast<int>(D), is_bf16(x),
+      dx ? dx->data_ptr() : nullptr, dw ? dw->data_ptr() : nullptr,
+      ptr_or_null<float>(part), write_stat ? nullptr : st,
+      write_stat ? st : nullptr, static_cast<int>(x.numel() / D),
+      static_cast<int>(D), static_cast<int>(stat ? d_whole : D), is_bf16(x),
       is_bf16(w), at::cuda::getCurrentCUDAStream());
   TORCH_CHECK(launched, "rmsnorm_bwd: no launch (CUDA error) for D ", D);
   C10_CUDA_KERNEL_LAUNCH_CHECK();
@@ -358,13 +388,20 @@ std::vector<std::pair<std::string, std::vector<int64_t>>> kernel_info() {
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
-  m.def("rmsnorm_fwd", &rmsnorm_fwd, "row RMSNorm forward into y (and inv)");
+  m.def("rmsnorm_fwd", &rmsnorm_fwd, "row RMSNorm forward into y (and inv)",
+        py::arg("x"), py::arg("w"), py::arg("y"), py::arg("eps"),
+        py::arg("inv"), py::arg("stat") = py::none(),
+        py::arg("write_stat") = false, py::arg("d_whole") = 0);
   m.def("rmsnorm_fwd_plan", &rmsnorm_fwd_plan,
         "threads a row, rows a block at once and grid of the RMSNorm "
         "forward");
   m.def("rmsnorm_bwd_parts", &rmsnorm_bwd_parts,
         "rows of the RMSNorm backward's f32 dw scratch");
-  m.def("rmsnorm_bwd", &rmsnorm_bwd, "RMSNorm backward into dx, dw");
+  m.def("rmsnorm_bwd", &rmsnorm_bwd, "RMSNorm backward into dx, dw",
+        py::arg("x"), py::arg("w"), py::arg("inv"), py::arg("g"),
+        py::arg("dx"), py::arg("dw"), py::arg("part"),
+        py::arg("stat") = py::none(), py::arg("write_stat") = false,
+        py::arg("d_whole") = 0);
   m.def("flash_fwd", &flash_fwd, "flash-attention forward into o (and lse)");
   m.def("flash_bwd", &flash_bwd, "flash-attention backward into dq, dk, dv");
   m.def("ce_splits", &ce_splits, "vocab splits of the CE forward's scratch");

@@ -44,6 +44,19 @@
 // other D or alignment takes a scalar path over the same grid, which
 // reads a row twice and sums dw in the block's partial row.  No float
 // atomics: the same bits on every run.
+//
+// Split rows (a row whose columns lie on several ranks: the Mamba2
+// block's gated norm with its din columns split over the model axis).
+// Both kernels take a mode on the same grid and team plan: stat_out
+// writes each row's f32 partial statistic over the columns this call
+// holds (forward: sum(x^2); backward: sum(g*w*xhat)) and nothing else;
+// stat_in reads the statistic summed over the ranks in its place, and
+// divides it by Dn, the whole row's width, where a whole row divides its
+// own sum by D.  The caller all-reduces the statistic between the two
+// launches.  A row's partial sum is reduced in the order a whole row's
+// is, so with one rank (Dn = D) the two launches give the whole-row
+// results bit for bit.  Extra bytes: the (rows,) f32 statistic written
+// and read once, and the row read once more by the second launch.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -183,7 +196,9 @@ template <typename TX, int NV>
 __global__ void __launch_bounds__(kThreads, 2)
 rmsnorm_fwd_kernel(const TX* __restrict__ x, const void* __restrict__ w,
                    int w_bf16, TX* __restrict__ y, float* __restrict__ inv_out,
-                   int rows, int D, float eps, int T, int rt) {
+                   const float* __restrict__ stat_in,
+                   float* __restrict__ stat_out, int rows, int D, int Dn,
+                   float eps, int T, int rt) {
   using S = Slot<TX>;
   constexpr int V = S::V;
   constexpr int RT = NV >= 4 ? 1 : 4 / NV;
@@ -220,7 +235,7 @@ rmsnorm_fwd_kernel(const TX* __restrict__ x, const void* __restrict__ w,
 #pragma unroll
     for (int k = 0; k < RT; ++k) {
       ss[k] = 0.f;
-      if (k >= rt) continue;
+      if (k >= rt || stat_in != nullptr) continue;
 #pragma unroll
       for (int j = 0; j < NV; ++j)
         if (has[j])
@@ -231,7 +246,8 @@ rmsnorm_fwd_kernel(const TX* __restrict__ x, const void* __restrict__ w,
           }
       ss[k] = warp_sum(ss[k]);
     }
-    if (T > 32) {  // a row spans T / 32 warps: one shared step, in order
+    // a row spans T / 32 warps: one shared step, in order
+    if (T > 32 && stat_in == nullptr) {
       const int warp = threadIdx.x >> 5, wpt = T / 32;
       float (*rd)[kThreads / 32] = red[it & 1];
       if ((threadIdx.x & 31) == 0)
@@ -249,7 +265,12 @@ rmsnorm_fwd_kernel(const TX* __restrict__ x, const void* __restrict__ w,
     for (int k = 0; k < RT; ++k) {
       const int row = r0 + team * rt + k;
       if (k >= rt || row >= rows) continue;
-      const float inv = rsqrtf(ss[k] / (float)D + eps);
+      if (stat_out != nullptr) {
+        if (l == 0) stat_out[row] = ss[k];
+        continue;
+      }
+      const float sum = stat_in != nullptr ? stat_in[row] : ss[k];
+      const float inv = rsqrtf(sum / (float)Dn + eps);
       if (inv_out != nullptr && l == 0) inv_out[row] = inv;
 #pragma unroll
       for (int j = 0; j < NV; ++j)
@@ -274,18 +295,28 @@ template <typename TX>
 __global__ void __launch_bounds__(kThreads)
 rmsnorm_fwd_any_kernel(const TX* __restrict__ x, const void* __restrict__ w,
                        int w_bf16, TX* __restrict__ y,
-                       float* __restrict__ inv_out, int rows, int D,
+                       float* __restrict__ inv_out,
+                       const float* __restrict__ stat_in,
+                       float* __restrict__ stat_out, int rows, int D, int Dn,
                        float eps, int /*T*/, int /*rt*/) {
   __shared__ float red[1][kThreads / 32];
   for (int r = blockIdx.x; r < rows; r += gridDim.x) {
     const TX* xr = x + (size_t)r * D;
     float s[1] = {0.f};
-    for (int c = threadIdx.x; c < D; c += kThreads) {
-      const float f = to_f32(xr[c]);
-      s[0] = fmaf(f, f, s[0]);
+    if (stat_in == nullptr) {
+      for (int c = threadIdx.x; c < D; c += kThreads) {
+        const float f = to_f32(xr[c]);
+        s[0] = fmaf(f, f, s[0]);
+      }
+      block_sums<1>(s, red);
+    } else {
+      s[0] = stat_in[r];
     }
-    block_sums<1>(s, red);
-    const float inv = rsqrtf(s[0] / (float)D + eps);
+    if (stat_out != nullptr) {
+      if (threadIdx.x == 0) stat_out[r] = s[0];
+      continue;
+    }
+    const float inv = rsqrtf(s[0] / (float)Dn + eps);
     if (inv_out != nullptr && threadIdx.x == 0) inv_out[r] = inv;
     TX* yr = y + (size_t)r * D;
     for (int c = threadIdx.x; c < D; c += kThreads) {
@@ -311,7 +342,8 @@ __global__ void __launch_bounds__(kThreads)
 rmsnorm_bwd_kernel(const TX* __restrict__ x, const void* __restrict__ w,
                    int w_bf16, const float* __restrict__ inv,
                    const TX* __restrict__ g, TX* __restrict__ dx,
-                   float* __restrict__ part, int rows, int D) {
+                   float* __restrict__ part, const float* __restrict__ stat_in,
+                   float* __restrict__ stat_out, int rows, int D, int Dn) {
   using S = Slot<TX>;
   constexpr int V = S::V;
   constexpr int R = 4 / NV;
@@ -349,10 +381,11 @@ rmsnorm_bwd_kernel(const TX* __restrict__ x, const void* __restrict__ w,
     if (rn < rows) load_group(rn, xn, gn, ivn);  // in flight
     float s[R];
 #pragma unroll
-    for (int r = 0; r < R; ++r) s[r] = 0.f;  // shares of sum(g*w*xhat)
+    for (int r = 0; r < R; ++r)  // shares of sum(g*w*xhat), or the sums
+      s[r] = stat_in == nullptr || r0 + r >= rows ? 0.f : stat_in[r0 + r];
 #pragma unroll
     for (int j = 0; j < NV; ++j)
-      if (has[j]) {
+      if (has[j] && stat_in == nullptr) {
         float wv[V];
         load_w<V>(w, w_bf16, (j * kThreads + threadIdx.x) * V, wv);
 #pragma unroll
@@ -363,17 +396,21 @@ rmsnorm_bwd_kernel(const TX* __restrict__ x, const void* __restrict__ w,
               s[r] = fmaf(gs[r][j].get(i) * wv[i], xs[r][j].get(i) * iv[r],
                           s[r]);
       }
-    block_sums<R>(s, red);
+    if (stat_in == nullptr) block_sums<R>(s, red);
+    if (stat_out != nullptr && threadIdx.x == 0)
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        if (r0 + r < rows) stat_out[r0 + r] = s[r];
 #pragma unroll
     for (int j = 0; j < NV; ++j)
-      if (has[j]) {
+      if (has[j] && stat_out == nullptr) {
         const int c = (j * kThreads + threadIdx.x) * V;
         float wv[V];
         load_w<V>(w, w_bf16, c, wv);
 #pragma unroll
         for (int r = 0; r < R; ++r)
           if (r0 + r < rows) {
-            const float mean = s[r] / (float)D;
+            const float mean = s[r] / (float)Dn;
             float out[V];
 #pragma unroll
             for (int i = 0; i < V; ++i) {
@@ -395,6 +432,7 @@ rmsnorm_bwd_kernel(const TX* __restrict__ x, const void* __restrict__ w,
       }
     }
   }
+  if (stat_out != nullptr) return;
   float* pr = part + (size_t)blockIdx.x * D;
 #pragma unroll
   for (int j = 0; j < NV; ++j)
@@ -416,22 +454,33 @@ __global__ void __launch_bounds__(kThreads)
 rmsnorm_bwd_any_kernel(const TX* __restrict__ x, const void* __restrict__ w,
                        int w_bf16, const float* __restrict__ inv,
                        const TX* __restrict__ g, TX* __restrict__ dx,
-                       float* __restrict__ part, int rows, int D) {
+                       float* __restrict__ part,
+                       const float* __restrict__ stat_in,
+                       float* __restrict__ stat_out, int rows, int D, int Dn) {
   __shared__ float red[1][kThreads / 32];
-  float* pr = part + (size_t)blockIdx.x * D;
-  for (int c = threadIdx.x; c < D; c += kThreads) pr[c] = 0.f;
+  float* pr = stat_out == nullptr ? part + (size_t)blockIdx.x * D : nullptr;
+  if (pr != nullptr)
+    for (int c = threadIdx.x; c < D; c += kThreads) pr[c] = 0.f;
   for (int r = blockIdx.x; r < rows; r += gridDim.x) {
     const TX* xr = x + (size_t)r * D;
     const TX* gr = g + (size_t)r * D;
     const float iv = inv[r];
     float s[1] = {0.f};  // this thread's share of sum(g*w*xhat)
-    for (int c = threadIdx.x; c < D; c += kThreads) {
-      float wv[1];
-      load_w<1>(w, w_bf16, c, wv);
-      s[0] = fmaf(to_f32(gr[c]) * wv[0], to_f32(xr[c]) * iv, s[0]);
+    if (stat_in == nullptr) {
+      for (int c = threadIdx.x; c < D; c += kThreads) {
+        float wv[1];
+        load_w<1>(w, w_bf16, c, wv);
+        s[0] = fmaf(to_f32(gr[c]) * wv[0], to_f32(xr[c]) * iv, s[0]);
+      }
+      block_sums<1>(s, red);
+    } else {
+      s[0] = stat_in[r];
     }
-    block_sums<1>(s, red);
-    const float mean = s[0] / (float)D;
+    if (pr == nullptr) {
+      if (threadIdx.x == 0) stat_out[r] = s[0];
+      continue;
+    }
+    const float mean = s[0] / (float)Dn;
     TX* dxr = dx + (size_t)r * D;
     for (int c = threadIdx.x; c < D; c += kThreads) {
       float wv[1];
@@ -476,7 +525,8 @@ rmsnorm_dw_kernel(const float* __restrict__ part, TW* __restrict__ dw,
 
 template <typename TX>
 using BwdKernel = void (*)(const TX*, const void*, int, const float*,
-                           const TX*, TX*, float*, int, int);
+                           const TX*, TX*, float*, const float*, float*, int,
+                           int, int);
 
 // The first pass with NV 16-byte slots a thread (NV = 0: the scalar
 // path), and in *per_sm the blocks of it that one SM holds at kThreads
@@ -541,8 +591,9 @@ BwdPlan<TX> bwd_plan(const void* x, const void* w, const void* g,
 }
 
 template <typename TX>
-using FwdKernel = void (*)(const TX*, const void*, int, TX*, float*, int, int,
-                           float, int, int);
+using FwdKernel = void (*)(const TX*, const void*, int, TX*, float*,
+                           const float*, float*, int, int, int, float, int,
+                           int);
 
 // The forward with NV 16-byte slots a thread (NV = 0: the scalar path),
 // and in *per_sm the blocks of it that one SM holds, queried once per
@@ -616,26 +667,31 @@ FwdPlan<TX> fwd_plan(const void* x, const void* w, const void* y, int rows,
 
 template <typename TX>
 bool launch_fwd(const void* x, const void* w, int w_bf16, void* y,
-                float* inv, int rows, int D, float eps, cudaStream_t stream) {
-  const FwdPlan<TX> plan = fwd_plan<TX>(x, w, y, rows, D);
+                float* inv, const float* stat_in, float* stat_out, int rows,
+                int D, int Dn, float eps, cudaStream_t stream) {
+  const FwdPlan<TX> plan = fwd_plan<TX>(x, w, y != nullptr ? y : x, rows, D);
   if (plan.kernel == nullptr) return false;
   plan.kernel<<<plan.grid, kThreads, 0, stream>>>(
-      static_cast<const TX*>(x), w, w_bf16, static_cast<TX*>(y), inv, rows,
-      D, eps, plan.T, plan.rt);
+      static_cast<const TX*>(x), w, w_bf16, static_cast<TX*>(y), inv,
+      stat_in, stat_out, rows, D, Dn, eps, plan.T, plan.rt);
   return true;
 }
 
 template <typename TX, typename TW>
 bool launch_bwd(const void* x, const void* w, const float* inv,
-                const void* g, void* dx, void* dw, float* part, int rows,
-                int D, cudaStream_t stream) {
-  const BwdPlan<TX> plan = bwd_plan<TX>(x, w, g, dx, rows, D);
+                const void* g, void* dx, void* dw, float* part,
+                const float* stat_in, float* stat_out, int rows, int D,
+                int Dn, cudaStream_t stream) {
+  const BwdPlan<TX> plan =
+      bwd_plan<TX>(x, w, g, dx != nullptr ? dx : g, rows, D);
   if (plan.kernel == nullptr) return false;
   plan.kernel<<<plan.grid, kThreads, 0, stream>>>(
       static_cast<const TX*>(x), w, std::is_same<TW, __nv_bfloat16>::value,
-      inv, static_cast<const TX*>(g), static_cast<TX*>(dx), part, rows, D);
-  rmsnorm_dw_kernel<TW><<<(D + 31) / 32, kThreads, 0, stream>>>(
-      part, static_cast<TW*>(dw), plan.grid, D);
+      inv, static_cast<const TX*>(g), static_cast<TX*>(dx), part, stat_in,
+      stat_out, rows, D, Dn);
+  if (stat_out == nullptr)
+    rmsnorm_dw_kernel<TW><<<(D + 31) / 32, kThreads, 0, stream>>>(
+        part, static_cast<TW*>(dw), plan.grid, D);
   return true;
 }
 
@@ -702,15 +758,22 @@ bool kernels_info(int idx, const char** name, int* out) {
 }  // namespace
 
 // x, y: (rows, D) contiguous; w: (D,).  *_bf16 selects bf16 (1) or f32
-// (0) for each operand.  inv: (rows,) f32, or null to skip it.  One launch
+// (0) for each operand.  inv: (rows,) f32, or null to skip it.  Split
+// rows: stat_out (rows,) f32 receives each row's partial sum of squares
+// (y and inv unused, may be null); stat_in (rows,) f32 is the summed
+// statistic of rows Dn wide (a whole row: both null, Dn = D).  One launch
 // on `stream`.  Returns false, having launched nothing, on a CUDA error
 // before the launch; a launch's own error is left to cudaGetLastError.
 extern "C" bool repro_rmsnorm_fwd(const void* x, const void* w, void* y,
-                                  float* inv, int rows, int D, float eps,
-                                  int x_bf16, int w_bf16, cudaStream_t s) {
+                                  float* inv, const float* stat_in,
+                                  float* stat_out, int rows, int D, int Dn,
+                                  float eps, int x_bf16, int w_bf16,
+                                  cudaStream_t s) {
   if (x_bf16)
-    return launch_fwd<__nv_bfloat16>(x, w, w_bf16, y, inv, rows, D, eps, s);
-  return launch_fwd<float>(x, w, w_bf16, y, inv, rows, D, eps, s);
+    return launch_fwd<__nv_bfloat16>(x, w, w_bf16, y, inv, stat_in, stat_out,
+                                     rows, D, Dn, eps, s);
+  return launch_fwd<float>(x, w, w_bf16, y, inv, stat_in, stat_out, rows, D,
+                           Dn, eps, s);
 }
 
 // The forward's plan for these operands (the pointers and D pick the
@@ -744,22 +807,28 @@ extern "C" int repro_rmsnorm_bwd_parts(const void* x, const void* w,
 // x, g, dx: (rows, D) contiguous in x's dtype; w, dw: (D,) in w's dtype;
 // inv: (rows,) f32 from the forward; part: repro_rmsnorm_bwd_parts(x, w,
 // g, dx, rows, D, x_bf16) x D f32 scratch.  Two launches on `stream`.
-// Returns false, having launched nothing, on a CUDA error before the
-// launch; a launch's own error is left to cudaGetLastError.
+// Split rows: stat_out (rows,) f32 receives each row's partial
+// sum(g*w*xhat), in one launch (dx, dw and part unused, may be null);
+// stat_in (rows,) f32 is that sum over the ranks, of rows Dn wide (a
+// whole row: both null, Dn = D).  Returns false, having launched nothing,
+// on a CUDA error before the launch; a launch's own error is left to
+// cudaGetLastError.
 extern "C" bool repro_rmsnorm_bwd(const void* x, const void* w,
                                   const float* inv, const void* g, void* dx,
-                                  void* dw, float* part, int rows, int D,
+                                  void* dw, float* part, const float* stat_in,
+                                  float* stat_out, int rows, int D, int Dn,
                                   int x_bf16, int w_bf16, cudaStream_t s) {
   if (x_bf16 && w_bf16)
-    return launch_bwd<__nv_bfloat16, __nv_bfloat16>(x, w, inv, g, dx, dw,
-                                                    part, rows, D, s);
+    return launch_bwd<__nv_bfloat16, __nv_bfloat16>(
+        x, w, inv, g, dx, dw, part, stat_in, stat_out, rows, D, Dn, s);
   if (x_bf16)
     return launch_bwd<__nv_bfloat16, float>(x, w, inv, g, dx, dw, part,
-                                            rows, D, s);
+                                            stat_in, stat_out, rows, D, Dn, s);
   if (w_bf16)
     return launch_bwd<float, __nv_bfloat16>(x, w, inv, g, dx, dw, part,
-                                            rows, D, s);
-  return launch_bwd<float, float>(x, w, inv, g, dx, dw, part, rows, D, s);
+                                            stat_in, stat_out, rows, D, Dn, s);
+  return launch_bwd<float, float>(x, w, inv, g, dx, dw, part, stat_in,
+                                  stat_out, rows, D, Dn, s);
 }
 
 // Facts about the forward's and backward's kernels, for reports: idx 0,

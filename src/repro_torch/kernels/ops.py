@@ -58,6 +58,16 @@ def rmsnorm(x, w, *, eps: float = 1e-6,
         return _ref.rmsnorm_ref(x, w, eps)
 
 
+def rmsnorm_split(x, w, *, d_whole: int, reduce, eps: float = 1e-6,
+                  use_kernels: Optional[bool] = None) -> torch.Tensor:
+    """RMSNorm of rows ``d_whole`` wide whose columns lie on several
+    ranks: x and w hold this rank's columns, and ``reduce`` sums a (rows,)
+    f32 statistic over the ranks in place (``_rmsnorm.RMSNormSplitFn``:
+    two launches and a sum each way; each launch charged on its own)."""
+    return _rmsnorm.RMSNormSplitFn.apply(x, w, eps, d_whole, reduce,
+                                         _kernel_path(x, use_kernels))
+
+
 def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
                     kv_len: Optional[int] = None, sliding_window: int = 0,
                     block_k: int = 512,

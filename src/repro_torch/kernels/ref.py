@@ -26,11 +26,28 @@ def rmsnorm_fwd_ref(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``_rmsnorm_fwd_math``: (y in x's dtype, per-row f32 ``inv`` of
     shape ``x.shape[:-1]``)."""
+    return rmsnorm_split_fwd_ref(x, w, rmsnorm_stat_ref(x), x.shape[-1], eps)
+
+
+def rmsnorm_stat_ref(x: torch.Tensor) -> torch.Tensor:
+    """A split row's forward statistic: each row's f32 sum of squares over
+    the columns ``x`` holds, shape ``x.shape[:-1]``."""
     xf = x.float()
-    var = (xf * xf).mean(dim=-1, keepdim=True)
-    inv = torch.rsqrt(var + eps)
-    y = xf * inv * w.float()
-    return y.to(x.dtype), inv[..., 0]
+    return (xf * xf).sum(dim=-1)
+
+
+def rmsnorm_split_fwd_ref(x: torch.Tensor, w: torch.Tensor,
+                          stat: torch.Tensor, d_whole: int,
+                          eps: float = 1e-6
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward on the columns ``x`` holds of rows ``d_whole`` wide
+    whose sum of squares over every column is ``stat`` (the ranks' partial
+    :func:`rmsnorm_stat_ref` summed): (y's columns in x's dtype, per-row
+    f32 ``inv``).  With the whole row, bit for bit the row's forward (a
+    sum over D divided by D is the mean, in torch's order)."""
+    inv = torch.rsqrt(stat / d_whole + eps)
+    y = x.float() * inv[..., None] * w.float()
+    return y.to(x.dtype), inv
 
 
 def rmsnorm_bwd_ref(x: torch.Tensor, w: torch.Tensor, inv: torch.Tensor,
@@ -42,11 +59,34 @@ def rmsnorm_bwd_ref(x: torch.Tensor, w: torch.Tensor, inv: torch.Tensor,
     ``compute_dtype`` float64 evaluates the same formula in f64 (a
     yardstick for the f32 versions' dw, a sum over every row) and still
     rounds the results as above."""
+    stat = rmsnorm_bwd_stat_ref(x, w, inv, g, compute_dtype=compute_dtype)
+    return rmsnorm_split_bwd_ref(x, w, inv, g, stat, x.shape[-1],
+                                 compute_dtype=compute_dtype)
+
+
+def rmsnorm_bwd_stat_ref(x: torch.Tensor, w: torch.Tensor,
+                         inv: torch.Tensor, g: torch.Tensor, *,
+                         compute_dtype: torch.dtype = torch.float32
+                         ) -> torch.Tensor:
+    """A split row's backward statistic: each row's sum of ``g * w *
+    xhat`` over the columns the call holds, in ``compute_dtype``."""
     xf, gf, wf, inv = (t.to(compute_dtype) for t in (x, g, w, inv))
+    return (gf * wf * (xf * inv[..., None])).sum(dim=-1)
+
+
+def rmsnorm_split_bwd_ref(x: torch.Tensor, w: torch.Tensor,
+                          inv: torch.Tensor, g: torch.Tensor,
+                          stat: torch.Tensor, d_whole: int, *,
+                          compute_dtype: torch.dtype = torch.float32,
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The backward on the columns of rows ``d_whole`` wide, ``stat`` the
+    ranks' :func:`rmsnorm_bwd_stat_ref` summed: (dx's columns in x's
+    dtype, dw of those columns in w's dtype)."""
+    xf, gf, wf, inv, stat = (t.to(compute_dtype)
+                             for t in (x, g, w, inv, stat))
     xhat = xf * inv[..., None]
     gw = gf * wf
-    dx = inv[..., None] * (gw - xhat * (gw * xhat).mean(dim=-1,
-                                                        keepdim=True))
+    dx = inv[..., None] * (gw - xhat * (stat / d_whole)[..., None])
     dw = (gf * xhat).sum(dim=tuple(range(x.dim() - 1)))
     return dx.to(x.dtype), dw.to(w.dtype)
 

@@ -16,7 +16,11 @@ last axis contiguous), so the model's ``xh`` view of (B, S, H * P) is not
 copied.  The bf16 kernel copies 16-byte chunks, so an x, B or C whose
 address or strides are not a multiple of 16 bytes is copied to new
 memory first, and a state size N that is no multiple of 8 is zero-padded
-(the model's never are).  The tail past S is masked, not padded.
+(the model's never are).  A head dim P that is no multiple of 8 (a rank's
+block of the SSD head dim under a ``model`` split: mamba2-130m's P 64 over
+16 ranks is 4) is zero-padded to one, forward and backward, and the
+results cut back: the channels of P are independent, so the padding adds
+exact zeros.  The tail past S is masked, not padded.
 
 The backward, :func:`ssd_bwd_cuda`, is the twin of autodiff of
 ``repro/kernels/ref.py::ssd_ref`` (the JAX package trains through jnp, no
@@ -123,10 +127,10 @@ def _check(x, dt, A, Bm, Cm, init_state, chunk: int) -> None:
             or A.shape != (H,) or G == 0 or H % G):
         raise ValueError(f"incompatible x{tuple(x.shape)} dt{tuple(dt.shape)}"
                          f" A{tuple(A.shape)} B{tuple(Bm.shape)}")
-    if P % 8 or not 0 < N <= MAX_STATE or not 0 < chunk <= MAX_CHUNK:
-        raise ValueError(f"ssd_cuda takes P a multiple of 8, N <= "
-                         f"{MAX_STATE} and chunk <= {MAX_CHUNK}; got P={P}, "
-                         f"N={N}, chunk={chunk}")
+    if not P or not 0 < N <= MAX_STATE or not 0 < chunk <= MAX_CHUNK:
+        raise ValueError(f"ssd_cuda takes P > 0, N <= {MAX_STATE} and "
+                         f"chunk <= {MAX_CHUNK}; got P={P}, N={N}, "
+                         f"chunk={chunk}")
     if any(t.stride(-1) != 1 for t in (x, dt, Bm, Cm)) or \
             not A.is_contiguous():
         raise ValueError("ssd_cuda needs a contiguous last axis")
@@ -134,6 +138,14 @@ def _check(x, dt, A, Bm, Cm, init_state, chunk: int) -> None:
                                    or not init_state.is_contiguous()):
         raise ValueError(f"init_state must be contiguous {(B_, H, P, N)}, "
                          f"got {tuple(init_state.shape)}")
+
+
+def _pad_p(t: Optional[torch.Tensor], pad: int, dim: int
+           ) -> Optional[torch.Tensor]:
+    """``t`` zero-padded by ``pad`` along its P axis ``dim`` (a copy)."""
+    if t is None or not pad:
+        return t
+    return F.pad(t, (0, 0) * (t.dim() - 1 - dim % t.dim()) + (0, pad))
 
 
 def ssd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -148,9 +160,12 @@ def ssd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     global launches
     chunk = int(chunk)
     _check(x, dt, A, Bm, Cm, init_state, chunk)
-    B_, S, H, P = x.shape
+    P = x.shape[3]
+    pad_p = -P % 8
+    x, init_state = _pad_p(x, pad_p, 3), _pad_p(init_state, pad_p, 2)
+    B_, S, H, Pp = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
-    y = torch.empty((B_, S, H, P), dtype=x.dtype, device=x.device)
+    y = torch.empty((B_, S, H, Pp), dtype=x.dtype, device=x.device)
     cb = None
     pad = 0
     if x.dtype == torch.bfloat16:
@@ -163,13 +178,15 @@ def ssd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     else:
         cb = torch.empty((B_, G, -(-S // chunk), chunk, chunk),
                          dtype=torch.float32, device=x.device)
-    h_out = torch.empty((B_, H, P, N + pad), dtype=torch.float32,
+    h_out = torch.empty((B_, H, Pp, N + pad), dtype=torch.float32,
                         device=x.device)
     build.extension().ssd_fwd(x, dt, A, Bm, Cm, init_state, cb, y, h_out,
                               chunk)
     launches += 1
-    if pad:
-        h_out = h_out[..., :N].contiguous()
+    if pad or pad_p:
+        h_out = h_out[:, :, :P, :N].contiguous()
+    if pad_p:
+        y = y[..., :P].contiguous()
     return (y, h_out) if return_state else y
 
 
@@ -233,6 +250,10 @@ def ssd_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         raise ValueError(f"d_state must be contiguous f32 {(B_, H, P, N)}, "
                          f"got {tuple(d_state.shape)} {d_state.dtype}")
     dev = x.device
+    pad_p = -P % 8
+    x, dy = _pad_p(x, pad_p, 3), _pad_p(dy, pad_p, 3)
+    init_state, d_state = (_pad_p(t, pad_p, 2) for t in (init_state, d_state))
+    P += pad_p
     pad = 0
     if x.dtype == torch.bfloat16:
         # the tensor-core kernels copy 16-byte chunks, as ssd_cuda's do
@@ -252,7 +273,11 @@ def ssd_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                               *scratch, dx, ddt, dA, dB, dC, d_init, chunk)
     bwd_launches += 1
     if pad:
-        dB, dC, d_init = (t[..., :N].contiguous() for t in (dB, dC, d_init))
+        dB, dC = (t[..., :N].contiguous() for t in (dB, dC))
+    if pad or pad_p:
+        d_init = d_init[:, :, :P - pad_p, :N].contiguous()
+    if pad_p:
+        dx = dx[..., :P - pad_p].contiguous()
     return dx, ddt, dA, dB, dC, d_init
 
 

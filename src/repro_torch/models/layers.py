@@ -15,7 +15,8 @@ holds this rank's ``model`` block of each weight (``keep=("model",)``)
 and each rank computes its block, as GSPMD splits the JAX specs:
 attention its heads (or, where the heads do not divide ``model``, its
 query rows: ``"q_seq"``), the MLP its ``ffn`` columns, the embedding and
-the LM head their vocab rows; a split region starts at
+the LM head their vocab rows, the MoE block (prefill and decode) its
+experts or its ``ffn`` slice of every expert; a split region starts at
 ``sharding.enter_model`` and its partial outputs are summed by
 ``sharding.leave_model`` (``sharding/rules.py``).  The KV cache holds
 this rank's block of its spec (``"kv_seq"``, else ``"heads"``, else
@@ -668,30 +669,63 @@ def moe_uses_shardmap(x: torch.Tensor) -> bool:
 def moe_block(p: Params, cfg: ModelConfig, run: RunConfig,
               x: torch.Tensor) -> torch.Tensor:
     """Top-K MoE.  ``p`` is this rank's block of the layer's MoE weights
-    (the whole layer without rules); the path gathers what it needs:
+    (the whole layer without rules); the experts keep their ``model``
+    split and the rest is gathered:
 
-    shardmap (``_moe_block_shardmap``): the experts' "model" split stays
-      (a rank runs its own experts, or all experts on its ffn slice); the
-      rest is gathered.
-    gspmd (``_moe_block_gspmd``): everything is gathered; each batch row
-      routes on its own."""
-    shardmap = moe_uses_shardmap(x)
+    shardmap (``_moe_block_shardmap``, prefill and training): the rank
+      routes its B x S tokens as one row;
+    gspmd (``_moe_block_gspmd``, decode and calls without rules): each
+      batch row routes on its own.
+
+    On either path a rank runs only its block of the expert products (its
+    own experts, or all experts on its ffn slice) and one all-reduce over
+    "model" adds the ranks' outputs."""
     if SR.sharded():
-        p = SR.gather_params(p, moe_layer_defs(cfg),
-                             keep=("model",) if shardmap else ())
-    return (_moe_block_shardmap if shardmap else _moe_block_gspmd)(
-        p, cfg, run, x)
+        p = SR.gather_params(p, moe_layer_defs(cfg), keep=("model",))
+    return (_moe_block_shardmap if moe_uses_shardmap(x)
+            else _moe_block_gspmd)(p, cfg, run, x)
+
+
+def _model_experts(p: Params, cfg: ModelConfig) -> Tuple[bool, int, int]:
+    """(split, first expert, experts) of this rank's block of the expert
+    weights ``p``: experts ``[m E / n, (m + 1) E / n)`` of model rank m
+    where E divides ``model``, else all E on the rank's ffn slice; not
+    split where the weights are whole (one model rank, or neither
+    divides)."""
+    E, E_loc = cfg.num_experts, p["w_gate"].shape[0]
+    if SR.model_ranks() > 1 and E_loc < E:
+        return True, SR.current_rules().mesh.coord("model") * E_loc, E_loc
+    return SR.model_ranks() > 1 and p["w_gate"].shape[-1] < cfg.d_ff, 0, E
+
+
+def _experts_where_they_lie(p: Params, cfg: ModelConfig,
+                            x: torch.Tensor) -> torch.Tensor:
+    """Routes each row of ``x`` (B, S, d) on its own and runs the rank's
+    block of the experts on its (E, B, C) slot grid: pairs of other
+    ranks' experts are not kept, and the ranks' outputs are summed over
+    ``model``.  The input and the router are replicated over ``model``;
+    each rank's experts give a part of their gradients."""
+    split, base, E_loc = _model_experts(p, cfg)
+    if split:
+        x = SR.enter_model(x)
+        p = {**p, "router": SR.enter_model(p["router"])}
+    r = moe_route(p, cfg, x)
+    per = x.shape[0] * r.capacity  # an expert's slots
+    keep = r.keep & (r.experts >= base) & (r.experts < base + E_loc)
+    y = _experts_combine(p, cfg, x, r, keep, r.slot - base * per, E_loc,
+                         per)
+    return SR.leave_model(y) if split else y
 
 
 def _moe_block_gspmd(p: Params, cfg: ModelConfig, run: RunConfig,
                      x: torch.Tensor) -> torch.Tensor:
     """The semantics of ``_moe_block_gspmd``: each batch row routes its S
     tokens with capacity C = ceil(S K / E * factor).  Kept pairs go into
-    an (E, B, C, d) grid; each expert runs its B*C slots in one ``bmm``."""
-    B = x.shape[0]
-    r = moe_route(p, cfg, x)
-    y = _experts_combine(p, cfg, x, r, r.keep, r.slot, cfg.num_experts,
-                         B * r.capacity)
+    an (E, B, C, d) grid; each expert runs its B*C slots in one ``bmm``.
+    Under a ``model`` split the rank runs its experts' slots (or every
+    expert on its ffn slice), as the JAX products follow the weights'
+    sharding there: EP on the expert dim, or TP on the per-expert ffn."""
+    y = _experts_where_they_lie(p, cfg, x)
     return SR.constrain(y.to(x.dtype), "batch", None, None)
 
 
@@ -704,29 +738,12 @@ def _moe_block_shardmap(p: Params, cfg: ModelConfig, run: RunConfig,
     ffn slice, and one all-reduce over "model" adds the disjoint (or
     f-partial) outputs.  ``p``: the experts' local blocks, the router
     whole."""
-    rules = SR.current_rules()
     B, Sq, d = x.shape
-    E = cfg.num_experts
-    n_model = rules.mesh.shape["model"]
-    e_sharded = n_model > 1 and E % n_model == 0
-    E_loc = E // n_model if e_sharded else E
-    if n_model > 1 and not e_sharded \
-            and p["w_gate"].shape[-1] * n_model != cfg.d_ff:
+    E, n_model = cfg.num_experts, SR.model_ranks()
+    if n_model > 1 and not _model_experts(p, cfg)[0]:
         raise ValueError(f"the shardmap MoE splits E {E} or d_ff "
                          f"{cfg.d_ff} over model {n_model}: neither divides")
-    base = rules.mesh.coord("model") * E_loc if e_sharded else 0
-    xt = x.reshape(1, B * Sq, d)
-    # the input and the router are replicated over "model"; each rank's
-    # local experts give a part of their gradients
-    xt = SR.enter_model(xt)
-    p = {**p, "router": SR.enter_model(p["router"])}
-    r = moe_route(p, cfg, xt)
-    C = r.capacity
-    keep = r.keep & (r.experts >= base) & (r.experts < base + E_loc)
-    # one row: slot = expert * C + rank; local experts from 0
-    slot = r.slot - base * C
-    y = _experts_combine(p, cfg, xt, r, keep, slot, E_loc, C)
-    y = SR.leave_model(y)
+    y = _experts_where_they_lie(p, cfg, x.reshape(1, B * Sq, d))
     return SR.constrain(y.reshape(B, Sq, d).to(x.dtype), "batch", None, None)
 
 

@@ -9,10 +9,45 @@ over layers on views of the stacked leaves takes the place of
 ``lax.scan``.  The decode state is O(1): conv tails (W - 1 tokens) and
 the f32 SSM state (H, P, N) per layer, written in place into the stacked
 cache.  Training checkpoints each block whole unless ``run.remat`` is
-"none" (``run_layers``).  Under sharding rules a block gathers its
-layer's weights whole from this rank's blocks when it starts, over
-``model`` too: every model rank runs the mamba blocks whole (the
-embedding and the LM head split their vocab rows, ``layers.py``).
+"none" (``run_layers``).
+
+Under sharding rules a block gathers its layer's weights from this
+rank's blocks when it starts (ZeRO-3, over the batch axes).  Over
+``model`` it follows the JAX block's tags, ``xh`` and ``y`` being
+``("batch", None, "heads_ssm", "ssm_p")``: the first of the two that
+divides ``model`` takes it (:func:`ssm_split`), and the rank computes
+its block between ``enter_model`` and ``leave_model``, as attention and
+the MLP do (``layers.py``):
+
+heads (H % n == 0): the rank's H / n SSM heads.  They are its ``ffn``
+  block of the stored weights (``din = H P`` is head-major), so ``w_z``,
+  ``w_x``, ``conv_x``, ``conv_x_b``, ``norm`` and ``w_out`` stay as the
+  rank holds them;
+head dim (H % n != 0, P % n == 0): the rank's P / n channels of every
+  head, columns ``h P + r P / n + j``, which are not its contiguous
+  ``ffn`` block.  Those six weights are made whole (``model_whole``: the
+  gradient summed over ``model``) and the rank's columns taken from
+  them, as attention takes the kv heads it reads where they do not
+  divide.  Chosen over resharding the activations (an all-to-all of z
+  and x a block, each way) because the weights are small where this case
+  arises (mamba2-130m at 16 ranks: 3 x 768 x 1536 bf16, 7 MB a block)
+  and the block then runs with no collective but the two below;
+whole (neither divides): every rank runs the block whole on weights
+  gathered whole, the rules' own replication.
+
+In both split cases every rank uses all of B and C and its heads' (or
+all heads') dt, A, D and dt_bias: ``w_B``, ``w_C``, ``w_dt``, the B and
+C convolutions and those vectors are replicated over ``model`` and come
+from ``model_whole``, whose backward sums each rank's part of their
+gradient, so it is the same on every model rank.  The SSD scan runs on
+the rank's (B, S, H / n, P) or (B, S, H, P / n) block; the gated RMSNorm
+runs over a row whose columns lie on the ranks (``ops.rmsnorm_split``:
+its mean of squares, and its backward's mean of ``g w xhat``, summed
+over ``model``, divided by the whole ``din``); ``leave_model`` sums the
+ranks' ``y @ w_out`` rows.  A decode state holds the rank's block:
+``tail_x`` the channels it convolves (its ``ffn`` block, or its
+channels of every head), ``ssm`` its heads or head-dim channels
+(``serve/engine.py::init_cache``).
 """
 from __future__ import annotations
 
@@ -85,34 +120,78 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return F.silu(y + b), new_tail
 
 
+def ssm_split(cfg: ModelConfig) -> str:
+    """How the current rules split a mamba block over ``model``: "none"
+    (one model rank), "heads", "p" (the SSD head dim) or "whole" (neither
+    divides: every rank runs it whole)."""
+    if SR.model_ranks() == 1:
+        return "none"
+    hp = (cfg.ssm_heads, cfg.ssm_head_dim)
+    local = SR.current_rules().local_shape(("heads_ssm", "ssm_p"), hp,
+                                           keep=("model",))
+    return "heads" if local[0] < hp[0] else "p" if local[1] < hp[1] \
+        else "whole"
+
+
+# the weights a rank holds (or takes) by its din columns: w_out by rows
+_DIN_LEAVES = ("w_z", "w_x", "conv_x", "conv_x_b", "norm", "w_out")
+
+
 def block_fwd(p: Params, cfg: ModelConfig, run: RunConfig, x: torch.Tensor,
               state: Optional[Params] = None) -> torch.Tensor:
     """x: (B, S, d) -> (B, S, d).  ``state`` (serving): this layer's conv
-    tails and SSM state, views into the stacked cache, updated in place;
-    None for a plain forward."""
+    tails and SSM state (under a ``model`` split, the rank's block of
+    each), views into the stacked cache, updated in place; None for a
+    plain forward.  Under a split (``ssm_split``: "heads" or "p") the rank
+    computes its heads or head-dim channels (the module doc); else the
+    block whole."""
     Bb, S, _ = x.shape
     N, H, P = cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    mode = ssm_split(cfg)
+    split = mode in ("heads", "p")
     if SR.sharded():
-        p = SR.gather_params(p, unstack(block_defs(cfg, 1)))
-    h = L.rmsnorm(p["ln"], x, cfg, run)
+        defs = unstack(block_defs(cfg, 1))
+        p = SR.gather_params(p, defs, keep=("model",) if split else ())
+    rules = SR.current_rules()
 
-    z = h @ p["w_z"]
-    xs = h @ p["w_x"]
-    Bm = h @ p["w_B"]
-    Cm = h @ p["w_C"]
-    dt = h @ p["w_dt"]
+    def whole(k: str) -> torch.Tensor:
+        """A weight every rank uses whole (replicated over ``model``, or
+        made whole), its gradient summed over the ranks' parts."""
+        return SR.model_whole(p[k], defs[k]) if split else p[k]
+
+    heads, hl, pl = slice(None), H, P  # the heads and head dim computed
+    loc = {k: p[k] for k in _DIN_LEAVES}
+    if mode == "heads":
+        n, r = SR.model_ranks(), rules.mesh.coord("model")
+        heads, hl = slice(r * (H // n), (r + 1) * (H // n)), H // n
+    elif mode == "p":
+        n, r = SR.model_ranks(), rules.mesh.coord("model")
+        pl = P // n
+        cols = (torch.arange(H)[:, None] * P + r * pl
+                + torch.arange(pl)).reshape(-1).to(x.device)
+        loc = {k: whole(k).index_select(0 if k == "w_out" else -1, cols)
+               for k in _DIN_LEAVES}
+    h = L.rmsnorm(p["ln"], x, cfg, run)
+    if split:
+        h = SR.enter_model(h)
+
+    z = h @ loc["w_z"]
+    xs = h @ loc["w_x"]
+    Bm = h @ whole("w_B")
+    Cm = h @ whole("w_C")
+    dt = h @ whole("w_dt")[:, heads]
 
     tails = (None, None, None) if state is None else (
         state["tail_x"], state["tail_B"], state["tail_C"])
-    xs, tx = _causal_conv(xs, p["conv_x"], p["conv_x_b"], tails[0])
-    Bm, tb = _causal_conv(Bm, p["conv_B"], p["conv_B_b"], tails[1])
-    Cm, tc = _causal_conv(Cm, p["conv_C"], p["conv_C_b"], tails[2])
+    xs, tx = _causal_conv(xs, loc["conv_x"], loc["conv_x_b"], tails[0])
+    Bm, tb = _causal_conv(Bm, whole("conv_B"), whole("conv_B_b"), tails[1])
+    Cm, tc = _causal_conv(Cm, whole("conv_C"), whole("conv_C_b"), tails[2])
 
-    xh = xs.reshape(Bb, S, H, P)  # a view: the kernel reads it in place
+    xh = xs.reshape(Bb, S, hl, pl)  # a view: the kernel reads it in place
     Bg = Bm.reshape(Bb, S, G, N)
     Cg = Cm.reshape(Bb, S, G, N)
-    dtp = F.softplus(dt.float() + p["dt_bias"])
-    A = -torch.exp(p["A_log"])
+    dtp = F.softplus(dt.float() + whole("dt_bias")[heads])
+    A = -torch.exp(whole("A_log")[heads])
 
     init = None if state is None else state["ssm"]
     if S == 1 and state is not None:
@@ -124,12 +203,20 @@ def block_fwd(p: Params, cfg: ModelConfig, run: RunConfig, x: torch.Tensor,
         y, new_ssm = ops.ssd(xh, dtp, A, Bg, Cg, chunk=cfg.ssm_chunk,
                              init_state=init, return_state=True,
                              use_kernels=run.use_kernels)
-    y = y + (xh.float() * p["D"][None, None, :, None]).to(y.dtype)
-    y = y.reshape(Bb, S, H * P)
+    y = y + (xh.float() * whole("D")[heads][None, None, :, None]).to(y.dtype)
+    y = y.reshape(Bb, S, hl * pl) * F.silu(z.float()).to(y.dtype)
 
-    y = ops.rmsnorm(y * F.silu(z.float()).to(y.dtype), p["norm"],
-                    eps=cfg.norm_eps, use_kernels=run.use_kernels)
-    out = SR.constrain(y @ p["w_out"], "batch", None, None)
+    if split:  # a row of din columns over the ranks; w_out's rows summed
+        y = ops.rmsnorm_split(
+            y, loc["norm"], d_whole=H * P,
+            reduce=lambda t: rules.all_reduce(t, ("model",)),
+            eps=cfg.norm_eps, use_kernels=run.use_kernels)
+        out = SR.leave_model(y @ loc["w_out"])
+    else:
+        y = ops.rmsnorm(y, loc["norm"], eps=cfg.norm_eps,
+                        use_kernels=run.use_kernels)
+        out = y @ loc["w_out"]
+    out = SR.constrain(out, "batch", None, None)
     if state is not None:
         state["tail_x"].copy_(tx)
         state["tail_B"].copy_(tb)

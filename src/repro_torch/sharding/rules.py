@@ -29,11 +29,11 @@ How the port runs under rules (the JAX drivers leave this to GSPMD):
   all-gathers a layer's weights just before the layer (ZeRO-3) over the
   axes not in ``keep``: the blocks keep their ``model`` split
   (``keep=("model",)``) and gather the ``data`` / ``pod`` one (the MoE
-  block gathers its own: its experts keep their ``model`` split on the
-  shardmap path).  The gather's backward sums the gradient over the batch axes the weight is
-  split on and keeps this rank's block, and ``sync_grads`` sums the rest
-  over the batch axes, so each rank ends with its block of the gradient of
-  the global-batch loss.
+  block gathers its own: its experts keep their ``model`` split on both
+  of its paths, prefill and decode).  The gather's backward sums the
+  gradient over the batch axes the weight is split on and keeps this
+  rank's block, and ``sync_grads`` sums the rest over the batch axes, so
+  each rank ends with its block of the gradient of the global-batch loss.
 * Dense compute is split over ``model`` as the specs place it (the
   Megatron layout): each model rank runs its heads of every attention,
   its ``ffn`` columns of every MLP and its vocab rows of the LM head and
@@ -49,8 +49,12 @@ How the port runs under rules (the JAX drivers leave this to GSPMD):
   and all-gathers its output rows (``gather_model``, whose backward keeps
   this rank's rows).  A weight a replicated computation uses whole is
   gathered with ``gather`` (the backward keeps this rank's block, as every
-  model rank computes the same gradient).  The mamba block still runs
-  whole on every model rank.
+  model rank computes the same gradient).  The Mamba2 block splits its
+  SSM heads (``"heads_ssm"``), else the SSD head dim (``"ssm_p"``, its
+  ``ffn`` weights made whole and the rank's channels taken), else runs
+  whole; its gated RMSNorm sums a row's statistic over ``model``
+  (``models/mamba2.py``).  The MoE block runs the rank's experts (or
+  every expert's ``ffn`` slice) at prefill and decode alike.
 
 A group of one rank does nothing: at world size 1 every helper returns
 its input, so the mesh path is bit for bit the path without rules.
@@ -469,7 +473,10 @@ class _EnterModel(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return ctx.rules.all_reduce(g.clone(), ("model",)), None
+        # a contiguous copy: NCCL takes no strided tensor (a convolution
+        # weight's gradient arrives transposed)
+        g = g.clone(memory_format=torch.contiguous_format)
+        return ctx.rules.all_reduce(g, ("model",)), None
 
 
 class _LeaveModel(torch.autograd.Function):
@@ -480,7 +487,8 @@ class _LeaveModel(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, y, rules):
-        return rules.all_reduce(y.clone(), ("model",))
+        return rules.all_reduce(y.clone(memory_format=torch.contiguous_format),
+                                ("model",))
 
     @staticmethod
     def backward(ctx, g):

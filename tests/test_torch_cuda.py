@@ -1085,6 +1085,108 @@ def test_ssd_bwd_kernel_matches_plain(cuda, case, dtype, state, d_state):
     _ssd_bwd_check(got, want, dtype)
 
 
+@pytest.mark.parametrize("P", [4, 12, 16])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ssd_kernels_take_a_rank_block_of_the_head_dim(cuda, P, dtype):
+    """A rank's block of the SSD head dim under a "model" split (mamba2 at
+    16 ranks: P 4), forward and backward: a P that is no multiple of 8 is
+    zero-padded by the wrapper and the results cut back, against the plain
+    versions; x as the model's view of its contiguous (B, S, H * P) conv
+    output reaches the bf16 kernel without a copy where P is a multiple
+    of 8."""
+    case = (2, 96, 3, P, 1, 32, 32)
+    x, dt, A, Bm, Cm, h0 = _ssd_inputs(case, dtype, cuda, seed=7,
+                                       state=True)
+    g = torch.Generator(device=cuda).manual_seed(8)
+    dy = torch.randn(x.shape, generator=g, device=cuda).to(dtype)
+    dh = torch.randn(h0.shape, generator=g, device=cuda) * 0.1
+    n = (kssd.launches, kssd.bwd_launches)
+    y, h = kssd.ssd_cuda(x, dt, A, Bm, Cm, chunk=32, init_state=h0,
+                         return_state=True)
+    got = kssd.ssd_bwd_cuda(x, dt, A, Bm, Cm, dy, chunk=32, init_state=h0,
+                            d_state=dh)
+    torch.cuda.synchronize()
+    assert (kssd.launches, kssd.bwd_launches) == (n[0] + 1, n[1] + 1)
+    assert y.shape == x.shape and h.shape == h0.shape
+    ry, rh = ref.ssd_ref(x, dt, A, Bm, Cm, chunk=32, init_state=h0,
+                         return_state=True)
+    torch.testing.assert_close(y.float(), ry.float(), **_ssd_tol(dtype))
+    torch.testing.assert_close(h, rh, **_ssd_tol(dtype))
+    _ssd_bwd_check(got, ref.ssd_bwd_ref(x, dt, A, Bm, Cm, dy, chunk=32,
+                                        init_state=h0, d_state=dh), dtype)
+    view = x.reshape(2, 96, 3 * P).contiguous().view(2, 96, 3, P)
+    from repro_torch.kernels.flash_attention import _chunk_aligned
+    assert (_chunk_aligned(view) is view) == (P % 8 == 0
+                                              or dtype == torch.float32)
+
+
+@pytest.mark.parametrize("D", [384, 1024, 100])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("w_dtype", DTYPES)
+def test_rmsnorm_split_rows_match_plain_and_the_whole_row(cuda, D, dtype,
+                                                          w_dtype):
+    """The gated norm's row split over 4 ranks (D columns a rank; 100 takes
+    the scalar paths): each shard's statistic launch, the statistics
+    summed, then its rows' launch, forward and backward, against the plain
+    twins on the same shards and the whole-row kernels on the gathered
+    row; with one shard, bit for bit the whole-row kernels (forward,
+    backward, and ``ops.rmsnorm_split`` with its autograd against
+    ``ops.rmsnorm``)."""
+    n, rows, eps = 4, 77, 1e-5
+    g = torch.Generator(device=cuda).manual_seed(9)
+    x, gy = (torch.randn((rows, n * D), generator=g, device=cuda).to(dtype)
+             for _ in range(2))
+    w = (1 + 0.1 * torch.randn((n * D,), generator=g, device=cuda)
+         ).to(w_dtype)
+    cols = [slice(i * D, (i + 1) * D) for i in range(n)]
+    xs, gs = ([t[:, c].contiguous() for c in cols] for t in (x, gy))
+    ws = [w[c].contiguous() for c in cols]
+    launches = (krms.split_launches, krms.split_bwd_launches)
+    stat = sum(krms.rmsnorm_stat_cuda(a, b) for a, b in zip(xs, ws))
+    fwd = [krms.rmsnorm_split_cuda(a, b, stat, n * D, eps)
+           for a, b in zip(xs, ws)]
+    bstat = sum(krms.rmsnorm_bwd_stat_cuda(a, b, f[1], c)
+                for a, b, c, f in zip(xs, ws, gs, fwd))
+    bwd = [krms.rmsnorm_split_bwd_cuda(a, b, f[1], c, bstat, n * D)
+           for a, b, c, f in zip(xs, ws, gs, fwd)]
+    torch.cuda.synchronize()
+    assert (krms.split_launches, krms.split_bwd_launches) == (
+        launches[0] + 2 * n, launches[1] + 2 * n)
+    pstat = sum(ref.rmsnorm_stat_ref(a) for a in xs)
+    pfwd = [ref.rmsnorm_split_fwd_ref(a, b, pstat, n * D, eps)
+            for a, b in zip(xs, ws)]
+    pbstat = sum(ref.rmsnorm_bwd_stat_ref(a, b, f[1], c)
+                 for a, b, c, f in zip(xs, ws, gs, pfwd))
+    pbwd = [ref.rmsnorm_split_bwd_ref(a, b, f[1], c, pbstat, n * D)
+            for a, b, c, f in zip(xs, ws, gs, pfwd)]
+    y_w, inv_w = krms.rmsnorm_cuda(x, w, eps, return_inv=True)
+    dx_w, dw_w = krms.rmsnorm_bwd_cuda(x, w, inv_w, gy)
+    got = (torch.cat([f[0] for f in fwd], 1), fwd[0][1],
+           torch.cat([b[0] for b in bwd], 1), torch.cat([b[1] for b in bwd]))
+    plain = (torch.cat([f[0] for f in pfwd], 1), pfwd[0][1],
+             torch.cat([b[0] for b in pbwd], 1),
+             torch.cat([b[1] for b in pbwd]))
+    for a, b, c in zip(got, plain, (y_w, inv_w, dx_w, dw_w)):
+        tol = _tol(a.dtype)
+        torch.testing.assert_close(a.float(), b.float(), **tol)
+        torch.testing.assert_close(a.float(), c.float(), **tol)
+    # one shard: the whole-row kernels' bits
+    s1 = krms.rmsnorm_stat_cuda(x, w)
+    y1, inv1 = krms.rmsnorm_split_cuda(x, w, s1, n * D, eps)
+    dx1, dw1 = krms.rmsnorm_split_bwd_cuda(
+        x, w, inv1, gy, krms.rmsnorm_bwd_stat_cuda(x, w, inv1, gy), n * D)
+    for a, b in zip((y1, inv1, dx1, dw1), (y_w, inv_w, dx_w, dw_w)):
+        assert torch.equal(a, b)
+    xa, wa, xb, wb = (t.clone().requires_grad_() for t in (x, w, x, w))
+    ya = ops.rmsnorm_split(xa, wa, d_whole=n * D, reduce=lambda t: t,
+                           eps=eps)
+    yb = ops.rmsnorm(xb, wb, eps=eps)
+    ya.backward(gy)
+    yb.backward(gy)
+    assert torch.equal(ya, yb) and torch.equal(xa.grad, xb.grad) \
+        and torch.equal(wa.grad, wb.grad)
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_ssd_bwd_kernel_reads_views_and_is_deterministic(cuda, dtype):
     """x as the model's view of (B, S, H * P) and B/C as slices of one
@@ -1396,11 +1498,13 @@ def _flat(tree, prefix=""):
 
 @pytest.mark.parametrize("arch,shape", [
     ("yi-6b", "1x4"), ("yi-6b", "2x2"), ("qwen1.5-4b", "1x4"),
-    ("mixtral-8x7b", "1x4"), ("whisper-tiny", "1x4")])
+    ("mixtral-8x7b", "1x4"), ("whisper-tiny", "1x4"),
+    ("mamba2-130m", "1x4"), ("zamba2-1.2b", "1x4")])
 def test_torchrun_four_ranks_split(two_cards, arch, shape):
-    """Four ranks at (1, 4) or (2, 2), the dense compute split over
-    "model" (qwen1.5-4b's 3 heads: the query rows), held against one rank
-    by ``_split_worker``."""
+    """Four ranks at (1, 4) or (2, 2), the compute split over "model"
+    (qwen1.5-4b's 3 heads: the query rows; the mamba blocks by SSM heads,
+    their gated norm on the split-row kernels; MoE decode's experts where
+    they lie), held against one rank by ``_split_worker``."""
     import os
     import subprocess
     import sys

@@ -1,8 +1,10 @@
-"""The dense compute split over the ``model`` axis (heads, ``ffn``
-columns, vocab rows; query rows where the heads do not divide; a KV cache
-split over its positions or heads), on the CPU: 4 ``gloo`` ranks, f32
-smoke configs, held against the JAX package under ``use_rules`` on an
-Auto mesh of the same shape.
+"""The compute split over the ``model`` axis (heads, ``ffn`` columns,
+vocab rows; query rows where the heads do not divide; a KV cache split
+over its positions or heads; the Mamba2 block by SSM heads or by the SSD
+head dim, its gated RMSNorm over a split row, its decode state the rank's
+block; MoE decode's experts where they lie), on the CPU: 4 ``gloo``
+ranks, f32 smoke configs, held against the JAX package under
+``use_rules`` on an Auto mesh of the same shape.
 
 The harness is tests/test_torch_distributed.py's: a module fixture runs
 ``python tests/test_torch_tensor_parallel.py jax OUT`` (4 host devices)
@@ -15,19 +17,27 @@ both draw weights and inputs from numpy seeds and write ``.npz`` files.
   int8 caches); yi-6b (heads divide, Hkv 2 does not at model 4),
   qwen1.5-4b (3 heads: the query rows, ``"q_seq"``), mixtral (attention
   split beside the expert block), whisper (cross-attention and its cache)
-  llava (patches before the prompt) and zamba2 (its shared attention
-  block split, its mamba blocks whole);
+  llava (patches before the prompt), zamba2 (its shared attention
+  block and its mamba blocks split, 2 of 8 SSM heads a rank) and mamba2
+  (2 of 8 heads; with ``ssm_head_dim`` 64, 2 heads that do not divide 4,
+  16 of 64 head-dim channels); MoE decode (S = 1, the gspmd path) runs
+  the rank's experts (mixtral's 4 at model 4: one a rank) or, with 6
+  experts, all of them on its ffn slice;
 - training (``TRAIN``): the loss and the first batch's gradients, then a
   train step, for those archs and mamba2 (the tied head's vocab-parallel
-  CE; its blocks run whole);
+  CE; its blocks split by heads, and by head dim);
 - on each rank: the leaves replicated over ``model`` (norms, routers,
-  ``b_down``) get the same gradient bit for bit on every model rank, and
-  the calls see the local sizes (yi-6b at (1, 4): 1 of 4 query heads, 32
-  of 128 ``ffn`` columns, 64 of 256 vocab rows; qwen1.5-4b: 4 of 16 query
-  rows);
+  ``b_down``, the mamba block's B / C / dt projections and convolutions,
+  ``A_log``, ``D``, ``dt_bias``) get the same gradient bit for bit on
+  every model rank, and the calls see the local sizes (yi-6b at (1, 4): 1
+  of 4 query heads, 32 of 128 ``ffn`` columns, 64 of 256 vocab rows;
+  qwen1.5-4b: 4 of 16 query rows; the SSD scan's heads and head dim, the
+  gated norm's 32 of 128 columns, the decode experts);
 - a checkpoint saved at (1, 4) loads at one rank, and the other way
   round, bit for bit; and, in this process, the CE statistics of four
-  vocab shards merged against the whole vocab's.
+  vocab shards merged against the whole vocab's, the split-row RMSNorm's
+  four column shards against the whole row, and the SSD scan on a head
+  dim zero-padded to 8 against it unpadded.
 
 Limits: logits against the port at one rank (under one-rank rules: the
 MoE block's semantics) rtol 1e-4 (atol 1e-4 of the largest), and against
@@ -37,6 +47,8 @@ rtol 1e-4, params after a step rtol 1e-5 plus 2 lr.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import os
 import subprocess
@@ -66,17 +78,22 @@ SERVE = {
     "mixtral_1x4": ("mixtral-8x7b", (1, 4), {}, 24),
     "whisper_1x4": ("whisper-tiny", (1, 4), {}, 22),  # cross cache kv_seq
     "llava_1x4": ("llava-next-mistral-7b", (1, 4), {}, 36),
-    "zamba2_1x4": ("zamba2-1.2b", (1, 4), {}, 24),  # the shared block
+    "zamba2_1x4": ("zamba2-1.2b", (1, 4), {}, 24),  # shared block, heads
+    "mamba2_1x4": ("mamba2-130m", (1, 4), {}, 24),  # SSM heads
+    "mamba2_1x4_p": ("mamba2-130m", (1, 4), {"ssm_head_dim": 64}, 24),
+    "mixtral_1x4_ffn": ("mixtral-8x7b", (1, 4), {"num_experts": 6}, 24),
 }
+# name: (arch, mesh, config overrides)
 TRAIN = {
-    "yi_1x4": ("yi-6b", (1, 4)),
-    "qwen4b_1x4": ("qwen1.5-4b", (1, 4)),
-    "qwen4b_2x2": ("qwen1.5-4b", (2, 2)),
-    "mixtral_1x4": ("mixtral-8x7b", (1, 4)),
-    "whisper_1x4": ("whisper-tiny", (1, 4)),
-    "llava_1x4": ("llava-next-mistral-7b", (1, 4)),
-    "mamba2_1x4": ("mamba2-130m", (1, 4)),
-    "zamba2_1x4": ("zamba2-1.2b", (1, 4)),
+    "yi_1x4": ("yi-6b", (1, 4), {}),
+    "qwen4b_1x4": ("qwen1.5-4b", (1, 4), {}),
+    "qwen4b_2x2": ("qwen1.5-4b", (2, 2), {}),
+    "mixtral_1x4": ("mixtral-8x7b", (1, 4), {}),
+    "whisper_1x4": ("whisper-tiny", (1, 4), {}),
+    "llava_1x4": ("llava-next-mistral-7b", (1, 4), {}),
+    "mamba2_1x4": ("mamba2-130m", (1, 4), {}),
+    "mamba2_1x4_p": ("mamba2-130m", (1, 4), {"ssm_head_dim": 64}),
+    "zamba2_1x4": ("zamba2-1.2b", (1, 4), {}),
 }
 CKPT_ARCH = "yi-6b"
 # cases whose one-rank port already lies farther from JAX than the JAX
@@ -84,9 +101,17 @@ CKPT_ARCH = "yi-6b"
 # rounds apart in the two packages (int8: tests/test_torch_serving_archs.py;
 # bf16: tests/test_torch_ssm.py's one bf16 ulp), and the move grows
 # downstream (yi-6b int8: ~5e-3 at one rank; zamba2's shared block, read
-# after the mamba blocks: ~1.6e-2).  These are held against the port at
-# one rank, and no farther from JAX than it.
-CACHE_ROUNDING = ("yi_1x4_int8_whole", "yi_2x2_int8", "zamba2_1x4")
+# after the mamba blocks: ~1.6e-2; mamba2's bf16 conv tails: ~2.2e-3).
+# These are held against the port at one rank, and no farther from JAX
+# than it.
+CACHE_ROUNDING = ("yi_1x4_int8_whole", "yi_2x2_int8", "zamba2_1x4",
+                  "mamba2_1x4")
+# cases held against the port at one rank with their caches in f32 (both
+# runs): zamba2's split mamba blocks move the residual stream in its last
+# bits, and its shared block's bf16 KV cache rounds ~0.2% of K/V elements
+# apart, which moves the logits by up to 3e-4 (with f32 caches the split
+# lies 2e-6 from one rank)
+F32_CACHES = ("zamba2_1x4",)
 
 
 def _prefix(cfg) -> int:
@@ -166,13 +191,13 @@ def _jax_main(out):
                  logits=np.concatenate([np.asarray(o, np.float32)
                                         for o in outs], axis=1))
 
-    for name, (arch, shape) in TRAIN.items():
-        cfg = TD._cfg(arch)
+    for name, (arch, shape, over) in TRAIN.items():
+        cfg = TD._cfg(arch, **over)
         run = TD._run(cfg)
         jrun = JRunConfig(total_steps=run.total_steps,
                           warmup_steps=run.warmup_steps,
                           ce_block_v=run.ce_block_v, ce_dtype=run.ce_dtype)
-        jcfg = j_smoke(arch)
+        jcfg = j_smoke(arch).replace(**over)
         jp = jax.tree.map(jnp.asarray, TD._np_params(cfg))
         b = {k: jnp.asarray(v) for k, v in _train_batch(cfg).items()}
         with j_use_rules(JRules(mesh(shape))):
@@ -197,23 +222,16 @@ def _rules(shape):
     return ShardingRules(make_mesh(shape, ("data", "model"), "cpu"))
 
 
-def _torch_serve(name, out, rank):
-    import torch.distributed as dist
-
+def _serve_path(cfg, rules, prompt, dec, max_len):
+    """Prefill and N_DEC teacher-forced decode steps under ``rules`` on
+    this rank's rows; returns (the logits of every rank's rows, the
+    rank's cache)."""
     from repro_torch.configs.base import RunConfig
-    from repro_torch.models import layers as L
     from repro_torch.models import params as P
     from repro_torch.models import registry
-    from repro_torch.launch.mesh import Mesh
     from repro_torch.serve import engine
-    from repro_torch.sharding import (ShardingRules, batch_split,
-                                      shard_params, use_rules)
-    arch, shape, over, max_len = SERVE[name]
-    cfg = TD._cfg(arch, **over)
-    rules = _rules(shape)
-    prompt, dec = _serve_inputs(cfg)
-    rows = rules.rows(B)
-    axes = rules.batch_axes(B)
+    from repro_torch.sharding import batch_split, shard_params, use_rules
+    rows, axes = rules.rows(B), rules.batch_axes(B)
     run = RunConfig()
     with use_rules(rules), torch.inference_mode(), \
             batch_split(len(rows), axes):
@@ -230,47 +248,91 @@ def _torch_serve(name, out, rank):
             lg, cache = registry.decode(params, cfg, run, toks[:, i:i + 1],
                                         cache, _prefix(cfg) + i)
             outs.append(lg)
-        logits = rules.all_gather(torch.cat(outs, dim=1), 0, axes)
+        return rules.all_gather(torch.cat(outs, dim=1), 0, axes), cache
+
+
+@contextlib.contextmanager
+def _f32_caches():
+    """KV caches and mamba states held in f32 (patched into the defs), so
+    that no cached element rounds."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import mamba2 as M
+    saved = L.kv_cache_defs, M.state_defs
+
+    def f32(fn):
+        return lambda *a: {k: dataclasses.replace(d, dtype=torch.float32)
+                           for k, d in fn(*a).items()}
+    L.kv_cache_defs, M.state_defs = f32(L.kv_cache_defs), f32(M.state_defs)
+    try:
+        yield
+    finally:
+        L.kv_cache_defs, M.state_defs = saved
+
+
+def _torch_serve(name, out, rank):
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import layers as L
+    from repro_torch.models import mamba2 as M
+    from repro_torch.models import params as P
+    from repro_torch.sharding import ShardingRules, use_rules
+    arch, shape, over, max_len = SERVE[name]
+    cfg = TD._cfg(arch, **over)
+    rules = _rules(shape)
+    one_rank = ShardingRules(Mesh((1, 1), ("data", "model")))
+    prompt, dec = _serve_inputs(cfg)
+    with _Sizes() as sizes:
+        logits, cache = _serve_path(cfg, rules, prompt, dec, max_len)
+    held = {"sizes": sizes.as_dict()}
+    if cfg.family != "ssm":
         kv = {"encdec": lambda c: c["self"], "hybrid": lambda c: c["kv"]
               }.get(cfg.family, lambda c: c)(cache)
-        held = {"positions_heads": list(kv["k"].shape[2:4]),
-                "kv_positions": L.kv_positions(P.layer(kv, 0))}
-        if cfg.family == "encdec":
-            held["cross_positions"] = L.kv_positions(
-                P.layer(cache["cross"], 0))
+        held.update(positions_heads=list(kv["k"].shape[2:4]),
+                    kv_positions=L.kv_positions(P.layer(kv, 0)))
+    if cfg.family == "encdec":
+        held["cross_positions"] = L.kv_positions(P.layer(cache["cross"], 0))
+    if cfg.family in ("ssm", "hybrid"):
+        st = cache if cfg.family == "ssm" else cache["mamba"]
+        held["mamba"] = {k: list(v.shape) for k, v in st.items()}
+        with use_rules(rules):
+            held["ssm_split"] = M.ssm_split(cfg)
+    saved = {"logits": logits}
     if rank == 0:
-        one_rank = ShardingRules(Mesh((1, 1), ("data", "model")))
-        with use_rules(one_rank), torch.inference_mode():
-            full = P.tree_map(torch.from_numpy, TD._np_params(cfg))
-            batch = {k: torch.from_numpy(v) for k, v in prompt.items()}
-            batch["tokens"] = batch["tokens"].long()
-            cache = engine.init_cache(cfg, B, max_len, "cpu")
-            lg, cache = registry.prefill(full, cfg, run, batch, cache)
-            one = [lg]
-            for i in range(N_DEC):
-                lg, cache = registry.decode(
-                    full, cfg, run, torch.from_numpy(dec[:, i:i + 1]).long(),
-                    cache, _prefix(cfg) + i)
-                one.append(lg)
+        saved["one"] = _serve_path(cfg, one_rank, prompt, dec, max_len)[0]
+    if name in F32_CACHES:
+        with _f32_caches():
+            saved["logits_f32"] = _serve_path(cfg, rules, prompt, dec,
+                                              max_len)[0]
+            if rank == 0:
+                saved["one_f32"] = _serve_path(cfg, one_rank, prompt, dec,
+                                               max_len)[0]
+    if rank == 0:
         np.savez(os.path.join(out, f"serve_port_{name}.npz"),
-                 logits=logits.numpy(), one=torch.cat(one, dim=1).numpy())
-        with open(os.path.join(out, f"serve_cache_{name}.json"), "w") as f:
-            json.dump(held, f)
+                 **{k: v.numpy() for k, v in saved.items()})
+    with open(os.path.join(out, f"serve_cache_{name}_{rank}.json"), "w") as f:
+        json.dump(held, f)
     dist.barrier()
 
 
 class _Sizes:
-    """Records the local sizes the split calls see (patched in)."""
+    """Records the local sizes the split calls see (patched in): flash
+    attention's (query rows, query heads, kv heads), the MLP's ``ffn``
+    columns, the CE's vocab rows, the SSD scan's and decode step's (heads,
+    head dim), the split gated norm's (columns, whole row) and the expert
+    grid's (experts, ffn columns) at decode (S = 1)."""
 
     def __init__(self):
         self.flash, self.mlp, self.ce = set(), set(), set()
+        self.ssd, self.norm, self.experts = set(), set(), set()
 
     def __enter__(self):
         from repro_torch.kernels import ops, ref
         from repro_torch.models import layers as L
         self.saved = (ops.flash_attention, L.mlp,
-                      ref.cross_entropy_partial_ref)
-        flash, mlp, ce = self.saved
+                      ref.cross_entropy_partial_ref, ops.ssd,
+                      ops.ssd_decode, ops.rmsnorm_split, L._experts_combine)
+        flash, mlp, ce, ssd, ssd_decode, norm, experts = self.saved
 
         def rec_flash(q, k, v, **kw):
             self.flash.add((q.shape[1], q.shape[2], k.shape[2]))
@@ -283,19 +345,39 @@ class _Sizes:
         def rec_ce(hidden, w, targets, **kw):
             self.ce.add(w.shape[0])
             return ce(hidden, w, targets, **kw)
+
+        def rec_ssd(x, *a, **kw):
+            self.ssd.add(tuple(x.shape[2:]))
+            return ssd(x, *a, **kw)
+
+        def rec_ssd_decode(x, *a):
+            self.ssd.add(tuple(x.shape[1:]))
+            return ssd_decode(x, *a)
+
+        def rec_norm(x, w, **kw):
+            self.norm.add((x.shape[-1], kw["d_whole"]))
+            return norm(x, w, **kw)
+
+        def rec_experts(p, cfg, x, *a):
+            if x.shape[1] == 1:
+                self.experts.add((a[-2], p["w_gate"].shape[-1]))
+            return experts(p, cfg, x, *a)
         ops.flash_attention, L.mlp = rec_flash, rec_mlp
         ref.cross_entropy_partial_ref = rec_ce
+        ops.ssd, ops.ssd_decode = rec_ssd, rec_ssd_decode
+        ops.rmsnorm_split, L._experts_combine = rec_norm, rec_experts
         return self
 
     def __exit__(self, *exc):
         from repro_torch.kernels import ops, ref
         from repro_torch.models import layers as L
-        ops.flash_attention, L.mlp, ref.cross_entropy_partial_ref = \
-            self.saved
+        (ops.flash_attention, L.mlp, ref.cross_entropy_partial_ref, ops.ssd,
+         ops.ssd_decode, ops.rmsnorm_split, L._experts_combine) = self.saved
 
     def as_dict(self):
         return {"flash": sorted(self.flash), "mlp": sorted(self.mlp),
-                "ce": sorted(self.ce)}
+                "ce": sorted(self.ce), "ssd": sorted(self.ssd),
+                "norm": sorted(self.norm), "experts": sorted(self.experts)}
 
 
 def _torch_train(name, out, rank):
@@ -307,8 +389,8 @@ def _torch_train(name, out, rank):
     from repro_torch.sharding import (gather_params, rules as SRm,
                                       shard_params, use_rules)
     from repro_torch.train import step as tstep
-    arch, shape = TRAIN[name]
-    cfg = TD._cfg(arch)
+    arch, shape, over = TRAIN[name]
+    cfg = TD._cfg(arch, **over)
     rules = _rules(shape)
     defs = registry.param_defs(cfg)
     run = TD._run(cfg)
@@ -435,14 +517,20 @@ def test_prefill_and_decode_match_one_rank_and_jax_under_rules(runs, case):
     (the same function: sums in another order), then against the JAX
     package under rules at the port's f32 serving limit against JAX
     (tests/test_torch_serving.py: 2e-3); the ``CACHE_ROUNDING`` cases no
-    farther from JAX than one rank."""
+    farther from JAX than one rank.  The ``F32_CACHES`` cases are held
+    against one rank with both runs' caches in f32, where no cached
+    element can round apart."""
     out, _ = runs
     port = np.load(out / f"serve_port_{case}.npz")
     got, one = port["logits"], port["one"]
     want = np.load(out / f"serve_jax_{case}.npz")["logits"]
     assert got.shape == want.shape == one.shape == (B, 1 + N_DEC,
                                                     got.shape[-1])
-    TD._close(got, one, 1e-4, atol_share=1e-4, msg=f"{case} one rank")
+    if case in F32_CACHES:
+        TD._close(port["logits_f32"], port["one_f32"], 1e-4, atol_share=1e-4,
+                  msg=f"{case} one rank, f32 caches")
+    else:
+        TD._close(got, one, 1e-4, atol_share=1e-4, msg=f"{case} one rank")
     if case in CACHE_ROUNDING:
         assert np.abs(got - want).max() <= np.abs(one - want).max() + 1e-4
     else:
@@ -450,11 +538,19 @@ def test_prefill_and_decode_match_one_rank_and_jax_under_rules(runs, case):
                                    err_msg=case)
 
 
+def _held(out, case, rank=0):
+    with open(out / f"serve_cache_{case}_{rank}.json") as f:
+        return json.load(f)
+
+
 def test_caches_hold_the_rank_block_of_their_spec(runs):
     """max_len 24 divides model 4 (and 2): the cache holds 24 / n
     positions of every kv head; 22 does not: yi-6b's 2 kv heads do not
     divide 4 either, so the cache is whole; at model 2 with max_len 23
-    the heads split; whisper's self cache (22) splits its 4 heads."""
+    the heads split; whisper's self cache (22) splits its 4 heads.  The
+    mamba states: ``tail_x`` the rank's din / 4 channels, ``ssm`` its 2 of
+    8 heads (smoke) or, at head dim 64 (2 heads), its 16 of 64 channels;
+    the B and C tails whole."""
     out, _ = runs
     want = {"yi_1x4": ([6, 2], [0, 6]),
             "yi_1x4_int8_whole": ([22, 2], None),
@@ -468,12 +564,29 @@ def test_caches_hold_the_rank_block_of_their_spec(runs):
             "llava_1x4": ([9, 2], [0, 9]),
             "zamba2_1x4": ([6, 4], [0, 6])}
     for case, (held, positions) in want.items():
-        with open(out / f"serve_cache_{case}.json") as f:
-            got = json.load(f)
-        assert got["positions_heads"] == held, case
-        assert got["kv_positions"] == positions, case
-    with open(out / "serve_cache_whisper_1x4.json") as f:
-        assert json.load(f)["cross_positions"] == [0, 8]  # 32 frames
+        for rank in range(WORLD):
+            got = _held(out, case, rank)
+            assert got["positions_heads"] == held, case
+            m = rank % SERVE[case][1][1]  # the rank's model coordinate
+            first = None if positions is None else \
+                [positions[1] * m, positions[1]]
+            assert got["kv_positions"] == first, (case, rank)
+    assert _held(out, "whisper_1x4")["cross_positions"] == [0, 8]  # 32
+    for case, mode in (("zamba2_1x4", "heads"), ("mamba2_1x4", "heads"),
+                       ("mamba2_1x4_p", "p")):
+        arch, _, over, _ = SERVE[case]
+        cfg = TD._cfg(arch, **over)
+        H, P, N, W = (cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state,
+                      cfg.ssm_conv)
+        lead = [cfg.num_layers, B]
+        ssm = [H // WORLD, P] if mode == "heads" else [H, P // WORLD]
+        for rank in range(WORLD):
+            got = _held(out, case, rank)
+            assert got["ssm_split"] == mode, case
+            assert got["mamba"] == {
+                "tail_x": lead + [W - 1, cfg.ssm_inner // WORLD],
+                "tail_B": lead + [W - 1, N], "tail_C": lead + [W - 1, N],
+                "ssm": lead + ssm + [N]}, (case, rank, got["mamba"])
 
 @pytest.mark.parametrize("case", list(TRAIN))
 def test_loss_gradients_and_step_match_jax_under_rules(runs, case):
@@ -491,36 +604,66 @@ def test_loss_gradients_and_step_match_jax_under_rules(runs, case):
                                    err_msg=f"{case} {k}")
 
 
+# the mamba block's leaves the rules replicate over "model": each rank's
+# heads (or head-dim channels) give a part of their gradients
+MAMBA_REPLICATED = ("A_log", "D", "dt_bias", "w_B", "w_C", "w_dt", "conv_B",
+                    "conv_C", "conv_B_b", "conv_C_b", "ln")
+
+
 @pytest.mark.parametrize("case", list(TRAIN))
 def test_replicated_gradients_are_equal_on_every_model_rank(runs, case):
-    """Norms, routers, ``b_down``, the mamba blocks: every leaf the rules
-    do not split over ``model`` has one gradient on every model rank, bit
-    for bit (nothing sums it away)."""
+    """Norms, routers, ``b_down``, and the mamba block's leaves the rules
+    still replicate (``A_log``, ``D``, ``dt_bias``, ``w_B``, ``w_C``,
+    ``w_dt``, ``conv_B``, ``conv_C`` and their biases, its norm): every
+    leaf the rules do not split over ``model`` has one gradient on every
+    model rank, bit for bit (summed over ``model`` where the ranks' blocks
+    each give a part of it, nothing summed away)."""
     out, _ = runs
     for rank in range(WORLD):
         with open(out / f"train_rank_{case}_{rank}.json") as f:
             same = json.load(f)["replicated_equal"]
         assert same and all(same.values()), (case, rank, same)
     assert any("ln" in k for k in same)
+    if TRAIN[case][0] in ("mamba2-130m", "zamba2-1.2b"):
+        blocks = {k.split("/")[-1] for k in same if "/blocks/" in k}
+        assert blocks == set(MAMBA_REPLICATED), (case, blocks)
 
 
 def test_each_rank_computes_its_block(runs):
     """yi-6b at (1, 4): each rank's flash calls see 1 of 4 query heads
     (and the one kv head it reads), its MLP products 32 of 128 columns,
     its CE 64 of 256 vocab rows; qwen1.5-4b (3 heads) at (1, 4) attends
-    with 4 of 16 query rows, all 3 heads; mamba2's CE 64 rows."""
+    with 4 of 16 query rows, all 3 heads; mamba2's CE 64 rows; the mamba
+    blocks' SSD scan and decode steps (training and serving) see the
+    rank's heads or head-dim channels and the gated norm its columns;
+    MoE decode runs the rank's experts or its ffn slice of all."""
     out, _ = runs
     for rank in range(WORLD):
         def sizes(case):
             with open(out / f"train_rank_{case}_{rank}.json") as f:
                 return json.load(f)["sizes"]
         yi = sizes("yi_1x4")
-        assert yi == {"flash": [[S, 1, 1]], "mlp": [32], "ce": [64]}, yi
+        assert yi == {"flash": [[S, 1, 1]], "mlp": [32], "ce": [64],
+                      "ssd": [], "norm": [], "experts": []}, yi
         qw = sizes("qwen4b_1x4")
         assert qw["flash"] == [[S // 4, 3, 3]] and qw["ce"] == [64], qw
         assert qw["mlp"] == [96 // 4], qw
-        assert sizes("mamba2_1x4")["ce"] == [64]
         assert sizes("qwen4b_2x2")["flash"] == [[S // 2, 3, 3]]
+        # the mamba blocks: 2 of 8 SSM heads of 16 (or, at head dim 64,
+        # both heads' 16 of 64 channels), the gated norm's 32 of 128
+        mamba = {"ssd": [[2, 16]], "norm": [[32, 128]]}
+        for case in ("mamba2_1x4", "mamba2_1x4_p", "zamba2_1x4"):
+            got = sizes(case)
+            assert {k: got[k] for k in mamba} == mamba, (case, got)
+            served = _held(out, case, rank)["sizes"]
+            assert {k: served[k] for k in mamba} == mamba, (case, served)
+        assert sizes("mamba2_1x4")["ce"] == [64]
+        # MoE decode: mixtral's 4 experts, one a rank, with all 128 ffn
+        # columns; 6 experts (no multiple of 4) on 32 of 128 columns each
+        assert _held(out, "mixtral_1x4", rank)["sizes"]["experts"] == \
+            [[1, 128]]
+        assert _held(out, "mixtral_1x4_ffn", rank)["sizes"]["experts"] == \
+            [[6, 32]]
 
 
 def test_checkpoint_saved_at_1x4_loads_at_one_rank(runs):
@@ -584,3 +727,86 @@ def test_vocab_shards_merge_to_the_whole_vocab(dtype):
     torch.testing.assert_close(got_nll, nll, rtol=1e-6, atol=1e-5)
     # a target lies in one shard: the others add nothing
     assert (parts[:, :, 2] != 0).sum(0).max() == 1
+
+
+def _within_ulp(got, want, dtype):
+    """f32: rtol 1e-6 (atol 1e-6 of the largest); bf16: one ulp of want."""
+    got, want = got.double(), want.double()
+    if dtype == torch.float32:
+        tol = 1e-6 * want.abs() + 1e-6 * want.abs().max()
+    else:
+        tol = 2.0 ** (torch.floor(torch.log2(want.abs().clamp_min(
+            2.0 ** -126))) - 7)
+    assert ((got - want).abs() <= tol).all(), (got - want).abs().max()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_rows_of_the_rmsnorm_equal_the_whole_row(dtype):
+    """Four column shards of each row through the split-row plain RMSNorm
+    (``rmsnorm_stat_ref`` / ``rmsnorm_split_fwd_ref``, then
+    ``rmsnorm_bwd_stat_ref`` / ``rmsnorm_split_bwd_ref``), the shards'
+    statistics summed, equal the whole row's ``rmsnorm_fwd_ref`` /
+    ``rmsnorm_bwd_ref`` (f32 rtol 1e-6, bf16 within one ulp); with one
+    shard they are the whole row's bit for bit."""
+    from repro_torch.kernels import ref
+    g = torch.Generator().manual_seed(0)
+    D, n, eps = 128, 4, 1e-5
+    x = torch.randn((3, 37, D), generator=g).to(dtype)
+    w = (1 + 0.1 * torch.randn(D, generator=g)).to(dtype)
+    gy = torch.randn((3, 37, D), generator=g).to(dtype)
+    y, inv = ref.rmsnorm_fwd_ref(x, w, eps)
+    dx, dw = ref.rmsnorm_bwd_ref(x, w, inv, gy)
+    for k in (1, n):
+        cols = [slice(i * D // k, (i + 1) * D // k) for i in range(k)]
+        stat = sum(ref.rmsnorm_stat_ref(x[..., c].contiguous())
+                   for c in cols)
+        fwd = [ref.rmsnorm_split_fwd_ref(x[..., c], w[c], stat, D, eps)
+               for c in cols]
+        bstat = sum(ref.rmsnorm_bwd_stat_ref(x[..., c], w[c], f[1],
+                                             gy[..., c])
+                    for c, f in zip(cols, fwd))
+        bwd = [ref.rmsnorm_split_bwd_ref(x[..., c], w[c], f[1], gy[..., c],
+                                         bstat, D)
+               for c, f in zip(cols, fwd)]
+        got = (torch.cat([f[0] for f in fwd], -1), fwd[0][1],
+               torch.cat([b[0] for b in bwd], -1),
+               torch.cat([b[1] for b in bwd], -1))
+        for a, b in zip(got, (y, inv, dx, dw)):
+            if k == 1:
+                assert torch.equal(a, b)
+            else:
+                _within_ulp(a, b, dtype if a.dtype == dtype
+                            else torch.float32)
+
+
+def test_ssd_plain_path_on_a_zero_padded_head_dim_equals_it_unpadded():
+    """The SSD kernels' wrapper pads a head dim that is no multiple of 8
+    (mamba2-130m's P 64 over 16 ranks: 4) with zeros and cuts the results
+    back; on the plain path the same padding leaves y, the final state and
+    every gradient of ``ssd_bwd_ref`` bit for bit as they were."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    g = torch.Generator().manual_seed(0)
+    B_, S_, H, P, N, chunk = 2, 50, 3, 4, 16, 32
+    x, dy = (torch.randn((B_, S_, H, P), generator=g) for _ in range(2))
+    dt = torch.rand((B_, S_, H), generator=g) * 0.5 + 0.01
+    A = -torch.rand(H, generator=g) - 0.1
+    Bm, Cm = (torch.randn((B_, S_, 1, N), generator=g) for _ in range(2))
+    h0, dh = (torch.randn((B_, H, P, N), generator=g) for _ in range(2))
+    pad_x = lambda t: F.pad(t, (0, 8 - P))  # noqa: E731
+    pad_h = lambda t: F.pad(t, (0, 0, 0, 8 - P))  # noqa: E731
+    y, h = ref.ssd_ref(x, dt, A, Bm, Cm, chunk=chunk, init_state=h0,
+                       return_state=True)
+    yp, hp = ref.ssd_ref(pad_x(x), dt, A, Bm, Cm, chunk=chunk,
+                         init_state=pad_h(h0), return_state=True)
+    assert torch.equal(yp[..., :P], y) and torch.equal(hp[:, :, :P], h)
+    assert not yp[..., P:].any()
+    want = ref.ssd_bwd_ref(x, dt, A, Bm, Cm, dy, chunk=chunk, init_state=h0,
+                           d_state=dh)
+    got = list(ref.ssd_bwd_ref(pad_x(x), dt, A, Bm, Cm, pad_x(dy),
+                               chunk=chunk, init_state=pad_h(h0),
+                               d_state=pad_h(dh)))
+    got[0], got[5] = got[0][..., :P], got[5][:, :, :P]
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
