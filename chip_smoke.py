@@ -187,7 +187,14 @@ Phases, each of which fails the run (non-zero exit, no final result line):
    kv heads, ``ffn`` columns and vocab rows (yi-6b: 8 of 32, 1 of 4, 2752 of
    11008, 16000 of 64000), its SSD heads (16 of 64, 6 of 24) and its gated
    norm's columns (1024 of 4096, 384 of 1536); each rank's CE merges the
-   ranks' statistics with ``ce_merge_kernel``. Then MoE decode split:
+   ranks' statistics with ``ce_merge_kernel``; each rank tallies the bytes
+   its collectives move by kind (``sharding.collective_tally``) over each
+   half of its path (serving; gradients and steps), and the same path is
+   counted on meta by the dry run's cost model at an abstract (1,
+   TP_RANKS) mesh standing for that rank: the tally must equal the
+   counted collectives kind by kind, and the counted calls the rank's
+   launch counters; its counted peak is logged beside its
+   ``max_memory_allocated``. Then MoE decode split:
    mixtral's smoke config in f32, each rank running its one of 4 experts at S
    = 1, against one rank (relative L2 TP_MOE_TOL). (b) The CE kernel on
    TP_RANKS vocab shards of yi-6b's and qwen3-moe's heads (T 2048, D 4096, V
@@ -249,7 +256,9 @@ from repro_torch.models import params as P  # noqa: E402
 from repro_torch.models import registry  # noqa: E402
 from repro_torch.optim import adamw_update  # noqa: E402
 from repro_torch.serve import engine  # noqa: E402
-from repro_torch.sharding import batch_split, use_rules  # noqa: E402
+from repro_torch.sharding import (ShardingRules, batch_split,  # noqa: E402
+                                  collective_tally, reset_collective_tally,
+                                  use_rules)
 from repro_torch.train import step as tstep  # noqa: E402
 
 L2_BYTES = 50 * 2**20
@@ -2545,15 +2554,15 @@ def _tp_path(cfg, dev, steps: int, dtype: torch.dtype, tokens=None
     prompt, batches = _tp_inputs(cfg, dev, steps)
     params = as_dtype(serve.init_params(cfg, 5, dev))
     reset_launches()
+    reset_collective_tally()
     logits, toks = _tp_serve(cfg, dev, params, prompt, tokens)
     _sync(dev)
     res = {"serve_launches": read_launches(), "logits": logits,
-           "tokens": toks}
+           "tokens": toks, "serve_collectives": collective_tally()}
     del params
-    trun = train.default_run_config(cfg, TRAIN_STEPS)
-    if dtype == torch.float32:
-        trun = trun.replace(ce_dtype="float32")
+    trun = _tp_train_run(cfg, dtype)
     reset_launches()
+    reset_collective_tally()
     state = tstep.init_state(torch.Generator(device=dev).manual_seed(6),
                              cfg, trun)
     state["params"] = as_dtype(state["params"])
@@ -2565,8 +2574,65 @@ def _tp_path(cfg, dev, steps: int, dtype: torch.dtype, tokens=None
         state, m = fn(state, b)
         losses.append(float(m["loss"]))
     _sync(dev)
-    res.update(train_launches=read_launches(), grads=grads, losses=losses)
+    res.update(train_launches=read_launches(), grads=grads, losses=losses,
+               train_collectives=collective_tally())
     return res
+
+
+def _tp_train_run(cfg, dtype: torch.dtype) -> RunConfig:
+    trun = train.default_run_config(cfg, TRAIN_STEPS)
+    return trun.replace(ce_dtype="float32") if dtype == torch.float32 \
+        else trun
+
+
+def _tp_counted(cfg, steps: int, dtype: torch.dtype, coord: int) -> dict:
+    """``_tp_path`` of the rank at ``coord`` of (1, TP_RANKS), counted by
+    the dry run's cost model on the meta device (``launch/cost.py``,
+    kernel mode) under rules over an abstract mesh standing for that rank:
+    the same config, weights' dtype, rows, lengths and steps, each half
+    (the prefill and TP_DECODE decode steps; the first batch's gradients
+    and the train steps) one count, its collectives charged by kind and
+    not run.  Returns {"serve": count, "train": count}."""
+    from repro_torch.launch import cost
+    from repro_torch.optim import adamw_init
+    as_dtype = (lambda t: t) if dtype == torch.bfloat16 else \
+        (lambda t: P.cast_tree(t, dtype))
+    run, trun = RunConfig(), _tp_train_run(cfg, dtype)
+    defs = registry.param_defs(cfg)
+    rules = _rank_rules(coord, TP_RANKS)
+
+    def serve_half(params, prompt):
+        B, S = prompt["tokens"].shape
+        with torch.inference_mode(), batch_split(B, ()):
+            cache = engine.abstract_cache(cfg, B, S + TP_DECODE + 8)
+            logits, cache = registry.prefill(params, cfg, run, prompt, cache)
+            tok = logits[:, -1].argmax(-1, keepdim=True)
+            for i in range(TP_DECODE):
+                logits, cache = registry.decode(params, cfg, run, tok, cache,
+                                                S + i)
+                tok = logits[:, -1].argmax(-1, keepdim=True)
+
+    def train_half(state, batches):
+        grads, _ = tstep.grads_and_metrics(state["params"], cfg, trun,
+                                           batches[0])
+        fn = tstep.make_train_step(cfg, trun)
+        for b in batches:
+            fn(state, b)
+        del grads
+
+    with use_rules(rules):
+        prompt = registry.input_specs(cfg, ShapeConfig(
+            "serve", PROMPT, TP_BATCH, "prefill"))
+        out = {"serve": cost.analyze(serve_half, as_dtype(P.abstract(defs)),
+                                     prompt)}
+        params = P.abstract(defs)
+        state = {"params": as_dtype(params),
+                 "opt": adamw_init(params, dtype=getattr(
+                     torch, trun.opt_state_dtype))}
+        batches = [registry.input_specs(cfg, ShapeConfig(
+            "train", TRAIN_SEQ, TP_BATCH, "train")) for _ in range(steps)]
+        out["train"] = cost.analyze(train_half, state, batches)
+    return out
 
 
 def _tp_moe(dev, tokens=None):
@@ -2610,6 +2676,10 @@ def _tp_rank(rank: int, port: int, out: str) -> None:
         res["sizes"] = sizes.as_dict()
         res["peak_bytes"] = (torch.cuda.max_memory_allocated(dev)
                              if dev.type == "cuda" else None)
+        t0 = time.perf_counter()
+        res["counted"] = _tp_counted(cfg, steps, dtype, rules.mesh.coord(
+            "model"))
+        res["count_seconds"] = time.perf_counter() - t0
         res["grads"] = {k: v.cpu() for k, v in _tree_items(res["grads"])}
         res["logits"] = res["logits"].cpu() if rank == 0 else None
         res["tokens"] = None
@@ -2650,7 +2720,10 @@ def phase_tensor_parallel(failures: list) -> list:
     each gathered gradient leaf within relative L2 5e-2; each rank's launches
     equal the formulas (the gated norm on the split-row kernels), and its calls
     see its heads, ``ffn`` columns and vocab rows, its SSD heads and its gated
-    norm's columns (1024 of 4096 / 384 of 1536). Then MoE decode split (mixtral
+    norm's columns (1024 of 4096 / 384 of 1536); each rank's collectives
+    tallied by kind over each half equal the dry run's count of its path on
+    meta at its coordinate (``_tp_counted``), and its counted calls its
+    launches. Then MoE decode split (mixtral
     smoke, f32: each rank runs its one of 4 experts) against one rank, relative
     L2 TP_MOE_TOL. (b) The CE kernel on TP_RANKS vocab shards of yi-6b's and
     qwen3-moe's heads (T 2048, D 4096, V 64000 / 151936), bf16 and f32, the
@@ -2755,6 +2828,21 @@ def _tp_check(failures: list, cfg, arch: str, steps: int,
         and res["train_launches"] == want_train
         and res["merge_launches"] == 1 + steps for res in ranks)
     sizes_ok = all(res["sizes"] == want_sizes for res in ranks)
+    # each rank's collectives and launches against the meta count at its
+    # coordinate, half by half
+    moved, counted, calls_ok = [], [], True
+    for res in ranks:
+        for half in ("serve", "train"):
+            c = res["counted"][half]
+            moved.append(res[f"{half}_collectives"])
+            counted.append({k[len("coll_"):]: v for k, v in c.items()
+                            if k.startswith("coll_")})
+            got = res[f"{half}_launches"]
+            calls_ok &= all(c["calls"].get(k, 0) == got.get(k, 0)
+                            for k in set(c["calls"]) | set(got))
+    coll_ok = moved == counted and all(sum(m.values()) > 0 for m in moved)
+    counted_peak = [max(r["counted"][h]["peak_bytes"]
+                        for h in ("serve", "train")) for r in ranks]
     finite = bool(torch.isfinite(r0["logits"]).all()) and all(
         math.isfinite(x) for x in r0["losses"])
     worst = max(rel.items(), key=lambda kv: kv[1])
@@ -2772,29 +2860,39 @@ def _tp_check(failures: list, cfg, arch: str, steps: int,
            "merge_launches": r0["merge_launches"], "local_sizes":
            r0["sizes"], "expected_sizes": want_sizes,
            "rank_seconds": [r["seconds"] for r in ranks],
-           "rank_peak_bytes": [r["peak_bytes"] for r in ranks]}
+           "rank_peak_bytes": [r["peak_bytes"] for r in ranks],
+           "rank_collective_bytes": [
+               {"serve": r["serve_collectives"],
+                "train": r["train_collectives"]} for r in ranks],
+           "counted_collective_bytes": [
+               {"serve": counted[2 * i], "train": counted[2 * i + 1]}
+               for i in range(len(ranks))],
+           "collectives_equal_count": coll_ok,
+           "counted_calls_equal_launches": calls_ok,
+           "rank_counted_peak_bytes": counted_peak,
+           "rank_peak_ratio": [c / r["peak_bytes"] for c, r in
+                               zip(counted_peak, ranks)],
+           "rank_count_seconds": [r["count_seconds"] for r in ranks]}
     log("tensor_parallel", json.dumps(row))
     bad = {k: v for k, v in rel.items() if not v <= E2E_TOL}
     if not (finite and launches_ok and sizes_ok and not bad
-            and max(logit_rel) <= E2E_TOL and max(loss_rel) <= LOSS_TOL):
+            and max(logit_rel) <= E2E_TOL and max(loss_rel) <= LOSS_TOL
+            and coll_ok and calls_ok):
         failures.append(f"tensor_parallel {arch}: logits {logit_rel}, "
                         f"losses {loss_rel}, leaves {bad}, launches "
-                        f"{launches_ok}, sizes {sizes_ok}, finite {finite}")
+                        f"{launches_ok}, sizes {sizes_ok}, finite {finite}, "
+                        f"collectives vs count {coll_ok} ({moved} vs "
+                        f"{counted}), counted calls {calls_ok}")
     return [r0["serve_launches"], r0["train_launches"],
             {"ce_merge": r0["merge_launches"]}]
 
 
-def _rank_rules(r: int, n: int):
-    """The (1, n) rules of phase tensor_parallel as rank r sees them, to cut
-    a whole tensor into rank r's block."""
-    from repro_torch.sharding import ShardingRules
-
-    class _M:
-        shape = {"data": 1, "model": n}
-
-        def coord(self, a):
-            return r if a == "model" else 0
-    return ShardingRules(_M())
+def _rank_rules(r: int, n: int) -> ShardingRules:
+    """The (1, n) rules of phase tensor_parallel as rank r sees them, over
+    an abstract mesh standing for rank r: they cut a whole tensor into its
+    block, and count its path on meta."""
+    return ShardingRules(mesh.Mesh((1, n), ("data", "model"),
+                                   coords=(0, r)))
 
 
 def _tp_ce_shards(failures: list) -> dict:

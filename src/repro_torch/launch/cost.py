@@ -26,7 +26,18 @@ counts the aten ops that run.  It returns the keys of
                     destination; a scatter into a buffer moves its update
                     twice (read and written), as ``hlo_cost`` counts a
                     dynamic-update-slice
-  collective_bytes  0: one card
+  collective_bytes  Σ operand bytes of the sharding rules' collectives
+                    (``sharding/rules.py``), as ``hlo_cost`` sums them,
+                    and one ``coll_<kind>`` key a kind (``all-reduce``,
+                    ``all-gather``, ``reduce-scatter``): an all-reduce
+                    is charged the tensor, an all-gather this rank's
+                    block, a reduce-scatter the whole input, a gather
+                    over two axes two all-gathers.  0 on one card.  A
+                    collective's operand and result also count in
+                    ``hbm_bytes``, as ``hlo_cost`` counts them; what its
+                    backend runs inside it counts nothing more.  On an
+                    abstract mesh (the dry run's) the collectives are
+                    charged and not run
   peak_bytes        the highest sum of live storages over the call,
                     starting from the arguments' storages; an op's new
                     storage adds its bytes and leaves when its last
@@ -129,6 +140,19 @@ def _storage(t: torch.Tensor):
     return st._cdata, st
 
 
+def _leave(c: "CostCounter") -> None:
+    """The end of a charged call or a collective: once no such call is
+    open, what it left alive (its outputs and saved tensors) is live."""
+    c._inside -= 1
+    if c._inside:
+        return
+    for key, n in list(c._pending.items()):
+        c._pending.pop(key)
+        c._live[key] = n
+        c.live += n
+    c.peak = max(c.peak, c.live)
+
+
 class _Charge:
     """One kernel call under a counter (see ``kernels/meter.py``)."""
 
@@ -152,14 +176,27 @@ class _Charge:
 
     def __exit__(self, *exc) -> None:
         if self.charged:
-            c = self.counter
-            c._inside -= 1
-            # what the call left alive: its outputs and saved tensors
-            for key, n in list(c._pending.items()):
-                c._pending.pop(key)
-                c._live[key] = n
-                c.live += n
-            c.peak = max(c.peak, c.live)
+            _leave(self.counter)
+
+
+class _Collective:
+    """One collective under a counter (see ``kernels/meter.py``): charged
+    its bytes; the ops its backend dispatches inside it are not counted."""
+
+    def __init__(self, counter: "CostCounter", kind: str, operand: int,
+                 result: int):
+        self.counter, self.kind = counter, kind
+        self.operand, self.result = operand, result
+
+    def __enter__(self):
+        c = self.counter
+        c.collectives[self.kind] += self.operand
+        c.hbm_bytes += self.operand + self.result
+        c._inside += 1
+        return self
+
+    def __exit__(self, *exc) -> None:
+        _leave(self.counter)
 
 
 class CostCounter(TorchDispatchMode):
@@ -174,6 +211,7 @@ class CostCounter(TorchDispatchMode):
         self.flops = 0.0
         self.hbm_bytes = 0
         self.calls: Counter = Counter()
+        self.collectives: Counter = Counter()  # kind -> operand bytes
         self.live = self.peak = 0
         self._live: Dict[int, int] = {}  # storage key -> bytes, counted
         self._pending: Dict[int, int] = {}  # made inside a kernel call
@@ -212,6 +250,10 @@ class CostCounter(TorchDispatchMode):
     # -- dispatch --------------------------------------------------------
     def charge(self, name: str, work) -> _Charge:
         return _Charge(self, name, work)
+
+    def collective(self, kind: str, operand: int, result: int
+                   ) -> _Collective:
+        return _Collective(self, kind, operand, result)
 
     def __enter__(self):
         # entered again (without a new counter) to count a decomposition
@@ -277,12 +319,15 @@ class CostCounter(TorchDispatchMode):
                 + sum(_nbytes(t) for t in outs))
 
     def result(self) -> Dict[str, Any]:
-        """The totals so far, as ``hlo_cost.analyze`` names them, plus
-        ``peak_bytes`` and ``calls``."""
+        """The totals so far, as ``hlo_cost.analyze`` names them (with a
+        ``coll_<kind>`` key a collective kind), plus ``peak_bytes`` and
+        ``calls``."""
         return {"flops": float(self.flops),
                 "hbm_bytes": float(self.hbm_bytes),
-                "collective_bytes": 0.0, "peak_bytes": self.peak,
-                "calls": dict(self.calls)}
+                "collective_bytes": float(sum(self.collectives.values())),
+                **{f"coll_{k}": float(v) for k, v in
+                   sorted(self.collectives.items())},
+                "peak_bytes": self.peak, "calls": dict(self.calls)}
 
 
 def _storage_bytes(tree) -> Dict[int, int]:
@@ -297,7 +342,8 @@ def _storage_bytes(tree) -> Dict[int, int]:
 def analyze(fn: Callable, *args, mode: str = "kernel",
             **kwargs) -> Dict[str, Any]:
     """Counts one call ``fn(*args, **kwargs)``.  Returns ``flops``,
-    ``hbm_bytes``, ``collective_bytes``, ``peak_bytes`` and ``calls``,
+    ``hbm_bytes``, ``collective_bytes`` (with its ``coll_<kind>`` keys),
+    ``peak_bytes`` and ``calls``,
     and, each storage once, ``argument_bytes``, ``output_bytes`` and
     ``new_output_bytes`` (the outputs' storages that are no argument's)."""
     counter = CostCounter(mode)

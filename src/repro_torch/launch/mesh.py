@@ -12,7 +12,10 @@ spans the world's ranks: the ranks of ``torchrun`` (``RANK``,
 built from an in-process store.  NCCL carries CUDA tensors and gloo CPU
 ones (gloo both, where several ranks share a card).
 ``make_production_mesh`` is abstract: its specs resolve on any machine,
-for the dry run.
+for the dry run.  An abstract mesh stands for one of its ranks, by default
+the one at coordinate 0 on every axis (``coords``): ``coord`` answers for
+that rank, so the rules cut its blocks and rows, and the sharding rules'
+collectives are charged to the cost counter instead of being run.
 
 The rates are NVIDIA's data sheet for the H100 SXM5 80 GB, dense (no
 structured sparsity): bf16 tensor cores 989 TFLOP/s, f32 on the CUDA
@@ -51,14 +54,24 @@ def bound_s(n_bytes: float, flops: float,
 
 class Mesh:
     """Axis names and sizes (``shape``: an ordered name -> size dict) and,
-    unless abstract, the ``DeviceMesh`` over the ranks."""
+    unless abstract, the ``DeviceMesh`` over the ranks.  An abstract mesh
+    stands for the rank at ``coords`` (one index an axis; default 0 on
+    every axis)."""
 
     def __init__(self, shape: Sequence[int], axes: Sequence[str],
-                 device_mesh=None):
+                 device_mesh=None, coords: Optional[Sequence[int]] = None):
         assert len(shape) == len(axes), (shape, axes)
         self.shape: Dict[str, int] = dict(zip(axes, shape))
         self.axis_names: Tuple[str, ...] = tuple(axes)
         self.device_mesh = device_mesh
+        if coords is not None and device_mesh is not None:
+            raise ValueError("a mesh over ranks takes its coordinates from "
+                             "them")
+        coords = tuple(coords or (0,) * len(axes))
+        if len(coords) != len(axes) or not all(
+                0 <= c < n for c, n in zip(coords, shape)):
+            raise ValueError(f"coordinates {coords} outside the mesh {shape}")
+        self.coords: Dict[str, int] = dict(zip(axes, coords))
 
     def _mesh(self):
         if self.device_mesh is None:
@@ -66,16 +79,20 @@ class Mesh:
         return self.device_mesh
 
     def coord(self, axis: str) -> int:
-        """This rank's index along ``axis``."""
-        return self._mesh().get_local_rank(axis)
+        """This rank's index along ``axis`` (an abstract mesh's: the rank
+        it stands for)."""
+        if self.device_mesh is None:
+            return self.coords[axis]
+        return self.device_mesh.get_local_rank(axis)
 
     def group(self, axis: str):
         """The process group of this rank's line along ``axis``."""
         return self._mesh().get_group(axis)
 
     def __repr__(self) -> str:
-        kind = "abstract " if self.device_mesh is None else ""
-        return f"{kind}Mesh({self.shape})"
+        if self.device_mesh is None:
+            return f"abstract Mesh({self.shape}, at {self.coords})"
+        return f"Mesh({self.shape})"
 
 
 def local_device(device: str) -> torch.device:

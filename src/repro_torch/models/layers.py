@@ -222,13 +222,15 @@ def cache_read(cache: Params) -> Tuple[torch.Tensor, torch.Tensor]:
     return cache["k"], cache["v"]
 
 
-# (device, storage address) of a KV stack split over "kv_seq" -> (first,
-# count) of the positions it holds; an entry lives as long as its stack
-_KV_BLOCKS: Dict[Tuple[str, int], Tuple[int, int]] = {}
+# the storage of a KV stack split over "kv_seq" -> (first, count) of the
+# positions it holds; an entry lives as long as its stack
+_KV_BLOCKS: Dict[int, Tuple[int, int]] = {}
 
 
-def _storage_key(t: torch.Tensor) -> Tuple[str, int]:
-    return str(t.device), t.untyped_storage().data_ptr()
+def _storage_key(t: torch.Tensor) -> int:
+    """The identity of ``t``'s storage, which its views share (not its
+    address: every meta storage's is 0)."""
+    return t.untyped_storage()._cdata
 
 
 def mark_kv_positions(stack: torch.Tensor, first: int, count: int) -> None:

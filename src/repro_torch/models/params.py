@@ -81,8 +81,14 @@ def tree_leaves(tree: Tree):
 
 def abstract(defs: Tree, device: Union[str, torch.device] = "meta") -> Tree:
     """Empty tensors of each def's shape and dtype (on ``meta``: shapes
-    and dtypes only, nothing allocated) — what the dry run counts on."""
-    return tree_map(lambda d: torch.empty(d.shape, dtype=d.dtype,
+    and dtypes only, nothing allocated) — what the dry run counts on.
+    Under sharding rules over more than one rank, each leaf is this
+    rank's block, as :func:`materialize` keeps it."""
+    from repro_torch.sharding import rules as S  # sharding imports params
+    r = S.current_rules()
+    shape = (lambda d: r.local_shape(d.logical, d.shape)) \
+        if S.sharded() else (lambda d: d.shape)
+    return tree_map(lambda d: torch.empty(shape(d), dtype=d.dtype,
                                           device=device), defs)
 
 

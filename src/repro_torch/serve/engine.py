@@ -30,6 +30,18 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     block: ``tail_x`` the ``din / n`` channels it convolves (its ``ffn``
     block by SSM heads, or its head-dim channels of every head), ``ssm``
     its ``("heads_ssm", "ssm_p")`` block; the B and C tails stay whole."""
+    return _cache(cfg, batch, max_len, device, torch.zeros)
+
+
+def abstract_cache(cfg: ModelConfig, batch: int, max_len: int,
+                   device: Union[str, torch.device] = "meta") -> Cache:
+    """``init_cache``'s leaves as empty tensors (on ``meta``: nothing
+    allocated), for the dry run: under rules the rank's blocks, a stack
+    split over positions marked with them."""
+    return _cache(cfg, batch, max_len, device, torch.empty)
+
+
+def _cache(cfg, batch, max_len, device, make) -> Cache:
     defs = registry.cache_defs(cfg, batch, max_len)
     split = SR.model_ranks() > 1
     ssm_split = split and cfg.family in ("ssm", "hybrid") and \
@@ -39,10 +51,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
         kv = split and "kv_seq" in d.logical
         ssm = ssm_split and ("ffn" in d.logical or "heads_ssm" in d.logical)
         if not (kv or ssm):
-            return torch.zeros(d.shape, dtype=d.dtype, device=device)
+            return make(d.shape, dtype=d.dtype, device=device)
         r = SR.current_rules()
         shape = r.local_shape(d.logical, d.shape, keep=("model",))
-        t = torch.zeros(shape, dtype=d.dtype, device=device)
+        t = make(shape, dtype=d.dtype, device=device)
         if kv:
             i = d.logical.index("kv_seq")
             if shape[i] != d.shape[i]:
@@ -50,13 +62,6 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                                     shape[i])
         return t
     return P.tree_map(leaf, defs)
-
-
-def abstract_cache(cfg: ModelConfig, batch: int, max_len: int,
-                   device: Union[str, torch.device] = "meta") -> Cache:
-    """The cache as empty tensors (on ``meta``: nothing allocated), for
-    the dry run."""
-    return P.abstract(registry.cache_defs(cfg, batch, max_len), device)
 
 
 def prefill_step(params, batch: Dict[str, Any], cache: Cache, *,

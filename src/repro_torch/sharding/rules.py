@@ -64,11 +64,13 @@ from __future__ import annotations
 import contextlib
 import math
 import threading
+from collections import Counter
 from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
+from repro_torch.kernels import meter
 from repro_torch.models import params as P
 
 DEFAULT_RULES: Dict[str, Tuple[str, ...]] = {
@@ -101,9 +103,11 @@ def _axes(r: Any) -> Tuple[str, ...]:
 
 class ShardingRules:
     """Rules over a mesh: anything with ``shape``, an ordered mapping of
-    axis name -> size.  An abstract mesh (names and sizes, no ranks)
-    resolves specs and placements; the collectives need
-    ``repro_torch.launch.mesh.Mesh`` over a process group."""
+    axis name -> size, and ``coord(axis)``.  An abstract mesh (names and
+    sizes, no ranks: ``repro_torch.launch.mesh.Mesh`` without a
+    ``DeviceMesh``) resolves specs, placements and the blocks of the rank
+    it stands for, and charges its collectives without running them (on
+    meta tensors: the dry run); over a process group they run."""
 
     def __init__(self, mesh: Any,
                  rules: Optional[Dict[str, Tuple[str, ...]]] = None):
@@ -228,16 +232,43 @@ class ShardingRules:
                 axes)
 
     # -- collectives over mesh axes (a group of one does nothing) ----------
+    #
+    # Each is charged to the active cost counter (``kernels/meter.py``) and
+    # its operand's bytes under its kind, as ``hlo_cost`` counts them: an
+    # all-reduce the tensor, an all-gather this rank's block, a
+    # reduce-scatter the whole input, one charge an axis.  Over a process
+    # group it runs and its bytes are added to this process's tally
+    # (``collective_tally``).  On an abstract mesh it is not run: it takes
+    # meta tensors only and gives the result's shape (the input itself for
+    # an all-reduce, whose values are not the sum).
 
     def _live(self, axes: Iterable[str]) -> List[str]:
         return [a for a in axes if self.mesh.shape[a] > 1]
+
+    def _collective(self, kind: str, x: torch.Tensor, result_bytes: int,
+                    run) -> None:
+        """Charges one collective of ``kind`` on operand ``x`` and runs
+        ``run()`` over the process group, or, on an abstract mesh, checks
+        that ``x`` is a meta tensor."""
+        n = x.numel() * x.element_size()
+        with meter.collective(kind, n, result_bytes):
+            if getattr(self.mesh, "device_mesh", None) is None:
+                if x.device.type != "meta":
+                    raise ValueError(
+                        f"a {kind} on an abstract mesh takes meta tensors "
+                        f"only, not {x.device.type} ones: it has no ranks")
+                return
+            _TALLY[kind] += n
+            run()
 
     def all_reduce(self, x: torch.Tensor, axes: Iterable[str]
                    ) -> torch.Tensor:
         """Sums ``x`` IN PLACE over the ranks of ``axes`` (one axis after
         the other) and returns it."""
+        n = x.numel() * x.element_size()
         for a in self._live(axes):
-            dist.all_reduce(x, group=self.mesh.group(a))
+            self._collective("all-reduce", x, n, lambda: dist.all_reduce(
+                x, group=self.mesh.group(a)))
         return x
 
     def reduce_scatter(self, x: torch.Tensor, dim: int,
@@ -247,7 +278,10 @@ class ShardingRules:
         n = self.mesh.shape[axis]
         x = x.movedim(dim, 0).contiguous()
         out = x.new_empty((x.shape[0] // n, *x.shape[1:]))
-        dist.reduce_scatter_tensor(out, x, group=self.mesh.group(axis))
+        self._collective(
+            "reduce-scatter", x, out.numel() * out.element_size(),
+            lambda: dist.reduce_scatter_tensor(out, x,
+                                               group=self.mesh.group(axis)))
         return out.movedim(0, dim)
 
     def all_gather(self, x: torch.Tensor, dim: int,
@@ -260,9 +294,25 @@ class ShardingRules:
                 continue
             x = x.contiguous()
             parts = [torch.empty_like(x) for _ in range(n)]
-            dist.all_gather(parts, x, group=self.mesh.group(a))
+            self._collective(
+                "all-gather", x, n * x.numel() * x.element_size(),
+                lambda: dist.all_gather(parts, x, group=self.mesh.group(a)))
             x = torch.cat(parts, dim=dim)
         return x
+
+
+_TALLY: Counter = Counter()  # kind -> bytes this process's collectives moved
+
+
+def collective_tally() -> Dict[str, int]:
+    """Bytes by kind that this process's collectives over process groups
+    have moved (their operands, as the cost counter charges them) since
+    the last ``reset_collective_tally``."""
+    return dict(_TALLY)
+
+
+def reset_collective_tally() -> None:
+    _TALLY.clear()
 
 
 @contextlib.contextmanager

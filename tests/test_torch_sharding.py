@@ -215,8 +215,11 @@ def test_production_meshes_are_abstract():
     assert m.shape == {"data": 16, "model": 16} and m.device_mesh is None
     mp = make_production_mesh(multi_pod=True)
     assert mp.shape == {"pod": 2, "data": 16, "model": 16}
+    # an abstract mesh stands for the rank at its coordinates (0 on every
+    # axis by default) and has no process group
+    assert [mp.coord(a) for a in mp.axis_names] == [0, 0, 0]
     with pytest.raises(RuntimeError, match="abstract"):
-        mp.coord("data")
+        mp.group("data")
     r = ShardingRules(mp)
     assert r.spec(("batch", "seq", "embed"), (256, 4096, 4096)) == \
         (("pod", "data"), None, None)

@@ -502,7 +502,8 @@ def test_training_loss_decreases_with_carousel():
 def test_training_fine_starts_before_coarse():
     """With a slow single-drive tape, fine granularity trains on shard 1
     while shards 2..8 are still staging; coarse waits for all of them.
-    (The JAX twin trains qwen1.5-4b, which the port does not have yet.)"""
+    (The JAX twin trains qwen1.5-4b; this one trains ``ARCH`` at one
+    layer: what is timed is the staging, not the model.)"""
     kw = dict(smoke=True, steps=6, seq_len=32, global_batch=2,
               carousel=True, tape_latency=0.4, drives=1, device="cpu",
               num_layers=1)
