@@ -28,8 +28,10 @@ import torch
 
 from repro_torch.carousel.stager import Stager
 from repro_torch.carousel.storage import DiskCache
+from repro_torch.core import obs
 
 
+@obs.spanned("delivery.device_put")
 def device_put(batch: Dict[str, np.ndarray],
                device: torch.device) -> Dict[str, torch.Tensor]:
     """A numpy batch as tensors on ``device``, dtypes kept (int32 tokens
@@ -115,6 +117,17 @@ class DeliveryIterator:
 
     # -- batch assembly -------------------------------------------------------
     def __iter__(self) -> Iterator[Dict[str, Any]]:
+        """The batches; each resumption up to the next batch is a span
+        ``delivery.next`` while the recorder is on."""
+        batches = self._batches()
+        while True:
+            with obs.span("delivery.next"):
+                b = next(batches, None)
+            if b is None:
+                return
+            yield b
+
+    def _batches(self) -> Iterator[Dict[str, Any]]:
         self.started_at = time.monotonic()
         rows: Dict[str, List[np.ndarray]] = collections.defaultdict(list)
         n_rows = 0

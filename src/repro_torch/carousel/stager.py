@@ -14,10 +14,8 @@ Fault tolerance:
 
 All timing uses the monotonic clock.  The ``on_submitted`` /
 ``on_available`` / ``on_failed`` hooks let a caller follow each file's
-state.  ``bus`` is any object with ``publish(topic, payload)``;
-``bind_telemetry`` takes a registry with ``histogram`` and ``counter``
-families and a tracer with ``emit``, as ``repro.core.obs`` gives them.
-The worker threads run the cold store and the transform (numpy) only:
+state.  ``bus`` is any object with ``publish(topic, payload)``.  The
+worker threads run the cold store and the transform (numpy) only:
 nothing here touches torch or CUDA.
 """
 from __future__ import annotations
@@ -48,12 +46,6 @@ class StageRecord:
 
 
 class Stager:
-    # telemetry is optional: unbound, each hook costs one attribute
-    # lookup against these class defaults
-    _obs_stage_hist = None
-    _obs_failures = None
-    tracer = None
-
     def __init__(self, cold: ColdStore, cache: DiskCache,
                  bus: Optional[Any] = None, *,
                  collection: str = "carousel",
@@ -97,16 +89,6 @@ class Stager:
         return self._lat_window.values()
 
     # ------------------------------------------------------------------
-    def bind_telemetry(self, registry, tracer=None) -> None:
-        """Wires a metrics registry (and a tracer) into the hooks."""
-        self._obs_stage_hist = registry.histogram(
-            "stager_stage_seconds", "cold-to-cache staging latency",
-            labels=("collection",)).labels(collection=self.collection)
-        self._obs_failures = registry.counter(
-            "stager_failures_total", "terminal staging failures",
-            labels=("collection",)).labels(collection=self.collection)
-        self.tracer = tracer
-
     def _median_latency(self) -> Optional[float]:
         if len(self._lat_window) < self.hedge_min_samples:
             return None
@@ -122,21 +104,13 @@ class Stager:
             rec.finished = time.monotonic()
             rec.ok = True
             dt = rec.finished - rec.submitted
-            attempts, hedged = rec.attempts, rec.hedged
             self._lat_window.observe(dt)
             self._recent_latencies.append((name, dt))
-        if self._obs_stage_hist is not None:
-            self._obs_stage_hist.observe(dt)
         self.cache.put(name, data, size, pin=False)
         # the caller's state first, the bus second: a consumer woken by
         # the announcement must observe the availability it announces
         if self.on_available is not None:
             self.on_available(name)
-        if self.tracer is not None:
-            self.tracer.emit("content_available",
-                             collection=self.collection, entity=name,
-                             data={"attempts": attempts, "hedged": hedged,
-                                   "stage_s": round(dt, 6)})
         if self.bus is not None:
             self.bus.publish(T_COLLECTION_UPDATED,
                              {"collection": self.collection, "file": name})
@@ -171,8 +145,6 @@ class Stager:
             rec.ok = False
         _log.warning("staging failed terminally: %s/%s after %d attempts",
                      self.collection, name, rec.attempts)
-        if self._obs_failures is not None:
-            self._obs_failures.inc()
         if self.on_failed is not None:
             self.on_failed(name)
         if self.bus is not None:
@@ -191,9 +163,6 @@ class Stager:
             self.records[name] = StageRecord(name, time.monotonic())
         if self.on_submitted is not None:
             self.on_submitted(name)
-        if self.tracer is not None:
-            self.tracer.emit("content_staging",
-                             collection=self.collection, entity=name)
         self._futures.append(self._pool.submit(self._stage_once, name))
 
     def submit_all(self, names: List[str]) -> None:

@@ -1,2 +1,3 @@
-"""What the port's carousel needs from ``repro/core``: the stager's
-latency window and its logger (``core/obs.py``)."""
+"""Observation for the port (``core/obs.py``): the span recorder of the
+compute path, and the stager's latency window and logger from
+``repro/core``."""

@@ -15,6 +15,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.core import obs
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
 from repro_torch.models.params import layer
@@ -46,12 +47,15 @@ def _shared_attn(p: Params, cfg: ModelConfig, run: RunConfig,
     """``p``: the shared block's weights, this rank's ``model`` block of
     each (``registry.gather_top``), so attention and the MLP compute their
     block as a transformer block's do."""
-    h = L.rmsnorm(p["ln1"], x, cfg, run)
-    h, _ = L.attention(p["attn"], cfg, run, h, pos=pos, cache=cache_l,
-                       kv_len=kv_len)
-    x = x + h
-    h = L.rmsnorm(p["ln2"], x, cfg, run)
-    return x + L.mlp(p["mlp"], cfg, run, h)
+    with obs.span("block.shared"):
+        h = L.rmsnorm(p["ln1"], x, cfg, run)
+        h, _ = L.attention(p["attn"], cfg, run, h, pos=pos, cache=cache_l,
+                           kv_len=kv_len)
+        y = x + h
+        h = L.rmsnorm(p["ln2"], y, cfg, run)
+        out = y + L.mlp(p["mlp"], cfg, run, h)
+    obs.grad_span("block.shared.bwd", x, out)
+    return out
 
 
 def _run(params: Params, cfg: ModelConfig, run: RunConfig, x: torch.Tensor,

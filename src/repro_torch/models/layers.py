@@ -33,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.core import obs
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import NEG_INF, attention_mask
 from repro_torch.models import params as P
@@ -297,6 +298,7 @@ def _attention_kvseq(q, k, v, *, causal: bool, q_offset: int,
     return o.reshape(B, Sq, Hq, Dh).to(q.dtype)
 
 
+@obs.spanned("attention")
 def attention(p: Params, cfg: ModelConfig, run: RunConfig, x: torch.Tensor,
               *, pos: int, causal: bool = True,
               cache: Optional[Params] = None,
@@ -551,6 +553,7 @@ def _attention_split(p: Params, cfg: ModelConfig, run: RunConfig,
 # ---------------------------------------------------------------------------
 
 
+@obs.spanned("mlp")
 def mlp(p: Params, cfg: ModelConfig, run: RunConfig,
         x: torch.Tensor) -> torch.Tensor:
     """The MLP.  Where ``p`` holds this rank's ``ffn`` columns of ``w_up``
@@ -668,6 +671,7 @@ def moe_uses_shardmap(x: torch.Tensor) -> bool:
     return r is not None and "model" in r.mesh.shape and x.shape[1] > 1
 
 
+@obs.spanned("moe")
 def moe_block(p: Params, cfg: ModelConfig, run: RunConfig,
               x: torch.Tensor) -> torch.Tensor:
     """Top-K MoE.  ``p`` is this rank's block of the layer's MoE weights

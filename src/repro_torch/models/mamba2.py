@@ -57,6 +57,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.core import obs
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models.params import layer, pdef, unstack
@@ -145,6 +146,14 @@ def block_fwd(p: Params, cfg: ModelConfig, run: RunConfig, x: torch.Tensor,
     plain forward.  Under a split (``ssm_split``: "heads" or "p") the rank
     computes its heads or head-dim channels (the module doc); else the
     block whole."""
+    with obs.span("block.mamba2"):
+        out = _mamba_block(p, cfg, run, x, state)
+    obs.grad_span("block.mamba2.bwd", x, out)
+    return out
+
+
+def _mamba_block(p: Params, cfg: ModelConfig, run: RunConfig,
+                 x: torch.Tensor, state: Optional[Params]) -> torch.Tensor:
     Bb, S, _ = x.shape
     N, H, P = cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
     mode = ssm_split(cfg)

@@ -23,6 +23,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig, RunConfig, ShapeConfig
+from repro_torch.core import obs
 from repro_torch.models import hybrid, mamba2, transformer, whisper
 from repro_torch.sharding import rules as SR
 
@@ -92,12 +93,14 @@ def cache_defs(cfg: ModelConfig, batch: int, max_len: int) -> Params:
     return module_for(cfg).cache_defs(cfg, batch, max_len)
 
 
+@obs.spanned("serve.prefill")
 def prefill(params: Params, cfg: ModelConfig, run: RunConfig,
             batch: Dict[str, Any], cache: Params):
     return module_for(cfg).prefill(gather_top(params, cfg), cfg, run, batch,
                                    cache)
 
 
+@obs.spanned("serve.decode")
 def decode(params: Params, cfg: ModelConfig, run: RunConfig,
            tokens: torch.Tensor, cache: Params, pos: int):
     return module_for(cfg).decode(gather_top(params, cfg), cfg, run, tokens,

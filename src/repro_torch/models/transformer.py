@@ -33,6 +33,7 @@ from torch.utils.checkpoint import (CheckpointPolicy,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.core import obs
 from repro_torch.models import layers as L
 from repro_torch.models import params as P
 from repro_torch.sharding import rules as SR
@@ -68,6 +69,15 @@ def param_defs(cfg: ModelConfig) -> Params:
 def _block(p_l: Params, cfg: ModelConfig, run: RunConfig, x: torch.Tensor,
            pos: int, cache_l: Optional[Params], kv_len: Optional[int]
            ) -> torch.Tensor:
+    with obs.span("block.decoder"):
+        out = _decoder_block(p_l, cfg, run, x, pos, cache_l, kv_len)
+    obs.grad_span("block.decoder.bwd", x, out)
+    return out
+
+
+def _decoder_block(p_l: Params, cfg: ModelConfig, run: RunConfig,
+                   x: torch.Tensor, pos: int, cache_l: Optional[Params],
+                   kv_len: Optional[int]) -> torch.Tensor:
     if SR.sharded():
         defs = P.unstack(param_defs(cfg)["blocks"])
         p_l = {k: v if k == "moe" else SR.gather_params(

@@ -21,6 +21,7 @@ from typing import Any, Dict, Iterator, Optional, Tuple
 
 import torch
 
+from repro_torch.core import obs
 from repro_torch.models.params import tree_leaves, tree_map
 from repro_torch.sharding import rules as S
 
@@ -97,10 +98,12 @@ def adamw_update(
     """One AdamW step, IN PLACE: ``params``, ``state`` (and, through the
     clipping, ``grads``) are updated and returned.  Returns (params,
     state, metrics).  ``norm_axes``: see :func:`global_norm`."""
-    if max_grad_norm > 0:
-        grads, gnorm = clip_by_global_norm(grads, max_grad_norm, norm_axes)
-    else:
-        gnorm = global_norm(grads, norm_axes)
+    with obs.span("train.clip"):
+        if max_grad_norm > 0:
+            grads, gnorm = clip_by_global_norm(grads, max_grad_norm,
+                                               norm_axes)
+        else:
+            gnorm = global_norm(grads, norm_axes)
 
     step = state["step"] + 1
     c1 = 1.0 - b1 ** step

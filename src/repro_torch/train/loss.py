@@ -29,6 +29,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.core import obs
 from repro_torch.kernels import cross_entropy as _kce
 from repro_torch.kernels import meter
 from repro_torch.kernels import ops
@@ -86,6 +87,7 @@ class CEBlockwiseFn(torch.autograd.Function):
         return _masked_mean(nll, valid, denom)
 
     @staticmethod
+    @obs.spanned("loss.ce_bwd")
     def backward(ctx, g):
         hidden, w_vocab, targets, valid, lse, denom = ctx.saved_tensors
         ce_dtype = ctx.ce_dtype

@@ -42,6 +42,7 @@ from typing import Any, Callable, Dict, List, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.core import obs
 from repro_torch.models import params as P
 from repro_torch.models import registry
 from repro_torch.optim import adamw_init, adamw_update, cosine_schedule
@@ -139,14 +140,18 @@ def _grads_and_metrics(params, cfg: ModelConfig, run: RunConfig,
                                              device=p.device), params)
     tree, _ = _grad_leaves(params, grads, registry.layer_stacks(cfg))
     if accum == 1:
-        loss, aux = lm_loss(tree, cfg, run, batch)
-        loss.backward()
+        with obs.span("train.forward"):
+            loss, aux = lm_loss(tree, cfg, run, batch)
+        with obs.span("train.backward"):
+            loss.backward()
         return grads, {"loss": loss.detach(),
                        **{k: v.detach() for k, v in aux.items()}}
     l_sum = torch.zeros((), device=batch["tokens"].device)
     for mb in _split_microbatches(batch, accum):
-        loss, aux = lm_loss(tree, cfg, run, mb)
-        loss.backward()
+        with obs.span("train.forward"):
+            loss, aux = lm_loss(tree, cfg, run, mb)
+        with obs.span("train.backward"):
+            loss.backward()
         l_sum += aux["loss"].detach()
     inv = 1.0 / accum
     for g in P.tree_leaves(grads):
@@ -154,6 +159,7 @@ def _grads_and_metrics(params, cfg: ModelConfig, run: RunConfig,
     return grads, {"loss": l_sum * inv}
 
 
+@obs.spanned("train.step")
 def train_step(state: TrainState, batch: Dict[str, Any], *,
                cfg: ModelConfig, run: RunConfig
                ) -> Tuple[TrainState, Dict[str, Any]]:
@@ -166,11 +172,12 @@ def train_step(state: TrainState, batch: Dict[str, Any], *,
     lr = cosine_schedule(opt["step"] + 1, base_lr=run.learning_rate,
                          warmup_steps=run.warmup_steps,
                          total_steps=run.total_steps)
-    _, _, opt_metrics = adamw_update(
-        params, grads, opt, lr=lr, weight_decay=run.weight_decay,
-        max_grad_norm=run.max_grad_norm,
-        norm_axes=(S.sharded_axes(registry.param_defs(cfg))
-                   if S.sharded() else None))
+    with obs.span("train.optimizer"):
+        _, _, opt_metrics = adamw_update(
+            params, grads, opt, lr=lr, weight_decay=run.weight_decay,
+            max_grad_norm=run.max_grad_norm,
+            norm_axes=(S.sharded_axes(registry.param_defs(cfg))
+                       if S.sharded() else None))
     metrics.update(opt_metrics)
     return state, metrics
 
