@@ -59,7 +59,14 @@ Phases, each of which fails the run (non-zero exit, no final result line):
    over the shards, against the plain twins and the whole-row kernels on
    the gathered row, bf16 and f32; each bf16 launch timed beside its
    bound; no PyTorch call normalises a partial row, so ``F.rms_norm`` on
-   the whole row is logged as context).
+   the whole row is logged as context); and AdamW (phase "adamw": three
+   steps of yi-6b's largest leaf, ADAMW_LEAF, through the kernels and the
+   plain version, bit for bit with no clip, the norm within 1e-5, and bit
+   for bit with the clip on over gradients whose norm both sum exactly; that
+   leaf and the whole yi-6b and zamba2-1.2b train states timed a step,
+   beside ``torch._fused_adamw_`` with moments of the params' dtype (it
+   takes no f32 moments beside bf16 params) where those fit, with the
+   launches of a step).
    The library yardstick of a backward is the library forward plus
    backward less the forward;
 4. serving: ``run_serving(arch, smoke=False, prompt_len=P, gen=32,
@@ -225,6 +232,7 @@ downloaded.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import math
 import statistics
@@ -243,6 +251,7 @@ from torch.utils.cpp_extension import CUDA_HOME  # noqa: E402
 
 from repro_torch.configs.base import (RunConfig, ShapeConfig,  # noqa: E402
                                       get_config, get_smoke_config)
+from repro_torch.kernels import adamw as kadamw  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import cross_entropy as kce  # noqa: E402
 from repro_torch.kernels import flash_attention as kflash  # noqa: E402
@@ -254,7 +263,7 @@ from repro_torch.launch import mesh  # noqa: E402
 from repro_torch.models import layers  # noqa: E402
 from repro_torch.models import params as P  # noqa: E402
 from repro_torch.models import registry  # noqa: E402
-from repro_torch.optim import adamw_update  # noqa: E402
+from repro_torch.optim import adamw_init, adamw_update  # noqa: E402
 from repro_torch.serve import engine  # noqa: E402
 from repro_torch.sharding import (ShardingRules, batch_split,  # noqa: E402
                                   collective_tally, reset_collective_tally,
@@ -449,6 +458,10 @@ SSD_CASES = [(2, 96, 4, 16, 1, 32, 32), (1, 130, 6, 32, 2, 16, 64),
 # zamba2's (4096 / 4) and mamba2's (1536 / 4) din, 4 x 2048 tokens
 RMS_SPLIT = [(BATCH * SSM_PROMPT, 1024), (BATCH * SSM_PROMPT, 384)]
 RMS_SPLIT_RANKS = 4
+# AdamW: yi-6b's largest leaf, its stacked MLP projections (L, d_ff, d),
+# then whole full-size train states (the params' dtypes, f32 moments)
+ADAMW_LEAF = (32, 11008, 4096)
+ADAMW_TREES = ("yi-6b", "zamba2-1.2b")
 # T, D, V: the yi-6b loss head (4 x 512 tokens), the mamba2-130m (tied
 # embeddings) and zamba2-1.2b loss heads (4 x 2048), then small ragged cases
 CE_MAIN = (TRAIN_BATCH * TRAIN_SEQ, 4096, 64000)
@@ -1260,6 +1273,156 @@ def phase_ssd_bwd(gen: torch.Generator, failures: list) -> dict:
     return dict(main, max_abs_err=worst)
 
 
+def _adamw_state(trees: dict, gen: torch.Generator) -> dict:
+    """``trees`` (name -> tree of meta tensors) as CUDA tensors drawn from
+    ``gen`` (N(0, 0.02): far above a clip of 1 over a model's leaves)."""
+    def draw(t):
+        return torch.empty(t.shape, dtype=t.dtype, device="cuda").normal_(
+            0.0, 0.02, generator=gen)
+    return {k: P.tree_map(draw, t) for k, t in trees.items()}
+
+
+def _adamw_library(params, grads, lr: float):
+    """``torch._fused_adamw_`` over the same params and gradients, grouped
+    by dtype, with zero moments of the params' dtype (it takes no other):
+    the yardstick of the update alone (no norm, no clip).  Returns (ms, the
+    bytes it moves), or (None, 0) where those moments do not fit."""
+    leaves = list(zip(P.tree_leaves(params), P.tree_leaves(grads)))
+    n_bytes = sum(7 * p.numel() * p.element_size() for p, _ in leaves)
+    if 2 * n_bytes / 7 > torch.cuda.mem_get_info()[0] - 2**30:
+        return None, 0
+    groups: dict = {}
+    for p, g in leaves:
+        groups.setdefault(p.dtype, []).append(
+            (p, g, torch.zeros_like(p), torch.zeros_like(p),
+             torch.ones((), device="cuda")))
+
+    def call():
+        for ls in groups.values():
+            ps, gs, ms, vs, steps = (list(x) for x in zip(*ls))
+            torch._fused_adamw_(ps, gs, ms, vs, [], steps, lr=lr, beta1=0.9,
+                                beta2=0.95, weight_decay=0.1, eps=1e-8,
+                                amsgrad=False, maximize=False)
+    return _eager_ms(call), n_bytes
+
+
+def _adamw_twins(params, grads, opt, lr: float, max_grad_norm: float
+                 ) -> tuple:
+    """Three steps of ``adamw_update`` on ``params`` and ``opt`` through
+    the kernels and on clones through the plain version.  Returns (p, m
+    and v bit for bit after each step, the largest relative gap of the
+    two norms)."""
+    twin = {"p": P.tree_map(torch.clone, params),
+            "opt": {"m": P.tree_map(torch.clone, opt["m"]),
+                    "v": P.tree_map(torch.clone, opt["v"]),
+                    "step": opt["step"]}}
+    same, norm_rel = True, 0.0
+    for _ in range(3):
+        mk = adamw_update(params, grads, opt, lr=lr,
+                          max_grad_norm=max_grad_norm, use_kernels=True)[2]
+        mp = adamw_update(twin["p"], grads, twin["opt"], lr=lr,
+                          max_grad_norm=max_grad_norm, use_kernels=False)[2]
+        norm_rel = max(norm_rel, abs(float(mk["grad_norm"])
+                                     - float(mp["grad_norm"]))
+                       / float(mp["grad_norm"]))
+        same &= all(torch.equal(a[k], b[k]) for a, b in (
+            (params, twin["p"]), (opt["m"], twin["opt"]["m"]),
+            (opt["v"], twin["opt"]["v"])) for k in a)
+    torch.cuda.synchronize()
+    return same, norm_rel
+
+
+def phase_adamw(gen: torch.Generator, failures: list) -> dict:
+    """AdamW's kernels (``kernels/adamw.py``) against the plain version:
+    yi-6b's largest leaf, ADAMW_LEAF, bf16 params and gradients, f32
+    moments, three steps through ``adamw_update`` on each path
+    (``_adamw_twins``), twice.  With no clip over N(0, 0.02) gradients:
+    p, m and v bit for bit, the norm within 1e-5 (the two paths sum the
+    squares in other orders).  With the clip on (at 0.3 of the norm, so a
+    scale that is no power of two) over gradients whose norm both paths
+    sum exactly (every 4096th element k / 64, |k| <= 6: at most 12.7 M
+    units of 1/4096, below 2**24), so that both clip by the same scale:
+    p, m and v bit for bit and the norms equal.  Then the leaf and the
+    whole ADAMW_TREES states timed (eager, CUDA events, a step with the
+    clip on): the kernels, the plain version and ``torch._fused_adamw_``
+    (``_adamw_library``), beside the bound of the bytes the kernels move;
+    the launches of a step, 2 x leaves + 1."""
+    lr = 3e-4
+    leaf = {"w": torch.empty(ADAMW_LEAF, dtype=torch.bfloat16,
+                             device="meta")}
+    st = _adamw_state({"p": leaf, "g": leaf}, gen)
+    opt = adamw_init(st["p"])
+    same, norm_rel = _adamw_twins(st["p"], st["g"], opt, lr, 1e30)
+    if not (same and norm_rel <= 1e-5):
+        failures.append(f"adamw {ADAMW_LEAF}: bit-equal {same}, norm "
+                        f"relative {norm_rel}")
+    sparse = torch.zeros(ADAMW_LEAF, dtype=torch.bfloat16, device="cuda")
+    nz = sparse.view(-1)[::4096]
+    nz.copy_(torch.randint(-6, 7, nz.shape, generator=gen,
+                           device="cuda") / 64)
+    clip_same, clip_rel = _adamw_twins(
+        st["p"], {"w": sparse}, opt, lr, 0.3 * float(nz.double().norm()))
+    if not (clip_same and clip_rel == 0.0):
+        failures.append(f"adamw {ADAMW_LEAF} clipped: bit-equal "
+                        f"{clip_same}, norm relative {clip_rel}")
+    del sparse, nz
+    rows = [_adamw_row("leaf", list(ADAMW_LEAF), st["p"], st["g"], opt, lr,
+                       failures)]
+    rows[0].update(bit_equal=same, norm_rel=norm_rel,
+                   clip_bit_equal=clip_same, clip_norm_rel=clip_rel,
+                   max_abs_err=0.0 if same and clip_same else float("nan"))
+    del st, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    for arch in ADAMW_TREES:
+        defs = registry.param_defs(get_config(arch))
+        st = _adamw_state({"p": P.abstract(defs), "g": P.abstract(defs)},
+                          gen)
+        opt = adamw_init(st["p"])
+        rows.append(_adamw_row(arch, arch, st["p"], st["g"], opt, lr,
+                               failures))
+        del st, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+    return dict(rows[0], trees=rows[1:])
+
+
+def _adamw_row(label: str, shape, params, grads, opt, lr: float,
+               failures: list) -> dict:
+    """One AdamW timing row (see ``phase_adamw``)."""
+    leaves = list(P.tree_leaves(params))
+    n_bytes = flops = 0
+    for p, g, m, v in zip(leaves, P.tree_leaves(grads),
+                          P.tree_leaves(opt["m"]), P.tree_leaves(opt["v"])):
+        for f, b in (kadamw.norm_work(g),
+                     kadamw.update_work(p, g, m, v, clip=True,
+                                        decay=p.dim() >= 2)):
+            flops, n_bytes = flops + f, n_bytes + b
+    step = lambda kernel: adamw_update(params, grads, opt, lr=lr,
+                                       use_kernels=kernel)
+    allocated = torch.cuda.memory_allocated()
+    reset_launches()
+    step(True)
+    torch.cuda.synchronize()
+    launches = {"adamw": kadamw.launches, "adamw_norm": kadamw.norm_launches}
+    want = {"adamw": len(leaves), "adamw_norm": len(leaves) + 1}
+    row = {"shape": shape, "leaves": len(leaves),
+           "elements": sum(p.numel() for p in leaves), "bytes": n_bytes,
+           "allocated_bytes": allocated, "launches_a_step": launches,
+           "expected_launches": want,
+           "ms": _eager_ms(lambda: step(True)),
+           "plain_ms": _eager_ms(lambda: step(False))}
+    row["library_ms"], row["library_bytes"] = _adamw_library(params, grads,
+                                                             lr)
+    row["finite"] = all(bool(torch.isfinite(t).all()) for t in leaves)
+    row["bound_ms"], row["bound_by"] = _bound(n_bytes, flops, torch.float32)
+    log(f"adamw {label}", json.dumps(row))
+    if launches != want or not row["finite"]:
+        failures.append(f"adamw {label}: launches {launches} != {want} or "
+                        f"not finite")
+    return row
+
+
 def serving_launches(cfg, gen: int) -> dict:
     """Kernel launches one ``run_serving`` with ``gen`` tokens implies: the
     norms of ``gen`` forwards (one prefill, gen - 1 decode steps); flash
@@ -1611,7 +1774,7 @@ TRAIN_KERNELS = ("rmsnorm", "rmsnorm_bwd", "flash_attention",
 
 
 def training_launches(layers: int, steps: int, arch: str = ARCH,
-                      cfg=None) -> dict:
+                      cfg=None, optimizer_steps=None) -> dict:
     """Kernel launches of ``steps`` training steps of ``arch`` at
     ``layers`` layers: per step, with remat "full" or "dots", each block's
     forward runs twice (the forward, then the recompute in the backward):
@@ -1624,14 +1787,21 @@ def training_launches(layers: int, steps: int, arch: str = ARCH,
     blocks, the config's encoder blocks, both stacks checkpointed): an
     encoder block's two norms and one attention, a decoder block's three
     norms and two attentions (self and cross), and two final norms.
-    ``cfg``: the config, if not ``arch``'s (a smoke config)."""
+    AdamW, in ``optimizer_steps`` of them (None: ``steps``; 0 for
+    gradients alone): a norm launch and an update launch a param leaf
+    and one finalize.  ``cfg``: the config, if not ``arch``'s (a smoke
+    config)."""
     cfg = cfg or get_config(arch)
     L, family = layers, cfg.family
+    opt = steps if optimizer_steps is None else optimizer_steps
+    leaves = len(list(P.tree_leaves(registry.param_defs(cfg))))
+    optim = {"adamw": leaves * opt, "adamw_norm": (leaves + 1) * opt}
     if family == "encdec":
         norms, attn = 2 * cfg.encoder_layers + 3 * L, cfg.encoder_layers \
             + 2 * L
-        return {k: n * steps for k, n in zip(TRAIN_KERNELS, (
-            2 * norms + 2, norms + 2, 2 * attn, attn, 1, 0, 0, 0, 0))}
+        return {**{k: n * steps for k, n in zip(TRAIN_KERNELS, (
+            2 * norms + 2, norms + 2, 2 * attn, attn, 1, 0, 0, 0, 0))},
+                **optim}
     if family in ("moe", "vlm"):
         family = "dense"
     attn = {"dense": L, "ssm": 0,
@@ -1639,16 +1809,17 @@ def training_launches(layers: int, steps: int, arch: str = ARCH,
     ssd = 0 if family == "dense" else L
     remat_attn = attn if family == "dense" else 0  # run again in backward
     norms = 2 * L + (2 * attn if family == "hybrid" else 0) + 1
-    return {k: n * steps for k, n in zip(TRAIN_KERNELS, (
+    return {**{k: n * steps for k, n in zip(TRAIN_KERNELS, (
         norms + 2 * L, norms, attn + remat_attn, attn, 1, 2 * ssd, ssd, 0,
-        0))}
+        0))}, **optim}
 
 
 def reset_launches() -> None:
-    for mod in (krms, kflash, kce, kssd):
+    for mod in (krms, kflash, kce, kssd, kadamw):
         mod.launches = 0
     krms.bwd_launches = kflash.bwd_launches = kssd.bwd_launches = 0
     krms.split_launches = krms.split_bwd_launches = 0
+    kadamw.norm_launches = 0
 
 
 def read_launches() -> dict:
@@ -1658,7 +1829,8 @@ def read_launches() -> dict:
             "cross_entropy": kce.launches, "ssd_scan": kssd.launches,
             "ssd_scan_bwd": kssd.bwd_launches,
             "rmsnorm_split": krms.split_launches,
-            "rmsnorm_split_bwd": krms.split_bwd_launches}
+            "rmsnorm_split_bwd": krms.split_bwd_launches,
+            "adamw": kadamw.launches, "adamw_norm": kadamw.norm_launches}
 
 
 def _timed_run(failures: list, label: str, layers: int, steps: int,
@@ -1942,7 +2114,7 @@ def phase_training_end_to_end(failures: list, arch: str = ARCH,
         else:
             rel[name] = _rel_l2(a, b)
     finite = all(bool(torch.isfinite(g).all()) for g in P.tree_leaves(gk))
-    want = training_launches(layers, 1, arch)
+    want = training_launches(layers, 1, arch, optimizer_steps=0)
     row = {"arch": arch, "layers": layers, "seq_len": seq_len,
            "batch": batch, "loss_kernels": lk, "loss_plain": lp,
            "loss_rel": loss_rel, "loss_tol": LOSS_TOL, "grad_rel_l2": rel,
@@ -2168,7 +2340,7 @@ def phase_remat_dots(failures: list) -> list:
     rel_full = {n: _rel_l2(a, b) for (n, a), (_, b) in
                 zip(_tree_items(gd), _tree_items(gf))}
     finite = all(bool(torch.isfinite(g).all()) for g in P.tree_leaves(gd))
-    want = training_launches(E2E_TRAIN_LAYERS, 1)
+    want = training_launches(E2E_TRAIN_LAYERS, 1, optimizer_steps=0)
     row = {"layers": E2E_TRAIN_LAYERS, "loss_dots": ld, "loss_full": lf,
            "loss_dots_plain": lp, "loss_rel_plain": abs(ld - lp) / abs(lp),
            "loss_tol": LOSS_TOL, "grad_rel_l2_plain": rel_plain,
@@ -2820,7 +2992,8 @@ def _tp_check(failures: list, cfg, arch: str, steps: int,
     want_serve = split_launches(serving_launches(cfg, 1 + TP_DECODE), cfg,
                                 1 + TP_DECODE)
     want_train = split_launches(
-        training_launches(cfg.num_layers, 1 + steps, arch, cfg), cfg,
+        training_launches(cfg.num_layers, 1 + steps, arch, cfg, steps),
+        cfg,
         2 * (1 + steps), 1 + steps)
     want_sizes = _tp_want_sizes(cfg)
     launches_ok = all(
@@ -3000,7 +3173,8 @@ def main() -> int:
                         ("rmsnorm_split", phase_rmsnorm_split),
                         ("flash_bwd", phase_flash_bwd),
                         ("cross_entropy", phase_cross_entropy),
-                        ("ssd", phase_ssd), ("ssd_bwd", phase_ssd_bwd)):
+                        ("ssd", phase_ssd), ("ssd_bwd", phase_ssd_bwd),
+                        ("adamw", phase_adamw)):
         t1 = time.perf_counter()
         mains[name] = phase(gen, failures)
         log(f"{name} phase: {time.perf_counter() - t1:.2f} s")
@@ -3130,7 +3304,9 @@ def main() -> int:
             ("rmsnorm_split_bwd", "rmsnorm.cu", "src/repro/kernels/ref.py:60",
              mains["rmsnorm_split_bwd"]),
             ("ce_merge", "cross_entropy.cu",
-             "src/repro/kernels/cross_entropy.py:56", mains["ce_merge"]))]
+             "src/repro/kernels/cross_entropy.py:56", mains["ce_merge"]),
+            ("adamw", "adamw.cu", "none (jnp: src/repro/optim/adamw.py)",
+             mains["adamw"]))]
     log(f"total: {time.perf_counter() - t_start:.2f} s")
     log(smi)
     log(json.dumps({"kernel_info": kernel_info}))

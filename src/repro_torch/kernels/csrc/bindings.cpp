@@ -1,13 +1,13 @@
 // PyTorch bindings of the hand-written CUDA kernels in this directory.
 //
 // The only source that includes PyTorch's headers: rmsnorm.cu,
-// flash_attention.cu, cross_entropy.cu and ssd_scan.cu are plain CUDA with
-// C entry points taking pointers, strides and a stream.  Each function
-// here launches on the current stream of its tensors' device and checks
-// the launch.  The Python wrappers (kernels/rmsnorm.py,
+// flash_attention.cu, cross_entropy.cu, ssd_scan.cu and adamw.cu are
+// plain CUDA with C entry points taking pointers, strides and a stream.
+// Each function here launches on the current stream of its tensors'
+// device and checks the launch.  The Python wrappers (kernels/rmsnorm.py,
 // kernels/flash_attention.py, kernels/cross_entropy.py,
-// kernels/ssd_scan.py) check devices, dtypes, shapes and contiguity and
-// allocate the outputs and scratch.
+// kernels/ssd_scan.py, kernels/adamw.py) check devices, dtypes, shapes
+// and contiguity and allocate the outputs and scratch.
 #include <torch/extension.h>
 
 #include <ATen/cuda/CUDAContext.h>
@@ -88,6 +88,18 @@ extern "C" bool repro_ssd_bwd(
     long long b_ss, long long b_sg, long long c_sb, long long c_ss,
     long long c_sg, int bf16, cudaStream_t s);
 extern "C" bool repro_ssd_info(int idx, const char** name, int* out);
+
+extern "C" bool repro_adamw_norm(const void* g, long long n, int g_bf16,
+                                 float* part, int grid, cudaStream_t s);
+extern "C" bool repro_adamw_norm_final(const float* part, int leaves,
+                                       float* sums, cudaStream_t s);
+extern "C" bool repro_adamw_update(void* p, const void* g, void* m, void* v,
+                                   long long n, int p_bf16, int g_bf16,
+                                   int mv_bf16, const float* scale, float lr,
+                                   float lr_wd, int decay, float b1,
+                                   float omb1, float b2, float omb2, float c1,
+                                   float c2, float eps, cudaStream_t s);
+extern "C" bool repro_adamw_info(int idx, const char** name, int* out);
 
 namespace {
 
@@ -358,12 +370,57 @@ void ssd_bwd(const at::Tensor& x, const at::Tensor& dt, const at::Tensor& A,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+// g: one leaf's contiguous gradient, bf16 or f32; part: (leaves, 1024)
+// f32 contiguous.  Writes row `leaf` of part from `grid` blocks.
+void adamw_norm(const at::Tensor& g, at::Tensor part, int64_t leaf,
+                int64_t grid) {
+  const c10::cuda::CUDAGuard guard(g.device());
+  TORCH_CHECK(leaf >= 0 && leaf < part.size(0), "adamw_norm: leaf ", leaf,
+              " of ", part.size(0));
+  const bool launched = repro_adamw_norm(
+      g.data_ptr(), g.numel(), is_bf16(g),
+      part.data_ptr<float>() + leaf * part.size(1), static_cast<int>(grid),
+      at::cuda::getCurrentCUDAStream());
+  TORCH_CHECK(launched, "adamw_norm: no launch for grid ", grid);
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+// part: (leaves, 1024) f32; sums: (leaves,) f32.
+void adamw_norm_final(const at::Tensor& part, at::Tensor sums) {
+  const c10::cuda::CUDAGuard guard(part.device());
+  const bool launched = repro_adamw_norm_final(
+      part.data_ptr<float>(), static_cast<int>(part.size(0)),
+      sums.data_ptr<float>(), at::cuda::getCurrentCUDAStream());
+  TORCH_CHECK(launched, "adamw_norm_final: no launch");
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+// p, g, m, v: one leaf's contiguous tensors of one size; p, g bf16 or
+// f32, m and v both bf16 or both f32; scale: the 0-d f32 clip scale or
+// None.  Updates p, m and v in place.
+void adamw_update(at::Tensor p, const at::Tensor& g, at::Tensor m,
+                  at::Tensor v, const c10::optional<at::Tensor>& scale,
+                  double lr, double lr_wd, bool decay, double b1, double omb1,
+                  double b2, double omb2, double c1, double c2, double eps) {
+  const c10::cuda::CUDAGuard guard(p.device());
+  const bool launched = repro_adamw_update(
+      p.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(), p.numel(),
+      is_bf16(p), is_bf16(g), is_bf16(m), ptr_or_null<float>(scale),
+      static_cast<float>(lr), static_cast<float>(lr_wd), decay ? 1 : 0,
+      static_cast<float>(b1), static_cast<float>(omb1),
+      static_cast<float>(b2), static_cast<float>(omb2),
+      static_cast<float>(c1), static_cast<float>(c2),
+      static_cast<float>(eps), at::cuda::getCurrentCUDAStream());
+  TORCH_CHECK(launched, "adamw_update: no launch (CUDA error)");
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
 // (name, [registers, local bytes, static smem, dynamic smem, threads,
 // blocks a SM]) of the kernels redesigned for the card: the bf16 flash
 // forward and backward at every head_dim (name suffix <D>), the CE
 // forward, the RMSNorm backward's two passes and its forward at each
-// instantiation, the bf16 SSD scan at each padded N and the SSD
-// backward's kernels.
+// instantiation, the bf16 SSD scan at each padded N, the SSD
+// backward's kernels and AdamW's.
 std::vector<std::pair<std::string, std::vector<int64_t>>> kernel_info() {
   const c10::cuda::CUDAGuard guard(at::cuda::current_device());
   std::vector<std::pair<std::string, std::vector<int64_t>>> rows;
@@ -381,6 +438,7 @@ std::vector<std::pair<std::string, std::vector<int64_t>>> kernel_info() {
   for (int idx = 0; repro_ce_info(idx, &name, out); ++idx) add(name);
   for (int idx = 0; repro_rmsnorm_info(idx, &name, out); ++idx) add(name);
   for (int idx = 0; repro_ssd_info(idx, &name, out); ++idx) add(name);
+  for (int idx = 0; repro_adamw_info(idx, &name, out); ++idx) add(name);
   C10_CUDA_CHECK(cudaGetLastError());
   return rows;
 }
@@ -414,6 +472,12 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "blocks of the bf16 SSD backward's chunk kernels a group of heads");
   m.def("ssd_bwd", &ssd_bwd,
         "Mamba2 SSD backward into dx, ddt, dA, dB, dC, dinit");
+  m.def("adamw_norm", &adamw_norm,
+        "one leaf's partial sums of squares into its row of part");
+  m.def("adamw_norm_final", &adamw_norm_final,
+        "each leaf's sum of squares from its row of part");
+  m.def("adamw_update", &adamw_update,
+        "one leaf's AdamW step in place, clipped by scale");
   m.def("kernel_info", &kernel_info,
         "registers, spills, shared memory and occupancy of the redesigned "
         "kernels");

@@ -2,7 +2,5 @@ from repro_torch.optim.adamw import (  # noqa: F401
     OptState,
     adamw_init,
     adamw_update,
-    clip_by_global_norm,
-    global_norm,
 )
 from repro_torch.optim.schedule import cosine_schedule  # noqa: F401

@@ -177,7 +177,8 @@ def train_step(state: TrainState, batch: Dict[str, Any], *,
             params, grads, opt, lr=lr, weight_decay=run.weight_decay,
             max_grad_norm=run.max_grad_norm,
             norm_axes=(S.sharded_axes(registry.param_defs(cfg))
-                       if S.sharded() else None))
+                       if S.sharded() else None),
+            use_kernels=run.use_kernels)
     metrics.update(opt_metrics)
     return state, metrics
 

@@ -19,7 +19,7 @@ package's HLO walker (``repro.launch.hlo_cost``), on the CPU.
   FLOPs per gradient; ``hlo_cost`` estimates XLA's weight-gradient
   convolution as a dense one);
 - kernel mode: one count on meta and on the CPU, with ``use_kernels``
-  None or False;
+  None or False; AdamW's calls charged their formula bytes;
 - ``calls`` against the launch formulas of ``chip_smoke.py`` for yi-6b,
   zamba2-1.2b and whisper-tiny at smoke size.
 
@@ -374,6 +374,42 @@ def test_kernel_charge_is_the_work_formula():
     assert plain["flops"] == 2 * (2 * 2 * 4 * 64 * 64 * 16)
     assert kern["calls"] == plain["calls"] == {"flash_attention": 1}
     assert kern["hbm_bytes"] == (2 * q.numel() + 2 * 2 * 64 * 2 * 16) * 4
+
+
+@pytest.mark.parametrize("device", ["meta", "cpu"])
+def test_kernel_mode_charges_adamw_its_bytes(device):
+    """An AdamW step in kernel mode, bf16 params and gradients, f32
+    moments: a leaf's ``adamw_norm`` call is charged g read once and its
+    row of f32 partials written, the finalize's ``adamw_norm`` call the
+    partials read and each leaf's sum written, a leaf's ``adamw`` call p,
+    g, m and v read and p, m and v written (22 bytes an element); nothing
+    inside the calls is counted op by op.  The norm and the clip scale,
+    taken from the sums by PyTorch ops outside the calls, are counted op
+    by op, as those ops alone count."""
+    from repro_torch.kernels.adamw import PARTS
+    from repro_torch.optim import adamw_update
+    from repro_torch.optim.adamw import _finish
+    shapes = {"w": (32, 64), "b": (64,)}
+    tree = lambda: {k: torch.zeros(s, dtype=torch.bfloat16, device=device)
+                    for k, s in shapes.items()}
+    params, grads = tree(), tree()
+    opt = adamw_init(params)
+    res = cost.analyze(lambda p, g, o: adamw_update(p, g, o, lr=1e-3),
+                       params, grads, opt)
+    n = {k: math.prod(s) for k, s in shapes.items()}
+    total = sum(n.values())
+    assert res["calls"] == {"adamw_norm": len(shapes) + 1,
+                            "adamw": len(shapes)}
+    L = len(shapes)
+    finish = cost.analyze(lambda s: _finish(s, 1.0),
+                          torch.zeros(L, device=device))
+    assert finish["calls"] == {} and finish["hbm_bytes"] > 0
+    assert res["hbm_bytes"] == (22 * total + (2 * total + 4 * PARTS * L)
+                                + 4 * L * (PARTS + 1) + finish["hbm_bytes"])
+    # the update's 14 FLOPs, the clip's 1, the decay's 2 on the 2-D leaf;
+    # the norm's 2; the finalize's add a partial
+    assert res["flops"] == (17 * n["w"] + 15 * n["b"] + 2 * total
+                            + PARTS * L + finish["flops"])
 
 
 # --- calls against chip_smoke.py's launch formulas -------------------------

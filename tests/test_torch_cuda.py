@@ -9,6 +9,7 @@ PyTorch:
 Tolerances are those of tests/test_kernels.py: 2e-2 in bf16, 3e-5 in f32
 (the SSD scan: 3e-2 in bf16, 3e-4 in f32).
 """
+import math
 import sys
 
 import numpy as np
@@ -19,6 +20,7 @@ from repro_torch.carousel.delivery import device_put
 from repro_torch.ckpt import AsyncCheckpointer, load_checkpoint
 from repro_torch.configs.base import (RunConfig, ShapeConfig, get_config,
                                       get_smoke_config)
+from repro_torch.kernels import adamw as kadamw
 from repro_torch.kernels import cross_entropy as kce
 from repro_torch.kernels import flash_attention as kflash
 from repro_torch.kernels import ops, ref
@@ -29,6 +31,7 @@ from repro_torch.launch import train
 from repro_torch.models import params as P
 from repro_torch.models import registry
 from repro_torch.models.params import tree_leaves
+from repro_torch.optim import adamw_init, adamw_update
 from repro_torch.serve import engine
 from repro_torch.train import loss as tloss
 from repro_torch.train import step as tstep
@@ -760,6 +763,12 @@ def test_tensor_core_kernels_fit_without_spills(cuda):
                  "rmsnorm_bwd_any_kernel<f32>",
                  "rmsnorm_dw_kernel<bf16>", "rmsnorm_dw_kernel<f32>"):
         assert name in names
+    for p in ("bf16", "f32"):
+        for g in ("bf16", "f32"):
+            for mv in ("bf16", "f32"):
+                assert f"adamw_update_kernel<{p},{g},{mv}>" in names
+        assert f"adamw_norm_kernel<{p}>" in names
+    assert "adamw_norm_final_kernel" in names
     for dtype in ("bf16", "f32"):
         assert f"rmsnorm_fwd_any_kernel<{dtype}>" in names
         for nv in (1, 2, 3, 4):
@@ -1245,6 +1254,172 @@ def test_smoke_ssm_training_kernels_match_plain(cuda, arch):
         assert bool(torch.isfinite(a).all())
         assert float((a.float() - b.float()).norm()
                      / b.float().norm()) <= 5e-2
+
+
+# --- AdamW -------------------------------------------------------------------
+# Leaves below one vector of 8 elements (a 1-D one: no decay), ragged past
+# it, and large enough that a leaf's norm runs hundreds of blocks.
+ADAMW_SHAPES = {"b": (5,), "s": (1,), "w": (37, 129), "e": (3, 1000),
+                "big": (1000, 1001)}
+ADAMW_COMBOS = [(p, g, mv) for p in DTYPES for g in DTYPES for mv in DTYPES]
+
+
+def _adamw_tree(cuda, dtype, seed, exact=False):
+    """A tree of ADAMW_SHAPES leaves.  ``exact``: multiples of 1/16 in
+    [-3/16, 3/16], whose squares add up exactly in f32 in any order, so
+    the kernels' norm and the plain version's agree to the bit."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    out = {}
+    for k, shape in ADAMW_SHAPES.items():
+        if exact:
+            t = torch.randint(-3, 4, shape, generator=g, device=cuda) / 16
+        else:
+            t = torch.randn(shape, generator=g, device=cuda)
+        out[k] = t.to(dtype)
+    return out
+
+
+def _adamw_steps(cuda, p_dtype, g_dtype, mv_dtype, kernel, grads,
+                 max_grad_norm=1.0):
+    params = _adamw_tree(cuda, p_dtype, 0)
+    opt = adamw_init(params, dtype=mv_dtype)
+    norms = []
+    for i, gs in enumerate(grads):
+        _, _, met = adamw_update(
+            params, gs, opt, lr=1e-2 * (i + 1), max_grad_norm=max_grad_norm,
+            use_kernels=kernel)
+        norms.append(met["grad_norm"])
+    torch.cuda.synchronize()
+    return params, opt, norms
+
+
+def _bits_equal(a, b) -> bool:
+    bits = torch.int16 if a.element_size() == 2 else torch.int32
+    return a.dtype == b.dtype and torch.equal(a.view(bits), b.view(bits))
+
+
+@pytest.mark.parametrize("p_dtype,g_dtype,mv_dtype", ADAMW_COMBOS)
+@pytest.mark.parametrize("clip", ["active", "inactive", "zero_grads"])
+def test_adamw_kernels_match_plain(cuda, p_dtype, g_dtype, mv_dtype, clip):
+    """Three steps through the kernels (``use_kernels`` None on CUDA)
+    against the plain version on the card, every dtype combination, the
+    clip active, inactive, and all-zero gradients (norm 0, scale 1):
+    params, moments and the norm BIT-EQUAL.  Both round where the JAX
+    reference does and the kernel spells out the plain version's order,
+    so there is nothing to tolerate; the gradients are multiples of 1/16
+    whose squares sum exactly in any order, so the two norms (and the
+    clip scales) agree too.  The gradients are left as they were, and a
+    step launches 2 x leaves + 1 kernels."""
+    if clip == "zero_grads":
+        grads = [{k: torch.zeros(s, dtype=g_dtype, device=cuda)
+                  for k, s in ADAMW_SHAPES.items()} for _ in range(3)]
+    else:
+        grads = [_adamw_tree(cuda, g_dtype, 10 + i, exact=True)
+                 for i in range(3)]
+    kept = [{k: t.clone() for k, t in gs.items()} for gs in grads]
+    max_norm = 1e4 if clip == "inactive" else 1.0
+    n = (kadamw.launches, kadamw.norm_launches)
+    pk, ok_, nk = _adamw_steps(cuda, p_dtype, g_dtype, mv_dtype, None, grads,
+                               max_norm)
+    L = len(ADAMW_SHAPES)
+    assert (kadamw.launches, kadamw.norm_launches) == (n[0] + 3 * L,
+                                                       n[1] + 3 * (L + 1))
+    pp, op, npl = _adamw_steps(cuda, p_dtype, g_dtype, mv_dtype, False,
+                               grads, max_norm)
+    assert (kadamw.launches, kadamw.norm_launches) == (n[0] + 3 * L,
+                                                       n[1] + 3 * (L + 1))
+    for gs, ks in zip(grads, kept):
+        assert all(torch.equal(gs[k], ks[k]) for k in gs)
+    for a, b in zip(nk, npl):
+        assert a.shape == () and a.is_cuda and _bits_equal(a, b)
+    if clip == "zero_grads":
+        assert all(float(a) == 0.0 for a in nk)
+    else:
+        want = math.sqrt(sum(float(t.double().pow(2).sum())
+                             for t in grads[-1].values()))
+        assert float(nk[-1]) == pytest.approx(want, rel=1e-6)
+        assert (float(nk[-1]) > max_norm) == (clip == "active")
+    for k in ADAMW_SHAPES:
+        assert _bits_equal(pk[k], pp[k]), k
+        assert _bits_equal(ok_["m"][k], op["m"][k]), k
+        assert _bits_equal(ok_["v"][k], op["v"][k]), k
+        assert bool(torch.isfinite(pk[k]).all())
+    # the 1-D leaves take no decay: with zero gradients they do not move
+    if clip == "zero_grads":
+        start = _adamw_tree(cuda, p_dtype, 0)
+        assert torch.equal(pk["b"], start["b"])
+        assert not torch.equal(pk["w"], start["w"])
+
+
+def test_adamw_kernels_random_grads_and_misaligned_leaves(cuda):
+    """Gaussian gradients (the norm summed in another order than the plain
+    version's): the norm within 1e-5 of the f64 one and of the plain
+    version's (f32 sums of a million squares in other orders), and with
+    the clip inactive every leaf bit-equal; leaves
+    that are misaligned views (the scalar path) give the bits of aligned
+    copies."""
+    grads = [_adamw_tree(cuda, torch.bfloat16, 20 + i) for i in range(3)]
+    pk, ok_, nk = _adamw_steps(cuda, torch.bfloat16, torch.bfloat16,
+                               torch.float32, None, grads, 1e6)
+    pp, op, npl = _adamw_steps(cuda, torch.bfloat16, torch.bfloat16,
+                               torch.float32, False, grads, 1e6)
+    want = math.sqrt(sum(float(t.double().pow(2).sum())
+                         for t in grads[-1].values()))
+    assert float(nk[-1]) == pytest.approx(want, rel=1e-5)
+    assert float(nk[-1]) == pytest.approx(float(npl[-1]), rel=1e-5)
+    for k in ADAMW_SHAPES:
+        for a, b in ((pk, pp), (ok_["m"], op["m"]), (ok_["v"], op["v"])):
+            assert _bits_equal(a[k], b[k]), k
+
+    def shifted(t):  # a contiguous view one element past a 16-byte boundary
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
+        out = buf[1:].view(t.shape)
+        out.copy_(t)
+        return out
+    params = _adamw_tree(cuda, torch.bfloat16, 0)
+    opt = adamw_init(params)
+    views = {k: shifted(t) for k, t in params.items()}
+    vopt = {"m": {k: shifted(t) for k, t in opt["m"].items()},
+            "v": {k: shifted(t) for k, t in opt["v"].items()}, "step": 0}
+    vgrads = [{k: shifted(t) for k, t in gs.items()} for gs in grads]
+    for gs, vgs in zip(grads, vgrads):
+        adamw_update(params, gs, opt, lr=1e-2)
+        adamw_update(views, vgs, vopt, lr=1e-2)
+    torch.cuda.synchronize()
+    for k in ADAMW_SHAPES:
+        assert views[k].data_ptr() % 16 != 0
+        for a, b in ((params, views), (opt["m"], vopt["m"]),
+                     (opt["v"], vopt["v"])):
+            assert _bits_equal(a[k], b[k]), k
+
+
+def test_adamw_norm_is_fixed_order_and_wrapper_checks(cuda):
+    """Two steps on the same gradients report the same bits of
+    ``grad_norm`` (a fixed grid, fixed trees, no atomics), over several
+    blocks of a leaf, within 1e-5 of the plain version's; the wrapper
+    raises on a non-contiguous leaf, an unsupported dtype, mixed moment
+    dtypes and CPU leaves."""
+    grads = _adamw_tree(cuda, torch.float32, 30)
+    params = _adamw_tree(cuda, torch.float32, 0)
+    opt = adamw_init(params)
+    a, b, plain = (adamw_update(params, grads, opt, lr=1e-2,
+                                use_kernels=k)[2]["grad_norm"]
+                   for k in (None, None, False))
+    assert kadamw.norm_blocks(grads["big"].numel()) > 100
+    assert _bits_equal(a, b)
+    assert float(a) == pytest.approx(float(plain), rel=1e-5)
+    p = torch.zeros((8, 16), device=cuda)
+    ok_args = dict(lr=1e-2, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
+                   c1=0.1, c2=0.05, decay=True)
+    with pytest.raises(ValueError, match="contiguous"):
+        kadamw.update_cuda(p, p.t(), p, p, None, **ok_args)
+    with pytest.raises(TypeError):
+        h = p.half()
+        kadamw.update_cuda(h, h, h, h, None, **ok_args)
+    with pytest.raises(TypeError):
+        kadamw.update_cuda(p, p, p, p.bfloat16(), None, **ok_args)
+    with pytest.raises(ValueError, match="CUDA"):
+        kadamw.update_cuda(p, p.cpu(), p, p, None, **ok_args)
 
 
 # The bf16 tensor-core scan: N = 128 with P = 64 (mamba2-130m's head),

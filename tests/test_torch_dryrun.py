@@ -86,9 +86,10 @@ def _cell_contract(c):
     assert set(mem) == {"argument_bytes", "output_bytes", "temp_bytes",
                         "peak_bytes"}
     # a train step of whisper's two stacks, checkpointed: every kernel
-    # but the SSD scan's is called
+    # but the SSD scan's is called, and AdamW's norm and update
     assert set(c["calls"]) == {"rmsnorm", "rmsnorm_bwd", "flash_attention",
-                               "flash_attention_bwd", "cross_entropy"}
+                               "flash_attention_bwd", "cross_entropy",
+                               "adamw_norm", "adamw"}
 
 
 def test_dryrun_cli_single_cell(tmp_path):

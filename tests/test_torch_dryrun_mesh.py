@@ -8,7 +8,8 @@ and not run; on the CPU, at smoke size.
   same wherever it falls in a sweep (every meta storage's address is 0);
 - at (4, 1) the per-device FLOPs are the one-card count's quarter,
   exactly, for every family's prefill, decode and train step, in kernel
-  and plain mode;
+  and plain mode, but for kernel mode's AdamW FLOPs on the leaves a rank
+  holds whole;
 - every rank of (2, 2) counts the same collectives by kind, peak and
   calls; the data coordinate changes nothing; the model coordinate
   changes only what depends on the positions a rank holds (its writes
@@ -47,6 +48,7 @@ import test_torch_distributed as TD  # noqa: E402
 
 from repro_torch.configs.base import (RunConfig, ShapeConfig,  # noqa: E402
                                       get_smoke_config)
+from repro_torch.kernels import adamw as kadamw  # noqa: E402
 from repro_torch.kernels import flash_attention as kflash  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch.mesh import Mesh  # noqa: E402
@@ -140,18 +142,38 @@ def test_kv_seq_split_meta_cache_counts_the_same_at_every_position():
 
 # --- (4, 1): the data ranks split the one-card count ---------------------
 
+def _whole_adamw_flops(cfg, mesh) -> float:
+    """Kernel mode's AdamW FLOPs that a rank of ``mesh`` counts in full:
+    the norm and the update of each leaf it holds whole (a norm's weight,
+    replicated) and the finalize."""
+    defs = list(P.tree_leaves(registry.param_defs(cfg)))
+    with use_rules(ShardingRules(mesh)):
+        local = list(P.tree_leaves(P.abstract(registry.param_defs(cfg))))
+    flops = kadamw.final_work(len(defs))[0]
+    for d, t in zip(defs, local):
+        if tuple(t.shape) == tuple(d.shape):
+            flops += kadamw.norm_work(t)[0] + kadamw.update_work(
+                t, t, t, t, clip=True, decay=t.dim() >= 2)[0]
+    return flops
+
+
 @pytest.mark.parametrize("mode", ["kernel", "plain"])
 @pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("arch", FAMILIES)
 def test_four_data_ranks_each_count_a_quarter_of_one_card(arch, kind, mode):
     """At (4, 1) a device runs 2 of the 8 rows on the whole weights
     (ZeRO-3: gathered a layer at a time): its FLOPs are exactly a quarter
-    of the one-card count, its collectives the gathers (and the train
-    step's gradient reduce-scatters and norm sums)."""
+    of the one-card count, but for AdamW's on the leaves it holds whole
+    and its finalize (kernel mode; the plain mode counts no elementwise
+    FLOPs), its collectives the gathers (and the train step's gradient
+    reduce-scatters and norm sums)."""
     one = _count(arch, kind, mode=mode)
-    dev = _count(arch, kind, _mesh((4, 1)), mode=mode)
+    mesh = _mesh((4, 1))
+    dev = _count(arch, kind, mesh, mode=mode)
     assert one["collective_bytes"] == 0
-    assert dev["flops"] * 4 == one["flops"]
+    whole = (_whole_adamw_flops(get_smoke_config(arch), mesh)
+             if (kind, mode) == ("train", "kernel") else 0)
+    assert dev["flops"] * 4 == one["flops"] + 3 * whole
     assert dev["calls"] == one["calls"]
     assert dev["coll_all-gather"] > 0
     assert ("coll_reduce-scatter" in dev) == (kind == "train")

@@ -239,13 +239,18 @@ def test_ce_blockwise_loss_and_grads_match_jax(dtype, masked):
     np.testing.assert_allclose(_np(tw.grad), _np(jdw), rtol=2e-2, atol=2e-4)
 
 
-@pytest.mark.parametrize("state_dtype", DTYPES)
-def test_adamw_update_matches_jax(state_dtype):
+@pytest.mark.parametrize("param_dtype,state_dtype", [
+    pytest.param("float32", "float32", id="float32"),
+    pytest.param("float32", "bfloat16", id="bfloat16"),
+    # as the training cells run it: bf16 params and gradients, f32 moments
+    pytest.param("bfloat16", "float32", id="bf16-params-and-grads")])
+def test_adamw_update_matches_jax(param_dtype, state_dtype):
     rng = np.random.default_rng(4)
     shapes = {"w": (3, 16, 8), "b": (8,), "e": (40, 8)}
+    jdt, tdt = getattr(jnp, param_dtype), getattr(torch, param_dtype)
     p = {k: rng.standard_normal(s, np.float32) for k, s in shapes.items()}
-    jp = {k: jnp.asarray(v) for k, v in p.items()}
-    tp = {k: torch.from_numpy(v.copy()) for k, v in p.items()}
+    jp = {k: jnp.asarray(v).astype(jdt) for k, v in p.items()}
+    tp = {k: torch.from_numpy(v.copy()).to(tdt) for k, v in p.items()}
     jopt = j_adamw_init(jp, dtype=getattr(jnp, state_dtype))
     topt = adamw_init(tp, dtype=getattr(torch, state_dtype))
     j_update = jax.jit(lambda p, g, o, lr: j_adamw_update(
@@ -256,25 +261,63 @@ def test_adamw_update_matches_jax(state_dtype):
         lr = cosine_schedule(step + 1, base_lr=1e-2, warmup_steps=2,
                              total_steps=10)
         jp, jopt, jm = j_update(
-            jp, {k: jnp.asarray(v) for k, v in g.items()}, jopt, lr)
-        # copies: the port clips the gradients in place, and JAX on the
-        # CPU may still be reading the same numpy buffers (asynchronous
-        # dispatch, no copy on the way in)
-        tp, topt, tm = adamw_update(
-            tp, {k: torch.from_numpy(v.copy()) for k, v in g.items()}, topt,
-            lr=lr, weight_decay=0.1, max_grad_norm=1.0)
+            jp, {k: jnp.asarray(v).astype(jdt) for k, v in g.items()}, jopt,
+            lr)
+        # copies: JAX on the CPU may still be reading the same numpy
+        # buffers (asynchronous dispatch, no copy on the way in)
+        tg = {k: torch.from_numpy(v.copy()).to(tdt) for k, v in g.items()}
+        kept = {k: t.clone() for k, t in tg.items()}
+        tp, topt, tm = adamw_update(tp, tg, topt, lr=lr, weight_decay=0.1,
+                                    max_grad_norm=1.0)
+        # the gradients are read, not clipped in place
+        assert all(torch.equal(tg[k], kept[k]) for k in shapes)
         np.testing.assert_allclose(float(tm["grad_norm"]),
                                    float(jm["grad_norm"]), rtol=1e-5)
         assert topt["step"] == int(jopt["step"]) == step + 1
-        tol = (dict(rtol=2 ** -7, atol=1e-6) if state_dtype == "bfloat16"
+        # bf16 anywhere: one rounding of it apart (a clip scale a bit
+        # apart can round a clipped gradient the other way)
+        bf16 = "bfloat16" in (param_dtype, state_dtype)
+        tol = (dict(rtol=2 ** -7, atol=1e-6) if bf16
                else dict(rtol=1e-5, atol=1e-6))
+        p_tol = (dict(rtol=2 ** -7, atol=1e-6) if param_dtype == "bfloat16"
+                 else dict(rtol=1e-5, atol=1e-6))
         for k in shapes:
-            np.testing.assert_allclose(_np(tp[k]), _np(jp[k]), rtol=1e-5,
-                                       atol=1e-6, err_msg=k)
+            assert tp[k].dtype == tdt and tg[k].dtype == tdt
+            np.testing.assert_allclose(_np(tp[k]), _np(jp[k]), err_msg=k,
+                                       **p_tol)
             np.testing.assert_allclose(_np(topt["m"][k]),
                                        _np(jopt["m"][k]), err_msg=k, **tol)
             np.testing.assert_allclose(_np(topt["v"][k]),
                                        _np(jopt["v"][k]), err_msg=k, **tol)
+
+
+def test_adamw_takes_the_kernels_on_cuda_only():
+    """``use_kernels`` None keeps CPU leaves on the plain version (no
+    kernel launched, the same bits as False); True raises for them."""
+    from repro_torch.kernels import adamw as kadamw
+    rng = np.random.default_rng(5)
+    shapes = {"w": (4, 24), "b": (7,)}
+
+    def state():
+        p = {k: torch.from_numpy(rng.standard_normal(s, np.float32))
+             for k, s in shapes.items()}
+        return p, adamw_init(p)
+    pa, oa = state()
+    pb = {k: t.clone() for k, t in pa.items()}
+    ob = adamw_init(pb)
+    g = {k: torch.from_numpy(rng.standard_normal(s, np.float32))
+         for k, s in shapes.items()}
+    n = (kadamw.launches, kadamw.norm_launches)
+    _, _, ma = adamw_update(pa, g, oa, lr=1e-2)
+    _, _, mb = adamw_update(pb, g, ob, lr=1e-2, use_kernels=False)
+    assert (kadamw.launches, kadamw.norm_launches) == n
+    assert torch.equal(ma["grad_norm"], mb["grad_norm"])
+    for k in shapes:
+        for a, b in ((pa, pb), (oa["m"], ob["m"]), (oa["v"], ob["v"])):
+            assert torch.equal(a[k], b[k])
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        adamw_update(pa, g, oa, lr=1e-2, use_kernels=True)
+    assert oa["step"] == 1
 
 
 def test_cosine_schedule_matches_jax():
