@@ -79,6 +79,8 @@ class DeviceTrace:
         dev_type = "CUDA" if self.device.type == "cuda" else "CPU"
         device, host = [], []
         for e in _events(self.prof):
+            if getattr(e, "is_user_annotation", lambda: False)():
+                continue  # a range over operations (NCCL's), none itself
             kind = str(e.device_type()).split(".")[-1]
             (device if kind == dev_type and self.device.type == "cuda"
              else host).append((e.name(), *_span(e)))

@@ -11,6 +11,13 @@ window (which runs as with ``--trace 0``) and from a device trace of a
 few more steps or batches run after it.
 The numbers compared with their limits are printed last on standard
 error and under the result's last key, ``check``.
+
+A cell of ``chips`` N > 1 runs as N ranks, a card each (``ranks.py``
+starts them): each rank joins the port's process group, serves under
+rules over a (1, N) mesh and checks its share of the sampled requests;
+rank 0 closes the window, takes every number compared at its worst over
+the ranks, and alone prints the result, with rank 0's trace and clock
+and every rank's memory peak.
 """
 from __future__ import annotations
 
@@ -158,6 +165,23 @@ def result(rec: Record, trace: bool, dev) -> Dict:
     return out
 
 
+def gather_ranks(rec: Record) -> Optional[List[int]]:
+    """Over the ranks of a cell of more than one card: every number
+    compared at its worst (largest) over the ranks, on every rank, and
+    every rank's memory peak in rank order (None for one card)."""
+    if rec.cell.chips == 1:
+        return None
+    import torch.distributed as dist
+    got: List = [None] * rec.cell.chips
+    dist.all_gather_object(got, (rec.memory_peak_bytes, rec.check))
+    rec.check = {}
+    for _, check in got:
+        for k, v in check.items():
+            if v is not None:
+                rec.check[k] = max(v, rec.check.get(k, v))
+    return [peak for peak, _ in got]
+
+
 def forbidden_modules() -> List[str]:
     return sorted({m.split(".")[0] for m in list(sys.modules)}
                   & set(FORBIDDEN))
@@ -181,14 +205,35 @@ def main(argv, t_start: float) -> int:
         print(f"{args.workload} needs {cell.chips} CUDA device(s); {have} "
               "available", file=sys.stderr)
         return 2
-    from perfbench import program
+    from perfbench import program, ranks
+    if cell.chips > 1 and not ranks.is_rank():
+        return ranks.launch([sys.executable, str(
+            bench.ROOT / "perfbench" / "run.py")] + list(argv), cell.chips,
+            t_start)
     prog = program.load()
     dev = prog.resolve_device("cuda")
+    if cell.chips > 1:
+        t_start = ranks.started_at()
+        ranks.join(prog.init_distributed)
     torch.cuda.reset_peak_memory_stats(dev)
     rec = run_cell(cell, prog, dev, seed=args.seed, seconds=args.seconds,
                    trace=bool(args.trace), t_start=t_start)
-    res = result(rec, bool(args.trace), dev)
+    rc = finish(rec, bool(args.trace), dev)
+    if cell.chips > 1:
+        ranks.leave(rc)
+    return rc
+
+
+def finish(rec: Record, trace: bool, dev) -> int:
+    """Gathers the ranks' numbers, leaves the process group, looks for
+    modules the run may not load (on every rank), and on rank 0 prints the
+    numbers compared and the result line; the exit code."""
+    peaks = gather_ranks(rec)
+    res = result(rec, trace, dev)
+    if peaks is not None:
+        res["device"]["rank_memory_peak_bytes"] = peaks
     import torch.distributed as dist
+    first = not dist.is_initialized() or dist.get_rank() == 0
     if dist.is_initialized():
         dist.destroy_process_group()
     bad = forbidden_modules()
@@ -196,6 +241,8 @@ def main(argv, t_start: float) -> int:
         print(f"modules that the run may not load were loaded: {bad}",
               file=sys.stderr)
         return 3
+    if not first:
+        return 0
     for k, c in res["check"].items():
         print(f"check {k}: {c['value']!r} limit {c['limit']!r}",
               file=sys.stderr)

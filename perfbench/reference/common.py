@@ -18,6 +18,7 @@ import torch
 
 NEG_INF = -1e30
 F8_FWD, F8_BWD = torch.float8_e4m3fn, torch.float8_e5m2
+PRECISIONS = ("f32", "fp8")  # the modes of ``mm``; a family may add faults
 
 
 def strict_f32() -> None:

@@ -71,6 +71,17 @@ HEAD_LEAVES: List[Tuple[Path, Optional[int]]] = [
 def attn_mlp_block(c: Dict, w: Dict[Path, torch.Tensor], pre: Path,
                    x: torch.Tensor, mode: str) -> torch.Tensor:
     """x + attention, then + MLP, both pre-normed (weights under ``pre``)."""
+    x = attn_part(c, w, pre, x, mode)
+    h = rmsnorm(x, w[pre + ("ln2",)], c["norm_eps"])
+    act = ACTS[c["act"]]
+    a = act(mm(h, w[pre + ("mlp", "w_gate")], mode)) * mm(
+        h, w[pre + ("mlp", "w_up")], mode)
+    return x + mm(a, w[pre + ("mlp", "w_down")], mode)
+
+
+def attn_part(c: Dict, w: Dict[Path, torch.Tensor], pre: Path,
+              x: torch.Tensor, mode: str) -> torch.Tensor:
+    """x + pre-normed causal GQA attention (weights under ``pre``)."""
     B, S, _ = x.shape
     Hq, Hkv, D = c["num_heads"], c["num_kv_heads"], c["head_dim"]
     pos = torch.arange(S, device=x.device)
@@ -80,12 +91,7 @@ def attn_mlp_block(c: Dict, w: Dict[Path, torch.Tensor], pre: Path,
     k = rope(mm(h, w[pre + ("attn", "wk")], mode).reshape(B, S, Hkv, D), pos,
              c["rope_theta"])
     v = mm(h, w[pre + ("attn", "wv")], mode).reshape(B, S, Hkv, D)
-    x = x + mm(attention(q, k, v, mode), w[pre + ("attn", "wo")], mode)
-    h = rmsnorm(x, w[pre + ("ln2",)], c["norm_eps"])
-    act = ACTS[c["act"]]
-    a = act(mm(h, w[pre + ("mlp", "w_gate")], mode)) * mm(
-        h, w[pre + ("mlp", "w_up")], mode)
-    return x + mm(a, w[pre + ("mlp", "w_down")], mode)
+    return x + mm(attention(q, k, v, mode), w[pre + ("attn", "wo")], mode)
 
 
 def unit_forward(c: Dict, unit: Tuple[str, int], w: Dict[Path, torch.Tensor],
@@ -97,15 +103,16 @@ def embed(c: Dict, params: Dict, tokens: torch.Tensor) -> torch.Tensor:
     return params["embed"]["tok"][tokens.long()].float()
 
 
-def cache_v(c: Dict, params: Dict, tokens: torch.Tensor) -> torch.Tensor:
+def cache_v(c: Dict, params: Dict, tokens: torch.Tensor,
+            mode: str = "f32") -> torch.Tensor:
     """The first layer's V over ``tokens`` (n, T), as a KV cache holds
-    it: (n, T, Hkv, D) f32."""
+    it: (n, T, Hkv, D) f32 (its product in ``mode``)."""
     w = unit_weights(params, [(("blocks", "ln1"), 0),
                               (("blocks", "attn", "wv"), 0)])
     h = rmsnorm(embed(c, params, tokens), w[("blocks", "ln1")],
                 c["norm_eps"])
     n, T = tokens.shape
-    return (h @ w[("blocks", "attn", "wv")]).reshape(
+    return mm(h, w[("blocks", "attn", "wv")], mode).reshape(
         n, T, c["num_kv_heads"], c["head_dim"])
 
 
@@ -129,13 +136,15 @@ def forward_flops(c: Dict, B: int, S: int, ops) -> float:
     return 2.0 * mats * B * S + c["num_layers"] * attn
 
 
-def kernel_calls(c: Dict, kind: str, B: int, S: int,
-                 max_len: int = 0) -> List[Tuple[str, Dict]]:
+def kernel_calls(c: Dict, kind: str, B: int, S: int, max_len: int = 0,
+                 ranks: int = 1) -> List[Tuple[str, Dict]]:
     """The attention work one step needs, counted once: training a
     forward (writing ``lse``) and a backward a layer; a prefill over a
-    cache of ``max_len`` positions a forward a layer."""
-    a = dict(B=B, Sq=S, Hq=c["num_heads"], Hkv=c["num_kv_heads"],
-             D=c["head_dim"])
+    cache of ``max_len`` positions a forward a layer.  Over ``ranks``
+    ranks splitting the heads, one rank's share: its query and KV
+    heads."""
+    a = dict(B=B, Sq=S, Hq=c["num_heads"] // ranks,
+             Hkv=c["num_kv_heads"] // ranks, D=c["head_dim"])
     if kind == "train":
         return c["num_layers"] * [("flash_fwd", dict(a, Sk=S, lse=True)),
                                   ("flash_bwd", dict(a, Sk=S))]

@@ -9,7 +9,7 @@ from typing import Dict, List
 
 import torch
 
-from perfbench.reference.common import mm, unit_weights
+from perfbench.reference.common import PRECISIONS, mm, unit_weights
 
 
 @torch.no_grad()
@@ -17,8 +17,10 @@ def logits_at(fam, c: Dict, params: Dict, seqs: List[torch.Tensor],
               first: List[int], mode: str = "f32",
               rows: int = 4) -> List[torch.Tensor]:
     """``seqs``: groups of equal-length id rows (n, T); ``first``: each
-    group's first position whose logits are wanted (through the end).
-    Returns (n, T - first, V) f32 logits a group."""
+    group's first position whose logits are wanted (through the end);
+    ``mode``: a precision of ``mm``, or a fault of the family's units
+    (the head then in f32).  Returns (n, T - first, V) f32 logits a
+    group."""
     xs = [fam.embed(c, params, s) for s in seqs]
     for u in fam.units(c):
         w = unit_weights(params, fam.unit_leaves(c, u))
@@ -29,7 +31,8 @@ def logits_at(fam, c: Dict, params: Dict, seqs: List[torch.Tensor],
         del w
     wh = unit_weights(params, fam.HEAD_LEAVES)
     head = wh[("embed", "lm_head")].t()
-    return [mm(fam.head_hidden(c, wh, x[:, f:]), head, mode)
+    head_mode = mode if mode in PRECISIONS else "f32"
+    return [mm(fam.head_hidden(c, wh, x[:, f:]), head, head_mode)
             for x, f in zip(xs, first)]
 
 

@@ -12,6 +12,12 @@ from perfbench import bench, harness, program
 SMOKE = {
     "dense": dict(num_layers=2, d_model=64, num_heads=4, num_kv_heads=2,
                   head_dim=16, d_ff=128, vocab_size=256),
+    # the port's mixtral smoke widths, at capacity factor E / K: a
+    # smoke batch's few tokens would overflow 1.25, and the reference is
+    # dropless (at the cell's sizes 1.25 drops nothing)
+    "moe": dict(num_layers=2, d_model=64, num_heads=4, num_kv_heads=2,
+                head_dim=16, d_ff=128, vocab_size=256, num_experts=4,
+                num_experts_per_tok=2, moe_capacity_factor=2.0),
     "zamba2": dict(num_layers=4, d_model=64, num_heads=4, num_kv_heads=4,
                    head_dim=16, d_ff=128, vocab_size=256, ssm_state=16,
                    ssm_head_dim=16, ssm_chunk=32, attn_every=2),

@@ -82,3 +82,13 @@ def test_readers_return_nothing_without_data():
     rec = harness.Record(cell, 0.0)
     for m in cell.per_layer:
         assert bench.metric_reader(m["name"]).read(rec) is None
+
+
+def test_readers_of_a_four_card_cell_return_nothing_without_data():
+    cell = bench.cell("mixtral-8x7b.serve.tp4")
+    assert cell.chips == 4
+    names = {m["name"] for m in cell.per_layer}
+    assert names == {"mfu.prefill", "flash_roofline.prefill"}
+    rec = harness.Record(cell, 0.0)
+    for m in cell.per_layer:
+        assert bench.metric_reader(m["name"]).read(rec) is None

@@ -7,7 +7,7 @@ sound run on every number compared (and, in training, fails a limit)."""
 import pytest
 import torch
 
-from perfbench import harness
+from perfbench import bench, harness
 from perfbench.reference import train_ref
 from perfbench.tests import smoke
 
@@ -156,3 +156,17 @@ def test_int8_cache_control_reads_above_the_sound_run():
     r = cell.limits["readings"]["cache_err"]
     assert min(r["program_int8_kv_cache"]) > cell.limits["limits"][
         "cache_err"] > max(r["program_values"])
+
+
+def test_four_card_cell_control_and_fault_readings_fail_a_limit():
+    """The four-card MoE cell's limits lie above every sound reading and
+    below the fp8 control's and the top-1 routing fault's smallest reading
+    on at least one number each (the readings on the cards: its limits
+    file)."""
+    cell = bench.cell("mixtral-8x7b.serve.tp4")
+    limits, readings = cell.limits["limits"], cell.limits["readings"]
+    for k, lim in limits.items():
+        assert max(readings[k]["program_values"]) < lim
+    for source in ("fp8", "top1"):
+        assert any(min(r[source]) > limits[k]
+                   for k, r in readings.items() if r.get(source)), source

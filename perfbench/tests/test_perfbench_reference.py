@@ -12,6 +12,9 @@ from perfbench.reference import common, serve_ref, train_ref
 from perfbench.tests import smoke
 
 CELLS = ["yi-6b.train.carousel", "zamba2-1.2b.train.carousel"]
+# the MoE reference against the port's mixtral at the smoke widths
+# (capacity factor E / K, where the port drops nothing, as the reference)
+FORWARD = CELLS + ["mixtral-8x7b.serve.tp4"]
 
 
 def _setup(name, seed=3):
@@ -28,7 +31,7 @@ def _tokens(seed, B, S, V):
     return torch.randint(2, V, (B, S), generator=g)
 
 
-@pytest.mark.parametrize("name", CELLS)
+@pytest.mark.parametrize("name", FORWARD)
 def test_forward_logits(name):
     cell, prog, cfg, specs = _setup(name)
     c, fam = cell.config["model"], cell.family
@@ -84,7 +87,7 @@ def test_two_adamw_steps(name):
         assert torch.allclose(a, b, rtol=1e-4, atol=1e-6), p
 
 
-@pytest.mark.parametrize("name", CELLS)
+@pytest.mark.parametrize("name", FORWARD)
 def test_served_logits(name):
     cell, prog, cfg, specs = _setup(name)
     c, fam = cell.config["model"], cell.family
@@ -120,3 +123,33 @@ def test_first_layer_v_as_the_cache_holds_it():
     err = (held[:, :24].float() - want).norm() / want.norm()
     assert err < 4e-3, err  # one rounding to the cache's bf16
     assert not held[:, 24:].any()
+
+
+def test_moe_top1_fault_moves_the_logits():
+    """The reference's ``top1`` fault (each token's second expert
+    dropped) lies far from its sound forward; its fp8 control nearer."""
+    cell, prog, cfg, specs = _setup("mixtral-8x7b.serve.tp4")
+    c, fam = cell.config["model"], cell.family
+    params = weights.draw_tree(specs, 3, "cpu")
+    tok = _tokens(1, 2, 40, c["vocab_size"])
+    ref = serve_ref.logits_at(fam, c, params, [tok], [0])[0]
+    top1 = serve_ref.logits_at(fam, c, params, [tok], [0], mode="top1")[0]
+    assert float(serve_ref.rel_err(top1, ref).max()) > 0.2
+
+
+def test_moe_route_is_the_ports():
+    """The reference's router (softmax over the E logits, the top K
+    renormalised) picks the port's experts with the port's weights."""
+    from perfbench.reference import moe
+    cell, prog, cfg, specs = _setup("mixtral-8x7b.serve.tp4")
+    c = cell.config["model"]
+    params = weights.draw_tree(specs, 6, "cpu")
+    p = {k: v[0] for k, v in params["blocks"]["moe"].items()}
+    h = torch.randn(3, 50, c["d_model"], generator=torch.Generator()
+                    .manual_seed(2))
+    r = prog.moe_route(p, cfg, h)
+    e, w = moe.route(c, h.reshape(-1, c["d_model"]), p["router"], "f32")
+    got = torch.sort(e, dim=-1)
+    assert torch.equal(got.values, r.experts.reshape(-1, 2))
+    assert torch.allclose(w.gather(-1, got.indices),
+                          r.weights.reshape(-1, 2), atol=1e-6)

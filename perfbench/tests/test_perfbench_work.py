@@ -3,7 +3,7 @@ the references against counts made by hand at one shape each."""
 import pytest
 
 from perfbench import bench
-from perfbench.reference import dense, zamba2
+from perfbench.reference import dense, moe, zamba2
 from perfbench.workmath import bound_s, causal_pairs, visible
 
 OPS = bench.ops()
@@ -76,8 +76,72 @@ def test_zamba2_forward_flops_by_hand():
         + 3 * scan
 
 
+def test_moe_forward_flops_by_hand():
+    # the router and the K = 2 experts a token goes to, not all E = 4
+    c = dict(num_layers=2, d_model=8, num_heads=2, num_kv_heads=1,
+             head_dim=4, d_ff=16, vocab_size=10, num_experts=4,
+             num_experts_per_tok=2)
+    per_layer = 8 * 8 + 2 * 8 * 4 + 8 * 8 + 8 * 4 + 2 * 3 * 8 * 16
+    mats = 2 * per_layer + 10 * 8
+    attn = 4 * 1 * 2 * 10 * 4
+    assert moe.forward_flops(c, 1, 4, OPS) == 2 * mats * 4 + 2 * attn
+
+
+@pytest.mark.parametrize("fam", [dense, moe])
+def test_kernel_calls_a_ranks_share_of_the_heads(fam):
+    c = dict(num_layers=3, num_heads=32, num_kv_heads=8, head_dim=128)
+    whole = fam.kernel_calls(c, "prefill", 2, 64, 72)
+    part = fam.kernel_calls(c, "prefill", 2, 64, 72, ranks=4)
+    assert len(whole) == len(part) == 3
+    for (n, a), (m, b) in zip(whole, part):
+        assert n == m == "flash_fwd"
+        assert (b["Hq"], b["Hkv"]) == (8, 2)
+        fa, ba = OPS[n].work(**a)
+        fb, bb = OPS[m].work(**b)
+        assert fb * 4 == fa and bb * 4 == ba
+
+
 @pytest.mark.parametrize("flops,nbytes,which", [(989e12, 1.0, "ops"),
                                                 (1.0, 3.35e12, "bytes")])
 def test_bound_takes_the_larger_term(flops, nbytes, which):
     peaks = bench.load_json(bench.ROOT / "perfbench" / "peaks.json")
     assert bound_s(flops, nbytes, peaks) == pytest.approx(1.0)
+
+
+class _Event:
+    def __init__(self, name, start, dur, kind="CUDA", annotation=False):
+        self._n, self._s, self._d = name, start, dur
+        self._k, self._a = kind, annotation
+
+    def name(self):
+        return self._n
+
+    def device_type(self):
+        return f"DeviceType.{self._k}"
+
+    def start_ns(self):
+        return self._s
+
+    def duration_ns(self):
+        return self._d
+
+    def is_user_annotation(self):
+        return self._a
+
+
+def test_trace_counts_operations_not_ranges_over_them(monkeypatch):
+    """NCCL's ``nccl:*`` ranges lie on the device beside its kernels: busy
+    time and the kernels' time count the kernels once."""
+    import torch
+    from perfbench import devtrace
+    events = [_Event("ncclDevKernel_AllReduce_Sum_bf16", 0, 400),
+              _Event("nccl:all_reduce", 0, 900, annotation=True),
+              _Event("gemm", 1000, 500),
+              _Event("cudaLaunchKernel", 0, 10, kind="CPU")]
+    monkeypatch.setattr(devtrace, "_events", lambda prof: events)
+    t = devtrace.DeviceTrace(torch.device("cuda"))
+    t.t0, t.t1 = 0.0, 2e-6
+    s = t.summary()
+    assert s["busy_s"] == pytest.approx(900e-9)
+    assert set(s["kernels"]) == {"ncclDevKernel_AllReduce_Sum_bf16", "gemm"}
+    assert devtrace.kernel_seconds(s, ("nccl",)) == pytest.approx(400e-9)
