@@ -66,7 +66,12 @@ Phases, each of which fails the run (non-zero exit, no final result line):
    leaf and the whole yi-6b and zamba2-1.2b train states timed a step,
    beside ``torch._fused_adamw_`` with moments of the params' dtype (it
    takes no f32 moments beside bf16 params) where those fit, with the
-   launches of a step).
+   launches of a step); and the dropless MoE's grouped expert kernels
+   (phase "moe_experts": granite-4.0-h-small's widths, a prefill block of
+   8192 tokens and a decode step of 16 rows, K 10 of 72, routes uniform
+   and uneven, against ``moe_experts_ref`` at TOL and bit-equal over two
+   calls; the uniform shapes timed beside the plain twin and
+   ``torch._grouped_mm``).
    The library yardstick of a backward is the library forward plus
    backward less the forward;
 4. serving: ``run_serving(arch, smoke=False, prompt_len=P, gen=32,
@@ -81,9 +86,11 @@ Phases, each of which fails the run (non-zero exit, no final result line):
    weights and the f32 temporaries of their initialisation would not fit
    the card); then whisper-tiny (P = 448 decoder tokens, 1500 frames) and
    llava-next-mistral-7b (2880 patches + P = 512 tokens) at full size
-   (phases "serving_whisper", "serving_llava"); launch counters reset
-   just before each and read just after, and held against the counts the
-   code implies;
+   (phases "serving_whisper", "serving_llava"), and granite-4.0-h-small
+   at full size, 16 x 4096 (phase "serving_granite": the grouped expert
+   kernels two launches a call, 8 calls a layer at prefill, 1 a decode
+   step); launch counters reset just before each and read just after,
+   and held against the counts the code implies;
 5. end to end, each model as it was served: (a) prefill logits through
    the kernels against ``use_kernels=False``; (b) decode at position S
    after a prefill of S tokens against a prefill of S + 1 tokens (for
@@ -217,7 +224,7 @@ is the one the cost model charges a call of it.
 
 It prints a ``{"kernel_info": [...]}`` line, a ``{"kernels": [...]}`` line
 and, last, ``{"ok": true, ...}``.
-A kernel's ``launches`` there is the sum of its counts over the ten
+A kernel's ``launches`` there is the sum of its counts over the eleven
 serving runs, the seven training runs of phases 7 and 8, the runs of
 phases 9-11, phase 14's two yi-6b runs and phase 15's rank 0 (each of its
 halves counted from 0 in that rank's process); ``ssd_scan``'s row is the
@@ -225,7 +232,8 @@ zamba2-1.2b prefill shape, ``ssd_scan_bwd``'s zamba2-1.2b's training
 shape; ``rmsnorm_split`` and ``rmsnorm_split_bwd`` (the split-row
 kernels, a rank's (8192, 1024): both launches a call, timed together)
 and ``ce_merge`` (yi-6b's 4 vocab shards) are launched on phase 15's
-path only.  Weights are random,
+path only; ``moe_experts``' row is a prefill block of 8192 tokens, its
+launches phase "serving_granite"'s.  Weights are random,
 made on the card from a seed; data is synthetic, from a seed; nothing is
 downloaded.
 """
@@ -255,11 +263,13 @@ from repro_torch.kernels import adamw as kadamw  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import cross_entropy as kce  # noqa: E402
 from repro_torch.kernels import flash_attention as kflash  # noqa: E402
+from repro_torch.kernels import moe_experts as kmoe  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import rmsnorm as krms  # noqa: E402
 from repro_torch.kernels import ssd_scan as kssd  # noqa: E402
 from repro_torch.launch import dryrun, serve, train  # noqa: E402
 from repro_torch.launch import mesh  # noqa: E402
+from repro_torch.models import granite_hybrid  # noqa: E402
 from repro_torch.models import layers  # noqa: E402
 from repro_torch.models import params as P  # noqa: E402
 from repro_torch.models import registry  # noqa: E402
@@ -338,6 +348,11 @@ TP_MODELS = [(ARCH, TP_LAYERS, TP_STEPS, torch.bfloat16),
 # experts: one a rank), a prompt of TP_MOE_PROMPT, TP_DECODE steps
 TP_MOE_ARCH, TP_MOE_PROMPT = "mixtral-8x7b", 64
 TP_MOE_TOL = 1e-3
+# granite-4.0-h-small (d 4096, 72 experts of 768, top 10): its grouped
+# expert kernels at the shapes its serving path gives them (a block of
+# MOE_TOKEN_BLOCK tokens at prefill, GRANITE_BATCH rows at decode), and
+# run_serving at full width and depth, GRANITE_BATCH x GRANITE_PROMPT
+GRANITE, GRANITE_BATCH, GRANITE_PROMPT = "granite-4.0-h-small", 16, 4096
 HALF_STEPS = 3  # warm steps whose two halves are timed alone
 E2E_TRAIN_LAYERS = 2
 # SSM / hybrid training at full width and depth, 4 x 2048 tokens a step;
@@ -1423,6 +1438,105 @@ def _adamw_row(label: str, shape, params, grads, opt, lr: float,
     return row
 
 
+def _moe_routes(T: int, K: int, E: int, uneven: bool,
+                gen: torch.Generator):
+    """(top_e ascending, top_w) of T tokens, K distinct experts each:
+    drawn uniformly, or ``uneven``: expert 5 every token, expert 3 none,
+    the rest with weights falling as 1 / (e + 1)."""
+    if uneven:
+        w = 1.0 / torch.arange(1, E + 1, device="cuda", dtype=torch.float32)
+        w[3] = w[5] = 0.0
+        rest = torch.multinomial(w.expand(T, E), K - 1, generator=gen)
+        top_e = torch.cat([rest, torch.full((T, 1), 5, device="cuda")], 1)
+    else:
+        top_e = torch.rand(T, E, generator=gen, device="cuda").topk(
+            K, dim=1).indices
+    top_w = torch.rand(T, K, generator=gen, device="cuda")
+    return torch.sort(top_e, dim=1).values, top_w / top_w.sum(1,
+                                                              keepdim=True)
+
+
+def phase_moe_experts(gen: torch.Generator, failures: list) -> dict:
+    """The grouped expert kernels (``kernels/moe_experts.py``) against
+    their plain twin ``moe_experts_ref`` on the same inputs, at GRANITE's
+    widths and the shapes its serving path gives them: a prefill block of
+    ``MOE_TOKEN_BLOCK`` tokens (81,920 pairs) and a decode step of
+    GRANITE_BATCH rows (160 pairs, the decode kernels), routes uniform and
+    uneven (an expert with no rows, one with every token): TOL in bf16,
+    and the same bits from two calls.  The uniform shapes are timed: the
+    kernels, the plain twin (its expert bounds on the host, so that a
+    graph holds it) and ``torch._grouped_mm`` (gate and up as one
+    product, then down; where the card's torch has it), beside the bound
+    of ``kmoe.work``."""
+    cfg = get_config(GRANITE)
+    E, K, d, f = (cfg.num_experts, cfg.num_experts_per_tok, cfg.d_model,
+                  cfg.d_ff)
+    bf = torch.bfloat16
+    w = [(torch.randn(E, a, b, generator=gen, device="cuda")
+          * a ** -0.5).to(bf) for a, b in ((d, f), (d, f), (f, d))]
+    main = None
+    for T in (layers.MOE_TOKEN_BLOCK, GRANITE_BATCH):
+        decode = T == GRANITE_BATCH
+        for uneven in (False, True):
+            x = torch.randn(T, d, generator=gen, device="cuda").to(bf)
+            r = layers.moe_sort(cfg, *_moe_routes(T, K, E, uneven, gen))
+            rows = (r.offsets[1:] - r.offsets[:-1]).tolist()
+            got, again = (kmoe.moe_experts_cuda(x, r.token, r.offsets, *w,
+                                                decode=decode)
+                          for _ in range(2))
+            want = kmoe.moe_experts_ref(x, r.token, r.offsets, *w)
+            torch.cuda.synchronize()
+            ok, err = _close(got, want, TOL[bf])
+            same = bool(torch.equal(got, again))
+            loads = not uneven or (rows[3] == 0 and rows[5] == T)
+            row = {"tokens": T, "pairs": T * K, "decode": decode,
+                   "routes": "uneven" if uneven else "uniform",
+                   "rows_min": min(rows), "rows_max": max(rows),
+                   "max_abs_err": err, "rel_l2": _rel_l2(got, want),
+                   "bit_equal": same, "ok": ok and same and loads}
+            del got, again, want
+            if not uneven:
+                _moe_times(row, x, r, w, decode)
+                flops, n_bytes = kmoe.work(x, T * K, w[0])
+                row["bound_ms"], row["bound_by"] = _bound(n_bytes, flops, bf)
+                if not decode:
+                    main = row
+            log("moe_experts", json.dumps(row))
+            if not row["ok"]:
+                failures.append(f"moe_experts {T} tokens {row['routes']}: "
+                                f"max err {err}, bit-equal {same}, loads "
+                                f"{rows[3]}, {rows[5]}")
+            del x, r
+    return main
+
+
+def _moe_times(row: dict, x, r, w, decode: bool) -> None:
+    """``phase_moe_experts``' timings of one shape into ``row``."""
+    host = r.offsets.cpu()
+    f = w[0].shape[2]
+    _time_row(row, {
+        "ms": lambda xs: kmoe.moe_experts_cuda(xs, r.token, r.offsets, *w,
+                                               decode=decode),
+        "plain_ms": lambda xs: kmoe.moe_experts_ref(xs, r.token, host, *w)},
+        [(x,), (x.clone(),)], calls=4)
+    row["library_ms"] = None
+    if not hasattr(torch, "_grouped_mm"):
+        return
+    ends, wgu = r.offsets[1:].contiguous(), torch.cat(w[:2], dim=2)
+
+    def library(xs):
+        hu = torch._grouped_mm(xs[r.token.long()], wgu, offs=ends)
+        return torch._grouped_mm(F.silu(hu[:, :f]) * hu[:, f:], w[2],
+                                 offs=ends)
+    lib = {}
+    try:
+        _time_row(lib, {"ms": library}, [(x,), (x.clone(),)], calls=4)
+    except RuntimeError as e:  # logged, not a failure: a yardstick only
+        row["library_error"] = str(e)[:200]
+        return
+    row["library_ms"], row["library_ms_warm"] = lib["ms"], lib["ms_warm"]
+
+
 def serving_launches(cfg, gen: int) -> dict:
     """Kernel launches one ``run_serving`` with ``gen`` tokens implies: the
     norms of ``gen`` forwards (one prefill, gen - 1 decode steps); flash
@@ -1494,6 +1608,52 @@ def phase_serving(failures: list, arch: str = ARCH, prompt: int = PROMPT,
         peak_bytes=res["peak_mem_bytes"], launches=counts, steps=1))
     if not in_range or tuple(tok.shape) != (batch, GEN):
         failures.append(f"{arch} bad tokens: shape {tuple(tok.shape)}")
+    return counts
+
+
+def granite_launches(cfg, batch: int, prompt: int, gen: int) -> dict:
+    """Kernel launches one ``run_serving`` of the granite_hybrid family
+    with ``gen`` tokens implies: each forward the two norms a layer and
+    the final norm; the Mamba2 mixers' gated norm and SSD scan once a
+    block of rows at prefill (``MIXER_TOKEN_BLOCK`` tokens' worth of rows
+    at a time), the gated norm once a decode step (the SSD state update
+    is plain); flash attention once an attention layer at prefill; the
+    grouped expert kernels two launches a call, a call for every
+    ``MOE_TOKEN_BLOCK`` tokens a layer at prefill and one a layer a
+    decode step."""
+    L, mamba = cfg.num_layers, cfg.num_layers - len(cfg.attn_layers)
+    blocks = -(-batch // max(1, granite_hybrid.MIXER_TOKEN_BLOCK // prompt))
+    moe_calls = -(-batch * prompt // layers.MOE_TOKEN_BLOCK)
+    return {"rmsnorm": (2 * L + 1) * gen + mamba * (blocks + gen - 1),
+            "flash_attention": len(cfg.attn_layers),
+            "ssd_scan": mamba * blocks, "rmsnorm_split": 0,
+            "moe_experts": 2 * L * (moe_calls + gen - 1)}
+
+
+def phase_serving_granite(failures: list) -> dict:
+    """``run_serving`` of GRANITE at full width and depth (GRANITE_BATCH x
+    GRANITE_PROMPT, GEN tokens), its launch counters set to 0 just before
+    and read just after, held against ``granite_launches``."""
+    krms.launches = kflash.launches = kssd.launches = kmoe.launches = 0
+    krms.split_launches = 0
+    res = serve.run_serving(GRANITE, smoke=False, prompt_len=GRANITE_PROMPT,
+                            gen=GEN, batch=GRANITE_BATCH, device=DEVICE)
+    counts = {"rmsnorm": krms.launches, "flash_attention": kflash.launches,
+              "ssd_scan": kssd.launches,
+              "rmsnorm_split": krms.split_launches,
+              "moe_experts": kmoe.launches}
+    cfg = get_config(GRANITE)
+    want = granite_launches(cfg, GRANITE_BATCH, GRANITE_PROMPT, GEN)
+    tok = res.pop("tokens")
+    in_range = bool(((tok >= 0) & (tok < cfg.vocab_size)).all())
+    log("serving_granite", json.dumps(dict(
+        res, prompt=GRANITE_PROMPT, batch=GRANITE_BATCH, launches=counts,
+        expected_launches=want, tokens_in_range=in_range)))
+    if counts != want:
+        failures.append(f"{GRANITE} launch counts {counts} != expected "
+                        f"{want}")
+    if not in_range or tuple(tok.shape) != (GRANITE_BATCH, GEN):
+        failures.append(f"{GRANITE} bad tokens: shape {tuple(tok.shape)}")
     return counts
 
 
@@ -3174,7 +3334,8 @@ def main() -> int:
                         ("flash_bwd", phase_flash_bwd),
                         ("cross_entropy", phase_cross_entropy),
                         ("ssd", phase_ssd), ("ssd_bwd", phase_ssd_bwd),
-                        ("adamw", phase_adamw)):
+                        ("adamw", phase_adamw),
+                        ("moe_experts", phase_moe_experts)):
         t1 = time.perf_counter()
         mains[name] = phase(gen, failures)
         log(f"{name} phase: {time.perf_counter() - t1:.2f} s")
@@ -3224,6 +3385,10 @@ def main() -> int:
         phase_breakdown(params, prompt, arch, f"breakdown_{tag}", ops=True)
         del params, prompt
         log(f"{arch} phases: {time.perf_counter() - t0:.2f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    counts.append(phase_serving_granite(failures))
+    log(f"{GRANITE} serving phase: {time.perf_counter() - t0:.2f} s")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     train_counts, train_steps_s = phase_training(failures)
@@ -3306,7 +3471,10 @@ def main() -> int:
             ("ce_merge", "cross_entropy.cu",
              "src/repro/kernels/cross_entropy.py:56", mains["ce_merge"]),
             ("adamw", "adamw.cu", "none (jnp: src/repro/optim/adamw.py)",
-             mains["adamw"]))]
+             mains["adamw"]),
+            ("moe_experts", "moe_experts.cu",
+             "none (XLA: the capacity slot grid of "
+             "src/repro/models/layers.py:370)", mains["moe_experts"]))]
     log(f"total: {time.perf_counter() - t_start:.2f} s")
     log(smi)
     log(json.dumps({"kernel_info": kernel_info}))

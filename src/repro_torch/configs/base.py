@@ -7,6 +7,14 @@ the same fields, so one arch is described the same way in both packages.
 read, with the JAX defaults.  ``SHAPES``, ``cell_is_runnable`` and
 ``all_cells`` are copies too: the same four input shapes, the same
 documented skips and the same reasons.
+
+``ModelConfig`` adds the fields of the port's own ``granite_hybrid``
+family (``attn_layers`` and the four multipliers, ``use_rope``,
+``shared_expert_d_ff``, ``moe_dropless``); their defaults leave every
+other arch as the JAX package describes it.  An arch the port alone
+runs is registered with ``register_port_only``: ``get_config`` and
+``get_smoke_config`` resolve it, ``list_archs`` (the JAX package's list)
+leaves it out.
 """
 from __future__ import annotations
 
@@ -50,6 +58,17 @@ class ModelConfig:
     # --- hybrid (zamba2-style) ---
     attn_every: int = 0
 
+    # --- hybrid (granite-style: attention at these layers, Mamba2 at the
+    # rest, each mixer followed by an MoE with a shared expert) ---
+    attn_layers: Tuple[int, ...] = ()
+    shared_expert_d_ff: int = 0
+    moe_dropless: bool = False  # routed rows, no capacity (granite_hybrid)
+    embedding_multiplier: float = 1.0
+    attention_multiplier: float = 0.0  # softmax scale; 0 -> head_dim ** -0.5
+    residual_multiplier: float = 1.0
+    logits_scaling: float = 1.0  # logits divided by it
+    use_rope: bool = True  # False: no position embedding (NoPE)
+
     # --- encoder-decoder (whisper) ---
     encoder_layers: int = 0
     encoder_frames: int = 1500
@@ -73,6 +92,7 @@ class ModelConfig:
             self.head_dim = self.d_model // self.num_heads
         if self.family == "ssm":
             self.attn_every = 0
+        self.attn_layers = tuple(self.attn_layers)
 
     @property
     def q_dim(self) -> int:
@@ -144,10 +164,19 @@ class RunConfig:
 
 _REGISTRY: Dict[str, ModelConfig] = {}
 _SMOKE_REGISTRY: Dict[str, ModelConfig] = {}
+_PORT_ONLY: Dict[str, ModelConfig] = {}  # archs the JAX package lacks
 
 
 def register(cfg: ModelConfig, smoke: ModelConfig) -> ModelConfig:
     _REGISTRY[cfg.name] = cfg
+    _SMOKE_REGISTRY[cfg.name] = smoke
+    return cfg
+
+
+def register_port_only(cfg: ModelConfig, smoke: ModelConfig) -> ModelConfig:
+    """An arch of the port alone: resolved by name, not in ``list_archs``
+    (nor in ``all_cells``), which hold the JAX package's archs."""
+    _PORT_ONLY[cfg.name] = cfg
     _SMOKE_REGISTRY[cfg.name] = smoke
     return cfg
 
@@ -159,15 +188,19 @@ def _ensure_loaded() -> None:
 
 def get_config(name: str) -> ModelConfig:
     _ensure_loaded()
+    if name in _PORT_ONLY:
+        return _PORT_ONLY[name]
     if name not in _REGISTRY:
-        raise KeyError(f"unknown arch {name!r}; known: {sorted(_REGISTRY)}")
+        raise KeyError(f"unknown arch {name!r}; known: "
+                       f"{sorted(_REGISTRY) + sorted(_PORT_ONLY)}")
     return _REGISTRY[name]
 
 
 def get_smoke_config(name: str) -> ModelConfig:
     _ensure_loaded()
     if name not in _SMOKE_REGISTRY:
-        raise KeyError(f"unknown arch {name!r}; known: {sorted(_REGISTRY)}")
+        raise KeyError(f"unknown arch {name!r}; known: "
+                       f"{sorted(_SMOKE_REGISTRY)}")
     return _SMOKE_REGISTRY[name]
 
 

@@ -23,7 +23,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = (Path(__file__).resolve().parents[3] / "build"
              / "repro_torch_kernels")
 SOURCES = ("bindings.cpp", "rmsnorm.cu", "flash_attention.cu",
-           "cross_entropy.cu", "ssd_scan.cu", "adamw.cu")
+           "cross_entropy.cu", "ssd_scan.cu", "adamw.cu", "moe_experts.cu")
 CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a",
               "-Xptxas=-v"]
 

@@ -1,13 +1,14 @@
 // PyTorch bindings of the hand-written CUDA kernels in this directory.
 //
 // The only source that includes PyTorch's headers: rmsnorm.cu,
-// flash_attention.cu, cross_entropy.cu, ssd_scan.cu and adamw.cu are
-// plain CUDA with C entry points taking pointers, strides and a stream.
-// Each function here launches on the current stream of its tensors'
-// device and checks the launch.  The Python wrappers (kernels/rmsnorm.py,
-// kernels/flash_attention.py, kernels/cross_entropy.py,
-// kernels/ssd_scan.py, kernels/adamw.py) check devices, dtypes, shapes
-// and contiguity and allocate the outputs and scratch.
+// flash_attention.cu, cross_entropy.cu, ssd_scan.cu, adamw.cu and
+// moe_experts.cu are plain CUDA with C entry points taking pointers,
+// strides and a stream.  Each function here launches on the current
+// stream of its tensors' device and checks the launch.  The Python
+// wrappers (kernels/rmsnorm.py, kernels/flash_attention.py,
+// kernels/cross_entropy.py, kernels/ssd_scan.py, kernels/adamw.py,
+// kernels/moe_experts.py) check devices, dtypes, shapes and contiguity
+// and allocate the outputs and scratch.
 #include <torch/extension.h>
 
 #include <ATen/cuda/CUDAContext.h>
@@ -100,6 +101,14 @@ extern "C" bool repro_adamw_update(void* p, const void* g, void* m, void* v,
                                    float omb1, float b2, float omb2, float c1,
                                    float c2, float eps, cudaStream_t s);
 extern "C" bool repro_adamw_info(int idx, const char** name, int* out);
+
+extern "C" bool repro_moe_experts(const void* x, const int* token,
+                                  const int* offsets, const void* w_gate,
+                                  const void* w_up, const void* w_down,
+                                  void* h, void* y, int pairs, int E, int d,
+                                  int f, long long ldx, int decode,
+                                  cudaStream_t stream);
+extern "C" bool repro_moe_info(int idx, const char** name, int* out);
 
 namespace {
 
@@ -421,6 +430,26 @@ void adamw_update(at::Tensor p, const at::Tensor& g, at::Tensor m,
 // forward, the RMSNorm backward's two passes and its forward at each
 // instantiation, the bf16 SSD scan at each padded N, the SSD
 // backward's kernels and AdamW's.
+// x: (T, d) bf16 with 16-byte aligned rows; token: (pairs,) int32;
+// offsets: (E + 1,) int32; w_gate, w_up: (E, d, f), w_down: (E, f, d)
+// bf16 contiguous; h: (pairs, f), y: (pairs, d) bf16 contiguous.  Writes
+// h and y (kernels/moe_experts.py checks the rest).
+void moe_experts(const at::Tensor& x, const at::Tensor& token,
+                 const at::Tensor& offsets, const at::Tensor& w_gate,
+                 const at::Tensor& w_up, const at::Tensor& w_down,
+                 at::Tensor h, at::Tensor y, bool decode) {
+  const c10::cuda::CUDAGuard guard(x.device());
+  const bool launched = repro_moe_experts(
+      x.data_ptr(), token.data_ptr<int>(), offsets.data_ptr<int>(),
+      w_gate.data_ptr(), w_up.data_ptr(), w_down.data_ptr(), h.data_ptr(),
+      y.data_ptr(), token.size(0), w_gate.size(0), w_gate.size(1),
+      w_gate.size(2), x.stride(0), decode ? 1 : 0,
+      at::cuda::getCurrentCUDAStream());
+  TORCH_CHECK(launched, "moe_experts: no kernel for d ", w_gate.size(1),
+              " f ", w_gate.size(2), " pairs ", token.size(0));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
 std::vector<std::pair<std::string, std::vector<int64_t>>> kernel_info() {
   const c10::cuda::CUDAGuard guard(at::cuda::current_device());
   std::vector<std::pair<std::string, std::vector<int64_t>>> rows;
@@ -439,6 +468,7 @@ std::vector<std::pair<std::string, std::vector<int64_t>>> kernel_info() {
   for (int idx = 0; repro_rmsnorm_info(idx, &name, out); ++idx) add(name);
   for (int idx = 0; repro_ssd_info(idx, &name, out); ++idx) add(name);
   for (int idx = 0; repro_adamw_info(idx, &name, out); ++idx) add(name);
+  for (int idx = 0; repro_moe_info(idx, &name, out); ++idx) add(name);
   C10_CUDA_CHECK(cudaGetLastError());
   return rows;
 }
@@ -478,6 +508,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "each leaf's sum of squares from its row of part");
   m.def("adamw_update", &adamw_update,
         "one leaf's AdamW step in place, clipped by scale");
+  m.def("moe_experts", &moe_experts,
+        "grouped gate/up and down products of the dropless MoE into h, y");
   m.def("kernel_info", &kernel_info,
         "registers, spills, shared memory and occupancy of the redesigned "
         "kernels");

@@ -227,7 +227,8 @@ class FlashAttentionFn(torch.autograd.Function):
             out, lse = flash_attention_cuda(
                 q, k, v, causal=opts["causal"], q_offset=opts["q_offset"],
                 kv_len=opts["kv_len"],
-                sliding_window=opts["sliding_window"], return_lse=True)
+                sliding_window=opts["sliding_window"],
+                scale=opts.get("scale"), return_lse=True)
         else:
             out, lse = ref.flash_attention_fwd_ref(q, k, v, **opts)
         ctx.kernel, ctx.opts = kernel, opts
@@ -244,8 +245,8 @@ class FlashAttentionFn(torch.autograd.Function):
         with meter.charge("flash_attention_bwd",
                           lambda: bwd_work(q, k, **mask)):
             if ctx.kernel:
-                dq, dk, dv = flash_attention_bwd_cuda(q, k, v, out, lse,
-                                                      dout, **mask)
+                dq, dk, dv = flash_attention_bwd_cuda(
+                    q, k, v, out, lse, dout, scale=opts.get("scale"), **mask)
             else:
                 dq, dk, dv = ref.flash_attention_bwd_ref(q, k, v, out, lse,
                                                          dout, **opts)

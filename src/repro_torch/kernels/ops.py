@@ -28,6 +28,7 @@ import torch
 from repro_torch.kernels import cross_entropy as _ce
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import meter
+from repro_torch.kernels import moe_experts as _moe
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import rmsnorm as _rmsnorm
 from repro_torch.kernels import ssd_scan as _ssd
@@ -70,8 +71,9 @@ def rmsnorm_split(x, w, *, d_whole: int, reduce, eps: float = 1e-6,
 
 def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
                     kv_len: Optional[int] = None, sliding_window: int = 0,
-                    block_k: int = 512,
+                    block_k: int = 512, scale: Optional[float] = None,
                     use_kernels: Optional[bool] = None) -> torch.Tensor:
+    """``scale``: the softmax scale, None for ``head_dim ** -0.5``."""
     kernel = _kernel_path(q, use_kernels)
     opts = dict(causal=causal, q_offset=q_offset, kv_len=kv_len,
                 sliding_window=sliding_window)
@@ -79,11 +81,12 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
     with meter.charge("flash_attention",
                       lambda: _flash.work(q, k, lse=grad, **opts)):
         if grad:
-            return _flash.FlashAttentionFn.apply(q, k, v, kernel,
-                                                 dict(opts, block_k=block_k))
+            return _flash.FlashAttentionFn.apply(
+                q, k, v, kernel, dict(opts, block_k=block_k, scale=scale))
         if kernel:
-            return _flash.flash_attention_cuda(q, k, v, **opts)
-        return _ref.flash_attention_ref(q, k, v, block_k=block_k, **opts)
+            return _flash.flash_attention_cuda(q, k, v, scale=scale, **opts)
+        return _ref.flash_attention_ref(q, k, v, block_k=block_k,
+                                        scale=scale, **opts)
 
 
 def ssd(x, dt, A, Bm, Cm, *, chunk: int = 128, init_state=None,
@@ -104,6 +107,21 @@ def ssd(x, dt, A, Bm, Cm, *, chunk: int = 128, init_state=None,
                                  return_state=return_state)
         return _ref.ssd_ref(x, dt, A, Bm, Cm, chunk=chunk,
                             init_state=init_state, return_state=return_state)
+
+
+def moe_experts(x, token, offsets, w_gate, w_up, w_down, *,
+                decode: bool = False,
+                use_kernels: Optional[bool] = None) -> torch.Tensor:
+    """The dropless MoE's SwiGLU experts over the (token, k) pairs sorted
+    by expert (``layers.moe_sort``): the grouped CUDA kernels (with
+    ``decode``, under the decode kernels' names) or ``moe_experts_ref``."""
+    kernel = _kernel_path(x, use_kernels)
+    with meter.charge("moe_experts",
+                      lambda: _moe.work(x, token.numel(), w_gate)):
+        if kernel:
+            return _moe.moe_experts_cuda(x, token, offsets, w_gate, w_up,
+                                         w_down, decode=decode)
+        return _moe.moe_experts_ref(x, token, offsets, w_gate, w_up, w_down)
 
 
 def ssd_decode(x, dt, A, Bm, Cm, h):

@@ -7,7 +7,9 @@ a bf16 or int8 KV cache), moe (mixtral-8x7b, qwen3-moe-235b-a22b), ssm
 encdec (whisper-tiny: the prompt is the decoder's, and the encoder's
 frames come beside it; a self and a cross cache) and vlm
 (llava-next-mistral-7b: the image patches go in front of the prompt, so
-the cache and the decode positions count them).  ``--layers`` cuts the
+the cache and the decode positions count them); and the port's own
+granite_hybrid (granite-4.0-h-small: Mamba2 and NoPE attention layers,
+each followed by a dropless MoE with a shared expert; one rank).  ``--layers`` cuts the
 depth of an arch too deep for the card.  Weights are random, drawn on the
 device from a seeded generator, and so are the modality inputs.
 
@@ -35,6 +37,8 @@ gspmd one.
         --arch qwen3-moe-235b-a22b --full --layers 6 --prompt-len 512
     PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-tiny \
         --full --prompt-len 448 --gen 32 --batch 4
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch granite-4.0-h-small --full --prompt-len 4096 --batch 16
 """
 from __future__ import annotations
 

@@ -92,9 +92,11 @@ def moe_defs(cfg: ModelConfig, L: int) -> Params:
     an E axis: ``w_gate``/``w_up`` (L, E, d, f), ``w_down`` (L, E, f, d).
     Expert weights carry BOTH "expert" and "ffn" tags; the rules shard on
     whichever divides: qwen3-moe (128e) on the expert dim, mixtral (8e <
-    16) on the per-expert ffn dim."""
+    16) on the per-expert ffn dim.  With ``shared_expert_d_ff`` a shared
+    expert, an MLP of that width that every token takes, under
+    ``"shared"``."""
     d, f, E = cfg.d_model, cfg.d_ff, cfg.num_experts
-    return {
+    out: Params = {
         "router": pdef((L, d, E), ("layers", "embed", None),
                        init="scaled", dtype=torch.float32),
         "w_gate": pdef((L, E, d, f), ("layers", "expert", "embed", "ffn"),
@@ -104,6 +106,14 @@ def moe_defs(cfg: ModelConfig, L: int) -> Params:
         "w_down": pdef((L, E, f, d), ("layers", "expert", "ffn", "embed"),
                        init="scaled"),
     }
+    if cfg.shared_expert_d_ff:
+        out["shared"] = mlp_defs(shared_expert_cfg(cfg), L)
+    return out
+
+
+def shared_expert_cfg(cfg: ModelConfig) -> ModelConfig:
+    """The config the shared expert runs as an MLP under: its width."""
+    return cfg.replace(d_ff=cfg.shared_expert_d_ff, mlp_bias=False)
 
 
 def embed_defs(cfg: ModelConfig) -> Params:
@@ -304,7 +314,8 @@ def attention(p: Params, cfg: ModelConfig, run: RunConfig, x: torch.Tensor,
               cache: Optional[Params] = None,
               kv_len: Optional[int] = None,
               xkv: Optional[torch.Tensor] = None,
-              cache_read_only: bool = False, use_rope: bool = True
+              cache_read_only: bool = False, use_rope: bool = True,
+              scale: Optional[float] = None
               ) -> Tuple[torch.Tensor, Optional[Params]]:
     """GQA attention with an optional one-layer KV cache.
 
@@ -314,10 +325,13 @@ def attention(p: Params, cfg: ModelConfig, run: RunConfig, x: torch.Tensor,
     entries.  Cross-attention: K and V come from ``xkv`` (the encoder's
     output), with no RoPE, and a cache is filled from row 0; with
     ``cache_read_only`` (decode) the cache is read as it stands and
-    nothing is written.  ``use_rope`` False leaves q and k unrotated.
-    Returns (out, cache).
+    nothing is written.  ``use_rope`` False leaves q and k unrotated;
+    ``scale`` is the softmax scale (None: ``head_dim ** -0.5``; one model
+    rank only).  Returns (out, cache).
     """
     if SR.model_ranks() > 1:
+        if scale is not None:
+            raise NotImplementedError("a softmax scale under a model split")
         return _attention_split(p, cfg, run, x, pos=pos, causal=causal,
                                 cache=cache, kv_len=kv_len, xkv=xkv,
                                 cache_read_only=cache_read_only,
@@ -352,14 +366,15 @@ def attention(p: Params, cfg: ModelConfig, run: RunConfig, x: torch.Tensor,
     if S == 1:
         out = _attention_kvseq(q, k, v, causal=causal, q_offset=pos,
                                kv_len=kv_len,
-                               sliding_window=cfg.sliding_window)
+                               sliding_window=cfg.sliding_window,
+                               scale=scale)
     else:
         # GQA inside the kernel: K/V keep Hkv heads (the JAX path repeats
         # them to Hq first; the result is the same).
         out = ops.flash_attention(
             q, k, v, causal=causal, q_offset=pos, kv_len=kv_len,
             sliding_window=cfg.sliding_window, block_k=run.attn_block_k,
-            use_kernels=run.use_kernels)
+            scale=scale, use_kernels=run.use_kernels)
     y = out.reshape(B, S, Hq * Dh) @ p["wo"]
     return SR.constrain(y, "batch", None, None), cache
 
@@ -591,10 +606,29 @@ def moe_route(p: Params, cfg: ModelConfig, x: torch.Tensor) -> MoERoute:
     """The routing of ``_moe_block_gspmd``: f32 router logits, softmax,
     top-K (ties to the lower expert, as ``lax.top_k``); then
     :func:`moe_assign`."""
-    K = cfg.num_experts_per_tok
+    gates, top_e = _gates_top(p, cfg, x)
+    return moe_assign(cfg, gates, top_e)
+
+
+def _gates_top(p: Params, cfg: ModelConfig, x: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The f32 router's softmax gates (..., E) and each token's K most
+    probable experts (..., K), ties to the lower expert."""
     gates = torch.softmax(x.float() @ p["router"].float(), dim=-1)
     top_e = torch.sort(gates, dim=-1, descending=True, stable=True)[1]
-    return moe_assign(cfg, gates, top_e[..., :K])
+    return gates, top_e[..., :cfg.num_experts_per_tok]
+
+
+def _top_weights(gates: torch.Tensor, top_e: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A token's K experts in ascending order (..., K) and their gates
+    renormalised over the K, in the same order: the order in which JAX's
+    scatter-add combines them (its stable sort puts a row's pairs in
+    expert order)."""
+    top_w = gates.gather(-1, top_e)
+    top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
+    top_e, perm = torch.sort(top_e, dim=-1)
+    return top_e, top_w.gather(-1, perm)
 
 
 def moe_assign(cfg: ModelConfig, gates: torch.Tensor,
@@ -607,12 +641,7 @@ def moe_assign(cfg: ModelConfig, gates: torch.Tensor,
     B, S, K = top_e.shape
     E = cfg.num_experts
     C = max(int(math.ceil(S * K / E * cfg.moe_capacity_factor)), 1)
-    top_w = gates.gather(-1, top_e)
-    top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
-    # a token's pairs by expert: the order in which JAX's scatter-add
-    # combines them (its stable sort puts a row's pairs in expert order)
-    top_e, perm = torch.sort(top_e, dim=-1)
-    top_w = top_w.gather(-1, perm)
+    top_e, top_w = _top_weights(gates, top_e)
 
     flat_e = top_e.reshape(B, S * K)
     order = torch.argsort(flat_e, dim=-1, stable=True)
@@ -688,8 +717,84 @@ def moe_block(p: Params, cfg: ModelConfig, run: RunConfig,
     "model" adds the ranks' outputs."""
     if SR.sharded():
         p = SR.gather_params(p, moe_layer_defs(cfg), keep=("model",))
-    return (_moe_block_shardmap if moe_uses_shardmap(x)
-            else _moe_block_gspmd)(p, cfg, run, x)
+    if cfg.moe_dropless:
+        y = _moe_block_dropless(p, cfg, run, x)
+    else:
+        y = (_moe_block_shardmap if moe_uses_shardmap(x)
+             else _moe_block_gspmd)(p, cfg, run, x)
+    if "shared" in p:
+        with obs.span("moe.shared"):
+            y = y + mlp(p["shared"], shared_expert_cfg(cfg), run, x)
+    return y
+
+
+# tokens a dropless MoE takes at once: at d 4096 and K 10, a block's
+# routed rows out of the experts are 0.67 GB in bf16, and as much again
+# while they are gathered by token and combined
+MOE_TOKEN_BLOCK = 8_192
+
+
+class MoERows(NamedTuple):
+    """A dropless route of T tokens: their T * K (token, k) pairs sorted
+    stably by expert, so that expert e's pairs are rows ``offsets[e] ..
+    offsets[e + 1] - 1`` of the sorted order."""
+    token: torch.Tensor  # (T * K,) int32: the token of each sorted pair
+    offsets: torch.Tensor  # (E + 1,) int32
+    where: torch.Tensor  # (T, K): each pair's row in the sorted order
+    weights: torch.Tensor  # (T, K) f32, a token's pairs in expert order
+
+
+def moe_sort(cfg: ModelConfig, top_e: torch.Tensor,
+             top_w: torch.Tensor) -> MoERows:
+    """The sorted pairs of tokens whose K experts ``top_e`` (T, K) come
+    in ascending order with weights ``top_w`` (``_top_weights``)."""
+    T, K = top_e.shape
+    flat = top_e.reshape(-1)
+    order = torch.argsort(flat, stable=True)
+    # no host read: bincount would read the largest id back
+    offsets = torch.searchsorted(
+        flat[order], torch.arange(cfg.num_experts + 1, device=flat.device),
+        out_int32=True)
+    where = torch.empty_like(order)
+    where[order] = torch.arange(order.numel(), device=flat.device)
+    return MoERows((order // K).to(torch.int32), offsets, where.view(T, K),
+                   top_w)
+
+
+def _moe_block_dropless(p: Params, cfg: ModelConfig, run: RunConfig,
+                        x: torch.Tensor) -> torch.Tensor:
+    """Top-K MoE over routed rows, nothing dropped: the tokens routed in
+    f32 (as ``moe_route``), then ``MOE_TOKEN_BLOCK`` tokens at a time
+    their (token, k) pairs sorted by expert (``moe_sort``), each expert's
+    SwiGLU on exactly its rows (``ops.moe_experts``: the grouped kernel
+    on CUDA, a loop of per-expert products elsewhere), and each token's
+    K outputs times their weights (both in the output dtype) summed in
+    expert order, one rounding a step, as ``_experts_combine`` sums
+    them.  No atomics: a row's bits do not vary from run to run."""
+    if SR.model_ranks() > 1:
+        raise NotImplementedError("the dropless MoE under a model split")
+    if cfg.act != "silu" or not cfg.gated_mlp:
+        raise NotImplementedError("the dropless MoE runs SwiGLU experts")
+    B, S, d = x.shape
+    xt = x.reshape(B * S, d)
+    with obs.span("moe.route"):
+        top_e, top_w = _top_weights(*_gates_top(p, cfg, xt))
+    out = torch.empty_like(xt)
+    with obs.span("moe.experts"):
+        for t0 in range(0, xt.shape[0], MOE_TOKEN_BLOCK):
+            t1 = min(t0 + MOE_TOKEN_BLOCK, xt.shape[0])
+            r = moe_sort(cfg, top_e[t0:t1], top_w[t0:t1])
+            y = ops.moe_experts(xt[t0:t1], r.token, r.offsets, p["w_gate"],
+                                p["w_up"], p["w_down"], decode=S == 1,
+                                use_kernels=run.use_kernels)
+            contrib = y[r.where]
+            del y
+            contrib.mul_(r.weights.to(contrib.dtype)[..., None])
+            acc = contrib[:, 0]
+            for k in range(1, contrib.shape[1]):
+                acc = acc + contrib[:, k]
+            out[t0:t1] = acc
+    return out.view(B, S, d)
 
 
 def _model_experts(p: Params, cfg: ModelConfig) -> Tuple[bool, int, int]:

@@ -68,12 +68,17 @@ G = 1  # number of B/C groups (mamba2 default ngroups=1)
 
 
 def block_defs(cfg: ModelConfig, n: int) -> Params:
+    """A block: its pre-norm ``ln`` and the mixer's weights."""
+    return {"ln": L.norm_defs(n, cfg.d_model), **mixer_defs(cfg, n)}
+
+
+def mixer_defs(cfg: ModelConfig, n: int) -> Params:
+    """The mixer's weights (:func:`mixer`), ``n`` stacked (0: one)."""
     d, din = cfg.d_model, cfg.ssm_inner
     N, H, W = cfg.ssm_state, cfg.ssm_heads, cfg.ssm_conv
     lead, ll = ((n,), ("layers",)) if n else ((), ())
     f32 = torch.float32
     return {
-        "ln": L.norm_defs(n, d),
         "w_z": pdef(lead + (d, din), ll + ("embed", "ffn"), init="scaled"),
         "w_x": pdef(lead + (d, din), ll + ("embed", "ffn"), init="scaled"),
         "w_B": pdef(lead + (d, G * N), ll + ("embed", None), init="scaled"),
@@ -154,13 +159,24 @@ def block_fwd(p: Params, cfg: ModelConfig, run: RunConfig, x: torch.Tensor,
 
 def _mamba_block(p: Params, cfg: ModelConfig, run: RunConfig,
                  x: torch.Tensor, state: Optional[Params]) -> torch.Tensor:
-    Bb, S, _ = x.shape
+    if SR.sharded():
+        split = ssm_split(cfg) in ("heads", "p")
+        p = SR.gather_params(p, unstack(block_defs(cfg, 1)),
+                             keep=("model",) if split else ())
+    return x + mixer(p, cfg, run, L.rmsnorm(p["ln"], x, cfg, run), state)
+
+
+def mixer(p: Params, cfg: ModelConfig, run: RunConfig, h: torch.Tensor,
+          state: Optional[Params] = None) -> torch.Tensor:
+    """The Mamba2 mixer of a block, without its norm and residual: the
+    normed input h (B, S, d) -> (B, S, d).  ``p`` holds the layer's mixer
+    weights as ``_mamba_block`` gathers them (this rank's ``model`` block
+    of each under a split); ``state`` as for :func:`block_fwd`."""
+    Bb, S, _ = h.shape
     N, H, P = cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
     mode = ssm_split(cfg)
     split = mode in ("heads", "p")
-    if SR.sharded():
-        defs = unstack(block_defs(cfg, 1))
-        p = SR.gather_params(p, defs, keep=("model",) if split else ())
+    defs = unstack(mixer_defs(cfg, 1)) if split else None
     rules = SR.current_rules()
 
     def whole(k: str) -> torch.Tensor:
@@ -177,10 +193,9 @@ def _mamba_block(p: Params, cfg: ModelConfig, run: RunConfig,
         n, r = SR.model_ranks(), rules.mesh.coord("model")
         pl = P // n
         cols = (torch.arange(H)[:, None] * P + r * pl
-                + torch.arange(pl)).reshape(-1).to(x.device)
+                + torch.arange(pl)).reshape(-1).to(h.device)
         loc = {k: whole(k).index_select(0 if k == "w_out" else -1, cols)
                for k in _DIN_LEAVES}
-    h = L.rmsnorm(p["ln"], x, cfg, run)
     if split:
         h = SR.enter_model(h)
 
@@ -231,7 +246,7 @@ def _mamba_block(p: Params, cfg: ModelConfig, run: RunConfig,
         state["tail_B"].copy_(tb)
         state["tail_C"].copy_(tc)
         state["ssm"].copy_(new_ssm)
-    return x + out
+    return out
 
 
 def state_defs(cfg: ModelConfig, n: int, batch: int) -> Params:

@@ -2,7 +2,8 @@
 
 Ported from ``repro/models/registry.py`` for every family of the zoo:
 dense, moe and vlm (``transformer``), ssm (``mamba2``), hybrid
-(``hybrid``) and encdec (``whisper``).  Every model module exposes
+(``hybrid``) and encdec (``whisper``); and the port's own granite_hybrid
+(``granite_hybrid``, one rank).  Every model module exposes
 ``param_defs``, ``forward``, ``cache_defs``, ``prefill`` and ``decode``
 with the signatures of the JAX package (``pos`` is a Python int).  The
 modality frontends (whisper's mel conv, llava's vision tower) are stubs,
@@ -24,7 +25,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, RunConfig, ShapeConfig
 from repro_torch.core import obs
-from repro_torch.models import hybrid, mamba2, transformer, whisper
+from repro_torch.models import (granite_hybrid, hybrid, mamba2, transformer,
+                                whisper)
 from repro_torch.sharding import rules as SR
 
 Params = Dict[str, Any]
@@ -37,14 +39,19 @@ _FAMILY_MODULES: Dict[str, ModuleType] = {
     "hybrid": hybrid,
     "encdec": whisper,
 }
+# the families of the port's own archs (``configs.base.register_port_only``)
+_PORT_FAMILY_MODULES: Dict[str, ModuleType] = {
+    "granite_hybrid": granite_hybrid,
+}
 
 
 def module_for(cfg: ModelConfig) -> ModuleType:
-    try:
-        return _FAMILY_MODULES[cfg.family]
-    except KeyError:
+    mod = _FAMILY_MODULES.get(cfg.family) or _PORT_FAMILY_MODULES.get(
+        cfg.family)
+    if mod is None:
         raise NotImplementedError(
-            f"model family {cfg.family!r} is not ported yet") from None
+            f"model family {cfg.family!r} is not ported yet")
+    return mod
 
 
 def param_defs(cfg: ModelConfig) -> Params:
